@@ -1,0 +1,270 @@
+"""GPT-2 family as ``nn.Module``s: the serving slice's model.
+
+Counterpart of ``ray_tpu/models/gpt2.py`` with the same numerics:
+
+  - module paths are flax's (``h_{i}.attn.c_attn`` ...), so weights
+    carry across with ``params_from_flax``; a flax Dense kernel is
+    [in, out] and lands transposed in ``nn.Linear.weight`` [out, in];
+  - Dense and Embed weights are stored in ``cfg.dtype``: flax keeps
+    them in f32 and casts them to ``cfg.dtype`` on every call, and
+    rounding once at load gives the same values;
+  - LayerNorm is flax's: eps 1e-6, computed and returned in f32;
+  - GELU is the tanh approximation;
+  - the LM head is tied to ``wte`` and, like flax's ``Embed.attend``,
+    multiplies in ``cfg.dtype``, so bf16 models give bf16 logits.
+
+The full forward supports ``attention_backend="reference"`` only; the
+flash kernels come with the training slice. With ``kv_cache`` the
+forward is one incremental step over a contiguous cache
+(``init_kv_cache``) or one layer of a paged pool (the serve engine).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ray_tpu_torch.ops.attention import (attention_reference,
+                                         cached_attention,
+                                         paged_attention_decode)
+
+
+@dataclasses.dataclass(frozen=True)
+class GPT2Config:
+    vocab_size: int = 50257
+    n_positions: int = 1024
+    n_embd: int = 768
+    n_layer: int = 12
+    n_head: int = 12
+    dropout: float = 0.0
+    dtype: Any = torch.bfloat16
+    attention_backend: str = "flash"  # flash (training slice) | reference
+
+    @classmethod
+    def small(cls):  # gpt2 124M
+        return cls()
+
+    @classmethod
+    def medium(cls):
+        return cls(n_embd=1024, n_layer=24, n_head=16)
+
+    @classmethod
+    def large(cls):
+        return cls(n_embd=1280, n_layer=36, n_head=20)
+
+    @classmethod
+    def tiny(cls, vocab_size: int = 512):  # tests
+        return cls(vocab_size=vocab_size, n_positions=256, n_embd=128,
+                   n_layer=2, n_head=4, dtype=torch.float32,
+                   attention_backend="reference")
+
+
+class Dense(nn.Linear):
+    """flax ``nn.Dense(dtype=...)``: input cast to the weight's dtype."""
+
+    def forward(self, x):
+        return super().forward(x.to(self.weight.dtype))
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax ``nn.LayerNorm(dtype=float32)``: eps 1e-6, f32 in and out."""
+
+    def __init__(self, n: int):
+        super().__init__(n, eps=1e-6, dtype=torch.float32)
+
+    def forward(self, x):
+        return super().forward(x.float())
+
+
+class CausalSelfAttention(nn.Module):
+    def __init__(self, cfg: GPT2Config):
+        super().__init__()
+        self.cfg = cfg
+        self.c_attn = Dense(cfg.n_embd, 3 * cfg.n_embd, dtype=cfg.dtype)
+        self.c_proj = Dense(cfg.n_embd, cfg.n_embd, dtype=cfg.dtype)
+        self.drop = nn.Dropout(cfg.dropout)
+
+    def forward(self, x, kv_cache=None, seq_lengths=None, valid=None,
+                paged_decode=paged_attention_decode):
+        cfg = self.cfg
+        B, S, E = x.shape
+        H = cfg.n_head
+        q, k, v = self.c_attn(x).split(E, dim=-1)
+        if kv_cache is not None:
+            def tok(t):  # [B,S,E] -> [B,S,H,D]
+                return t.reshape(B, S, H, E // H)
+            y, kv_cache = cached_attention(
+                tok(q), tok(k), tok(v), kv_cache, seq_lengths, valid=valid,
+                paged_decode=paged_decode)
+            return self.drop(self.c_proj(y.reshape(B, S, E))), kv_cache
+        if cfg.attention_backend != "reference":
+            raise NotImplementedError(
+                f"attention_backend={cfg.attention_backend!r}: the flash "
+                "kernels are ported with the training slice (ROADMAP.md "
+                "Queue B); use 'reference'")
+
+        def heads(t):  # [B,S,E] -> [B,H,S,D]
+            return t.reshape(B, S, H, E // H).transpose(1, 2)
+        y = attention_reference(heads(q), heads(k), heads(v), causal=True)
+        y = y.transpose(1, 2).reshape(B, S, E)
+        return self.drop(self.c_proj(y))
+
+
+class MLP(nn.Module):
+    def __init__(self, cfg: GPT2Config):
+        super().__init__()
+        self.c_fc = Dense(cfg.n_embd, 4 * cfg.n_embd, dtype=cfg.dtype)
+        self.c_proj = Dense(4 * cfg.n_embd, cfg.n_embd, dtype=cfg.dtype)
+        self.drop = nn.Dropout(cfg.dropout)
+
+    def forward(self, x):
+        h = F.gelu(self.c_fc(x), approximate="tanh")
+        return self.drop(self.c_proj(h))
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: GPT2Config):
+        super().__init__()
+        self.ln_1 = LayerNorm(cfg.n_embd)
+        self.attn = CausalSelfAttention(cfg)
+        self.ln_2 = LayerNorm(cfg.n_embd)
+        self.mlp = MLP(cfg)
+
+    def forward(self, x, kv_cache=None, seq_lengths=None, valid=None,
+                paged_decode=paged_attention_decode):
+        if kv_cache is not None:
+            y, kv_cache = self.attn(self.ln_1(x), kv_cache, seq_lengths,
+                                    valid, paged_decode)
+            x = x + y
+            return x + self.mlp(self.ln_2(x)), kv_cache
+        x = x + self.attn(self.ln_1(x))
+        return x + self.mlp(self.ln_2(x))
+
+
+class GPT2(nn.Module):
+    def __init__(self, cfg: GPT2Config):
+        super().__init__()
+        self.cfg = cfg
+        self.wte = nn.Embedding(cfg.vocab_size, cfg.n_embd, dtype=cfg.dtype)
+        self.wpe = nn.Embedding(cfg.n_positions, cfg.n_embd,
+                                dtype=cfg.dtype)
+        self.drop = nn.Dropout(cfg.dropout)
+        for i in range(cfg.n_layer):
+            self.add_module(f"h_{i}", Block(cfg))
+        self.ln_f = LayerNorm(cfg.n_embd)
+
+    def blocks(self):
+        return [getattr(self, f"h_{i}") for i in range(self.cfg.n_layer)]
+
+    def trunk(self, input_ids, positions=None, kv_cache=None,
+              seq_lengths=None, valid=None,
+              paged_decode=paged_attention_decode):
+        """Everything before the LM head: ``ln_f`` output, f32 [B,S,E].
+        With ``kv_cache`` (a list of per-layer caches, updated in place)
+        the S tokens are one incremental step after ``seq_lengths``
+        cached tokens; ``valid`` marks real tokens when S is padded."""
+        B, S = input_ids.shape
+        dev = input_ids.device
+        if positions is None:
+            ar = torch.arange(S, device=dev)[None, :]
+            if kv_cache is not None:
+                positions = seq_lengths[:, None].long() + ar
+                if valid is not None:
+                    positions = torch.where(valid, positions, 0)
+            else:
+                positions = ar
+        x = self.drop(self.wte(input_ids) + self.wpe(positions))
+        for i, block in enumerate(self.blocks()):
+            if kv_cache is not None:
+                x, _ = block(x, kv_cache[i], seq_lengths, valid,
+                             paged_decode)
+            else:
+                x = block(x)
+        return self.ln_f(x)
+
+    def head(self, h):
+        """Weight-tied LM head in ``cfg.dtype`` (flax ``Embed.attend``)."""
+        w = self.wte.weight
+        return h.to(w.dtype) @ w.T
+
+    def forward(self, input_ids, positions=None, kv_cache=None,
+                seq_lengths=None, valid=None,
+                paged_decode=paged_attention_decode):
+        """Full forward (logits) or, with ``kv_cache``, one incremental
+        step returning ``(logits, kv_cache)``; the caches are updated in
+        place. Prefill is the ``seq_lengths == 0`` case."""
+        logits = self.head(self.trunk(input_ids, positions, kv_cache,
+                                      seq_lengths, valid, paged_decode))
+        return (logits, kv_cache) if kv_cache is not None else logits
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator):
+        """flax's initialisers, drawn from ``generator``: lecun-normal
+        Dense kernels (normal truncated at 2 sigma), zero biases,
+        LayerNorm ones and zeros, Embed's normal(1 / sqrt(features))."""
+        for mod in self.modules():
+            if isinstance(mod, Dense):
+                std = math.sqrt(1.0 / mod.in_features) / .87962566103423978
+                w = torch.empty(mod.weight.shape)
+                nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+                                      generator=generator)
+                mod.weight.copy_(w)
+                mod.bias.zero_()
+            elif isinstance(mod, nn.Embedding):
+                w = torch.empty(mod.weight.shape)
+                nn.init.normal_(w, std=mod.embedding_dim ** -0.5,
+                                generator=generator)
+                mod.weight.copy_(w)
+            elif isinstance(mod, LayerNorm):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+        return self
+
+
+def init_kv_cache(cfg: GPT2Config, batch_size: int, max_len: int,
+                  device="cpu"):
+    """Per-layer contiguous KV caches for incremental decode ([B, S_max,
+    H, D] token-major, the layout the paged pool shares)."""
+    hd = cfg.n_embd // cfg.n_head
+    shape = (batch_size, max_len, cfg.n_head, hd)
+    return [{"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+            for _ in range(cfg.n_layer)]
+
+
+def params_from_flax(tree: Dict[str, Any],
+                     model: Optional[GPT2] = None) -> Dict[str, torch.Tensor]:
+    """flax GPT-2 params (``{"params": {...}}``, arrays or anything
+    ``np.asarray`` takes) -> this module's ``state_dict`` in f32. With
+    ``model`` the weights are also loaded into it (cast to its dtypes)."""
+    p = tree["params"]
+
+    def t(x, transpose=False):
+        a = torch.from_numpy(np.array(np.asarray(x), np.float32))
+        return a.T.contiguous() if transpose else a
+
+    sd: Dict[str, torch.Tensor] = {
+        "wte.weight": t(p["wte"]["embedding"]),
+        "wpe.weight": t(p["wpe"]["embedding"]),
+        "ln_f.weight": t(p["ln_f"]["scale"]),
+        "ln_f.bias": t(p["ln_f"]["bias"]),
+    }
+    layers = sorted(k for k in p if k.startswith("h_"))
+    for name in layers:
+        blk = p[name]
+        for ln in ("ln_1", "ln_2"):
+            sd[f"{name}.{ln}.weight"] = t(blk[ln]["scale"])
+            sd[f"{name}.{ln}.bias"] = t(blk[ln]["bias"])
+        for path in ("attn.c_attn", "attn.c_proj", "mlp.c_fc", "mlp.c_proj"):
+            sub, dense = path.split(".")
+            sd[f"{name}.{path}.weight"] = t(blk[sub][dense]["kernel"], True)
+            sd[f"{name}.{path}.bias"] = t(blk[sub][dense]["bias"])
+    if model is not None:
+        model.load_state_dict(sd)
+    return sd

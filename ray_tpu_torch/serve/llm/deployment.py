@@ -1,0 +1,170 @@
+"""LLMServer — the serve deployment callable hosting one engine.
+
+Counterpart of ``ray_tpu/serve/llm/deployment.py``. A replica holds an
+``LLMEngine`` (continuous batching + paged KV cache) and exposes it
+through the replica request methods:
+
+  ``__call__(payload)``            unary generate
+  ``__llm_open__(payload)``        start a stream -> {"stream_id"}
+  ``__llm_next__(sid, cursor, w)`` cursor poll -> token delta
+  ``__llm_cancel__(sid)``          abandon a stream
+  ``__llm_metrics__()``            engine metrics + token ledger
+
+Serve integration hooks:
+
+  ``__serve_load__``         in-flight sequences count as queue depth
+                             (KV-aware graceful drain) and the ``llm``
+                             metrics ride along
+  ``__serve_prepare_drain__`` engine stops admitting, finishes decodes
+  ``__serve_drain_exempt__``  stream polls stay answerable while
+                             draining
+
+Not ported yet (ROADMAP.md Queue A item 7): the disaggregation hops
+``__llm_prefill__`` / ``__llm_adopt__`` (they need the KV shipper) and
+the token-ledger flush at shutdown.
+
+Payload schema (dict): ``prompt`` (str, byte-tokenized) or ``tokens``
+(list[int]); optional ``max_new_tokens``, ``temperature``, ``seed``,
+``stop_token``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Union
+
+from ray_tpu_torch.serve.llm.engine import (EngineConfig, LLMEngine,
+                                            SamplingParams)
+from ray_tpu_torch.serve.llm.model_runner import make_adapter
+
+
+class ByteTokenizer:
+    """Dependency-free fallback: UTF-8 bytes, mod vocab. Real models
+    bring their own tokenizer; the toy/test path just needs a stable
+    string <-> tokens round trip."""
+
+    def __init__(self, vocab_size: int):
+        self.vocab_size = vocab_size
+
+    def encode(self, text: str) -> List[int]:
+        return [b % self.vocab_size for b in text.encode("utf-8")]
+
+    def decode(self, tokens: List[int]) -> str:
+        return bytes(t % 256 for t in tokens).decode("utf-8", "replace")
+
+
+class LLMServer:
+    """Deployment callable: one engine per replica. ``model`` is
+    ``toy`` or ``gpt2``; ``model_config`` goes to the adapter (for
+    ``gpt2``: ``config``, ``params``, ``seed``, ``device``, which
+    defaults to ``cuda``). ``max_seq_len`` is capped at the model's
+    position count."""
+
+    # in-flight streams must drain their remaining tokens while the
+    # replica drains
+    __serve_drain_exempt__ = ("__llm_next__", "__llm_cancel__",
+                              "__llm_metrics__")
+    __serve_wants_request_id__ = True
+
+    def __init__(self, model: str = "toy",
+                 model_config: Optional[Dict[str, Any]] = None,
+                 engine_config: Optional[Dict[str, Any]] = None):
+        self.adapter = make_adapter(model, model_config)
+        cfg = EngineConfig(**(engine_config or {}))
+        limit = getattr(self.adapter, "max_seq_len", None)
+        if limit is not None and cfg.max_seq_len > limit:
+            cfg = dataclasses.replace(cfg, max_seq_len=limit)
+        self.engine = LLMEngine(self.adapter, cfg)
+        self.tokenizer = ByteTokenizer(self.adapter.vocab_size)
+        self.model = model
+
+    # ------------------------------------------------------------ intake
+
+    def _tokens_of(self, payload: Union[Dict[str, Any], str, list]
+                   ) -> List[int]:
+        if isinstance(payload, str):
+            return self.tokenizer.encode(payload)
+        raw = None
+        if isinstance(payload, list):
+            raw = payload
+        elif isinstance(payload, dict):
+            if payload.get("tokens") is not None:
+                raw = payload["tokens"]
+            elif payload.get("prompt") is not None:
+                return self.tokenizer.encode(str(payload["prompt"]))
+        if raw is None:
+            raise ValueError(
+                "LLM payload needs 'prompt' (str) or 'tokens' (list[int])")
+        tokens = [int(t) for t in raw]
+        vocab = self.adapter.vocab_size
+        # an id past the embedding table would be a device-side fault
+        if any(not 0 <= t < vocab for t in tokens):
+            raise ValueError(f"token ids must lie in [0, {vocab})")
+        return tokens
+
+    def _open(self, payload, request_id: Optional[str]) -> str:
+        sampling = (SamplingParams.from_payload(payload)
+                    if isinstance(payload, dict) else SamplingParams())
+        return self.engine.add_request(
+            self._tokens_of(payload), sampling, request_id=request_id)
+
+    # --------------------------------------------------------- serve API
+
+    def __call__(self, payload=None, __rtpu_request_id__=None):
+        """Unary generation."""
+        sid = self._open(payload or {}, __rtpu_request_id__)
+        cursor = 0
+        tokens: List[int] = []
+        ttft = None
+        while True:
+            chunk = self.engine.poll(sid, cursor, max_wait_s=30.0)
+            tokens.extend(chunk["tokens"])
+            cursor = chunk["cursor"]
+            if chunk.get("ttft_s") is not None:
+                ttft = chunk["ttft_s"]
+            if chunk["done"]:
+                if chunk.get("error"):
+                    raise RuntimeError(
+                        f"generation failed: {chunk['error']}")
+                out = {"tokens": tokens, "n_tokens": len(tokens),
+                       "finish_reason": chunk.get("finish_reason"),
+                       "text": self.tokenizer.decode(tokens)}
+                if ttft is not None:
+                    out["ttft_s"] = ttft
+                return out
+
+    def __llm_open__(self, payload=None, __rtpu_request_id__=None):
+        return {"stream_id": self._open(payload or {}, __rtpu_request_id__)}
+
+    def __llm_next__(self, stream_id: str, cursor: int = 0,
+                     max_wait_s: float = 10.0):
+        chunk = self.engine.poll(stream_id, int(cursor),
+                                 max_wait_s=float(max_wait_s))
+        if chunk["tokens"]:
+            chunk["text"] = self.tokenizer.decode(chunk["tokens"])
+        return chunk
+
+    def __llm_cancel__(self, stream_id: str):
+        return {"cancelled": self.engine.cancel(stream_id)}
+
+    def __llm_metrics__(self):
+        m = self.engine.metrics()
+        m["token_ledger"] = self.engine.token_ledger()
+        return m
+
+    # ------------------------------------------------- serve integration
+
+    def __serve_load__(self) -> Dict[str, Any]:
+        m = self.engine.metrics()
+        return {"queue_len_extra": m["running"] + m["waiting"], "llm": m}
+
+    def __serve_prepare_drain__(self):
+        self.engine.prepare_drain()
+
+    def __serve_prepare_shutdown__(self, replica_name: str = ""):
+        self.engine.stop()
+
+    def check_health(self):
+        if not self.engine._thread.is_alive():
+            raise RuntimeError("LLM engine thread died")
+        return "ok"

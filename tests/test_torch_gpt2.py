@@ -1,0 +1,173 @@
+"""The port's GPT-2 against the JAX package's, on the CPU.
+
+A flax ``GPT2Config.tiny()`` model is initialised from a seed, its
+params are carried across with ``params_from_flax``, and the same
+token ids go through both: the full forward, and prefill plus four
+single-token decode steps over a paged cache. f32 logits agree within
+1e-4 (as ``test_llm_serving.py`` holds the JAX incremental path to its
+full forward).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from ray_tpu.models import gpt2 as JG
+from ray_tpu_torch.models import gpt2 as TG
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+B, BS, NB = 2, 4, 8          # paged cache: 2 sequences of up to 32 tokens
+
+
+def _models(dtype=None):
+    cfg_j, cfg_t = JG.GPT2Config.tiny(), TG.GPT2Config.tiny()
+    if dtype is not None:
+        cfg_j = dataclasses.replace(cfg_j, dtype=getattr(jnp, dtype))
+        cfg_t = dataclasses.replace(cfg_t, dtype=getattr(torch, dtype))
+    mj = JG.GPT2(cfg_j)
+    params = mj.init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))
+    mt = TG.GPT2(cfg_t)
+    TG.params_from_flax(params, mt)
+    return mj, params, mt.eval()
+
+
+def _ids(n=10):
+    return np.random.RandomState(1).randint(0, 512, (B, n)).astype(np.int32)
+
+
+def test_params_from_flax_names_and_layouts():
+    mj, params, mt = _models()
+    sd = TG.params_from_flax(params)
+    assert set(sd) == set(mt.state_dict())
+    kern = np.asarray(params["params"]["h_1"]["attn"]["c_attn"]["kernel"])
+    assert sd["h_1.attn.c_attn.weight"].shape == kern.T.shape
+    np.testing.assert_array_equal(sd["h_1.attn.c_attn.weight"].numpy(),
+                                  kern.T)
+    np.testing.assert_array_equal(
+        mt.ln_f.weight.detach().numpy(),
+        np.asarray(params["params"]["ln_f"]["scale"]))
+
+
+def test_full_forward_matches_flax():
+    mj, params, mt = _models()
+    ids = _ids()
+    with torch.no_grad():
+        out = mt(torch.from_numpy(ids).long())
+    np.testing.assert_allclose(out.numpy(),
+                               np.asarray(mj.apply(params, ids)), **TOL)
+
+
+def _paged_caches_jax(cfg):
+    hd = cfg.n_embd // cfg.n_head
+    shape = (1 + B * NB, BS, cfg.n_head, hd)
+    tables = jnp.asarray(np.arange(1, 1 + B * NB).reshape(B, NB), jnp.int32)
+    return [{"k_pages": jnp.zeros(shape, cfg.dtype),
+             "v_pages": jnp.zeros(shape, cfg.dtype),
+             "block_tables": tables} for _ in range(cfg.n_layer)]
+
+
+def _paged_caches_torch(cfg):
+    hd = cfg.n_embd // cfg.n_head
+    shape = (1 + B * NB, BS, cfg.n_head, hd)
+    tables = torch.arange(1, 1 + B * NB, dtype=torch.int32).reshape(B, NB)
+    return [{"k_pages": torch.zeros(shape, dtype=cfg.dtype),
+             "v_pages": torch.zeros(shape, dtype=cfg.dtype),
+             "block_tables": tables} for _ in range(cfg.n_layer)]
+
+
+def test_prefill_and_paged_decode_match_flax():
+    """Ragged prefill (right-padded to 8 with ``valid``, as the adapters
+    bucket it) then 4 single-token decode steps; the port's decode steps
+    go through ``paged_attention_decode`` (its plain version here)."""
+    mj, params, mt = _models()
+    ids = _ids(12)
+    n_prompt = np.asarray([6, 3], np.int32)
+    S = 8
+    valid = np.arange(S)[None, :] < n_prompt[:, None]
+    prompt = np.where(valid, ids[:, :S], 0)
+    cj, ct = _paged_caches_jax(mj.config), _paged_caches_torch(mt.cfg)
+
+    lj, cj = mj.apply(params, jnp.asarray(prompt), kv_cache=cj,
+                      seq_lengths=jnp.zeros((B,), jnp.int32),
+                      valid=jnp.asarray(valid))
+    with torch.no_grad():
+        lt, _ = mt(torch.from_numpy(prompt).long(), kv_cache=ct,
+                   seq_lengths=torch.zeros(B, dtype=torch.int32),
+                   valid=torch.from_numpy(valid))
+    rows = np.arange(B)
+    np.testing.assert_allclose(lt.numpy()[rows, n_prompt - 1],
+                               np.asarray(lj)[rows, n_prompt - 1], **TOL)
+
+    lens = n_prompt.copy()
+    for step in range(4):
+        tok = ids[rows, lens][:, None]
+        lj, cj = mj.apply(params, jnp.asarray(tok), kv_cache=cj,
+                          seq_lengths=jnp.asarray(lens))
+        with torch.no_grad():
+            lt, _ = mt(torch.from_numpy(tok).long(), kv_cache=ct,
+                       seq_lengths=torch.from_numpy(lens))
+        np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL)
+        lens = lens + 1
+
+    # and the incremental logits equal the port's own full forward
+    with torch.no_grad():
+        full = mt(torch.from_numpy(ids[:1, :lens[0]]).long())
+    np.testing.assert_allclose(lt.numpy()[0, 0], full.numpy()[0, -1], **TOL)
+
+
+def test_contiguous_cache_decode_matches_full_forward():
+    """``init_kv_cache`` (contiguous caches): prefill 6, decode 4."""
+    _, _, mt = _models()
+    ids = torch.from_numpy(_ids()).long()
+    cache = TG.init_kv_cache(mt.cfg, B, 32)
+    L = torch.zeros(B, dtype=torch.int32)
+    with torch.no_grad():
+        full = mt(ids)
+        lg, cache = mt(ids[:, :6], kv_cache=cache, seq_lengths=L)
+        outs, L = [lg], L + 6
+        for t in range(6, 10):
+            lg, cache = mt(ids[:, t:t + 1], kv_cache=cache, seq_lengths=L)
+            outs.append(lg)
+            L = L + 1
+    torch.testing.assert_close(torch.cat(outs, 1), full, **TOL)
+
+
+def test_bf16_full_forward_matches_flax():
+    """bf16 compute: the frameworks round at different places (fused
+    bias adds, GELU and LayerNorm inputs), so logits of magnitude ~1
+    agree to a few bf16 ulps: within 6e-2."""
+    mj, params, mt = _models("bfloat16")
+    ids = _ids()
+    with torch.no_grad():
+        out = mt(torch.from_numpy(ids).long())
+    ref = mj.apply(params, ids)
+    assert out.dtype == torch.bfloat16 and ref.dtype == jnp.bfloat16
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref, np.float32),
+                               rtol=6e-2, atol=6e-2)
+
+
+def test_flash_backend_not_ported_yet():
+    mt = TG.GPT2(dataclasses.replace(TG.GPT2Config.tiny(),
+                                     attention_backend="flash"))
+    with pytest.raises(NotImplementedError, match="training slice"):
+        mt(torch.zeros((1, 8), dtype=torch.long))
+
+
+def test_init_weights_follows_flax_distributions():
+    cfg = dataclasses.replace(TG.GPT2Config.tiny(), n_embd=256)
+    m = TG.GPT2(cfg).init_weights(torch.Generator().manual_seed(0))
+    m.requires_grad_(False)
+    w = m.h_0.mlp.c_fc.weight            # [out, in], fan_in = 256
+    assert float(w.abs().max()) <= 2 * (256 ** -0.5) / .87962566103423978
+    assert abs(float(w.std()) - 256 ** -0.5) < 0.1 * 256 ** -0.5
+    assert float(m.wte.weight.std()) == pytest.approx(256 ** -0.5, rel=0.1)
+    assert float(m.h_0.attn.c_attn.bias.abs().max()) == 0.0
+    assert float(m.ln_f.weight.min()) == 1.0
+    again = TG.GPT2(cfg).init_weights(torch.Generator().manual_seed(0))
+    assert torch.equal(again.h_1.attn.c_proj.weight, m.h_1.attn.c_proj.weight)

@@ -1,0 +1,68 @@
+"""The port stands alone: no module of ``ray_tpu_torch/`` and not
+``chip_smoke.py`` imports JAX, flax, optax or the JAX package.
+
+Checked on the source (AST), not on ``sys.modules``: a process may
+have JAX loaded for reasons of its own.
+"""
+
+import ast
+import os
+
+import pytest
+
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ray_tpu")
+
+
+def _port_files():
+    files = [os.path.join(REPO_ROOT, "chip_smoke.py")]
+    for root, _dirs, names in os.walk(os.path.join(REPO_ROOT,
+                                                   "ray_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def _imported_roots(path):
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module or ""
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield node.lineno, str(node.args[0].value)
+
+
+def _forbidden(module):
+    root = module.split(".")[0]
+    return root in FORBIDDEN
+
+
+def test_port_files_found():
+    files = _port_files()
+    rel = {os.path.relpath(f, REPO_ROOT) for f in files}
+    assert "chip_smoke.py" in rel
+    assert "ray_tpu_torch/ops/attention.py" in rel
+    assert len(files) > 10
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, REPO_ROOT))
+def test_no_jax_or_ray_tpu_imports(path):
+    bad = [f"{os.path.relpath(path, REPO_ROOT)}:{line}: {mod}"
+           for line, mod in _imported_roots(path) if _forbidden(mod)]
+    assert bad == []
+
+
+def test_checker_catches_forbidden_imports(tmp_path):
+    p = tmp_path / "m.py"
+    p.write_text("import jax.numpy as jnp\nfrom ray_tpu.ops import x\n"
+                 "from ray_tpu_torch.ops import y\nimport flax\n"
+                 "import importlib\nimportlib.import_module('optax')\n")
+    found = [m for _, m in _imported_roots(str(p)) if _forbidden(m)]
+    assert found == ["jax.numpy", "ray_tpu.ops", "flax", "optax"]
