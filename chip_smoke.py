@@ -5,24 +5,46 @@
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
-1. device  — a CUDA card of compute capability 9.0; prints its name and
-             power limit (nvidia-smi); TF32 off for the f32 checks.
-2. build   — compiles every kernel in ray_tpu_torch/kernels/csrc from
-             the checkout, one nvcc per source, in parallel.
-3. kernel  — each kernel's wrapper against its plain PyTorch version on
-             the card, at the serving path's shapes and more: max error,
-             kernel / plain time (CUDA events, L2 flushed between
-             launches) and the least time the card could take.
-4. serve   — GPT-2 small at full width and depth (random weights from a
-             seed) behind the port's LLMServer: 16 concurrent streams of
-             64 greedy tokens. Launch counts are zeroed just before and
-             read just after: the paged-decode kernel must account for
-             every layer of every decode step.
+1. device   — a CUDA card of compute capability 9.0; prints its name and
+              power limit (nvidia-smi); TF32 off for the f32 checks.
+2. build    — compiles every kernel in ray_tpu_torch/kernels/csrc from
+              the checkout, one nvcc per source, in parallel.
+3. kernel   — each kernel's wrapper against its plain PyTorch version on
+              the card, at the main paths' shapes and more: max error
+              against a stated tolerance, kernel / plain / library time
+              (CUDA events, L2 flushed between launches) and the least
+              time the card could take. Paged decode at the serving
+              shapes; the whole-kv attention forward and backward at
+              GPT-2 training's b16 h12 s1024 d64 bf16, at the entry
+              shape b4 h12 s512, at a small f32 shape and at shapes
+              whose scaled logits pass the 50 cap (f32 and bf16). In
+              bf16 the kernel and its plain version are both held to
+              the function in f64 (whole_case).
+4. serve    — GPT-2 small at full width and depth (random weights from a
+              seed) behind the port's LLMServer: 16 concurrent streams of
+              64 greedy tokens. Launch counts are zeroed just before and
+              read just after: the paged-decode kernel must account for
+              every layer of every decode step.
 5. numerics — the same GPT-2 cast to f32: one batched decode step
-             through the kernel against the same step with the plain
-             version passed explicitly, and against the full forward.
-6. summary — nvidia-smi's card line, the kernels line, then the
-             device line, last.
+              through the kernel against the same step with the plain
+              version passed explicitly, and against the full forward.
+6. train    — make_causal_lm_trainer(GPT2Config.small()) on the card,
+              batch 16 x 1024 of seeded tokens: warm-up steps, then
+              timed windows with the launch counts zeroed before and
+              read after (each whole-kv kernel exactly n_layer times a
+              step); the loss is finite and falls on the repeated
+              batch. Prints bench.py's gpt2_* keys and peak memory,
+              then one profiled step's device time by kernel group.
+7. train numerics — GPT-2 at full width, 2 layers, TF32 off: one
+              trainer step through the kernels against one through
+              their plain versions (passed explicitly), in f32 (loss,
+              grad_norm, grads, updated params) and in bf16 compute,
+              the training path's (loss, grad_norm, and grads held to
+              the f32 step; train_parity).
+8. entry    — ray_tpu_torch.entry.entry() on the card: logits
+              (4, 512, 50257), finite, one forward kernel per layer.
+9. summary  — nvidia-smi's card line, the kernels line, then the
+              device line, last.
 
 Exits non-zero without printing a result when CUDA is absent or when
 the repository's package is not beside this script.
@@ -43,6 +65,19 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core bf16
               "float32": 67e12}    # f32 outside the tensor cores
 SEED = 0
+# whole-kv kernels against their plain versions: f32 within F32_TOL of
+# each output's scale; bf16 within BF16_RATIO = (max, rms) times the
+# plain version's own error against the f64 yardstick (whole_case). In
+# a training step through them (train_parity): bf16 grads within
+# BF16_RATIO times the plain step's error against the f32 step, loss
+# and grad_norm within BF16_STEP_REL; f32 params within 1e-6 where the
+# plain step's |grad| passes PARAM_MASK. Measured on an H100 (PERF.md):
+# the bf16 ratios came to at most 1.55 (max) and 1.03 (rms); the
+# relative loss and grad_norm gaps to 7.1e-5.
+F32_TOL = 1e-5
+BF16_RATIO = (3.0, 1.25)
+BF16_STEP_REL = 5e-4
+PARAM_MASK = 1e-6
 
 
 def require(cond: bool, msg: str):
@@ -115,6 +150,276 @@ def paged_case(name, B, H, Hkv, D, bs, NB, lengths, dtype, tol, flush):
     return res
 
 
+def whole_bound(B, H, S, D, dtype, causal, backward):
+    """(bound_ms, bound_by, bytes, flops) of the whole-kv wrapper's
+    function, causal pairs only. Forward: q, k, v in, o and lse out;
+    s = q.k^T and e.v. Backward (the wrapper, delta included): q, k, v,
+    o, do and lse in, dq, dk, dv out; s, dp, dq, dk, dv."""
+    elt = 2 if dtype == "bfloat16" else 4
+    n = B * H * S * D
+    pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
+    if backward:
+        nbytes, flops = 8 * n * elt + B * H * S * 4, 10 * D * pairs
+    else:
+        nbytes, flops = 4 * n * elt + B * H * S * 4, 4 * D * pairs
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def whole_case(name, B, H, S, D, dtype, causal, flush, scale=1.0):
+    """Whole-kv forward and backward kernels against their plain
+    versions on one shape, for each of o, lse, dq, dk and dv:
+
+    f32   max |kernel - plain| <= F32_TOL * (1 + max |plain|): nothing
+          is rounded, the two only sum in another order;
+    bf16  both round e, p, ds and the outputs, so each is measured
+          against the function in f64 on the same inputs (the
+          ``whole_attention_*_f64`` yardsticks), and the kernel's max
+          and rms error may be at most BF16_RATIO times the plain
+          version's (``error_ratios``).
+
+    Both backwards start from the plain forward's o and lse, so each
+    kernel is held on its own. Returns the forward's and the
+    backward's measurements."""
+    import torch
+    import torch.nn.functional as F
+    from ray_tpu_torch.ops import attention as A
+    g = torch.Generator().manual_seed(SEED)
+    dt = getattr(torch, dtype)
+
+    def rand():
+        return (torch.randn(B, H, S, D, generator=g) * scale).to("cuda", dt)
+    q, k, v, do = rand(), rand(), rand(), rand()
+    q = (q * D ** -0.5).to(dt)      # pre-scaled, as flash_attention hands it
+    s_max = float(torch.einsum("bhqd,bhkd->bhqk", q.float(),
+                               k.float()).max())
+    o, lse = A.whole_attention_forward(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    ro, rlse = A.whole_attention_forward_reference(q, k, v, causal=causal)
+    grads = A.whole_attention_backward(q, k, v, ro, rlse, do, causal=causal)
+    torch.cuda.synchronize()
+    rgrads = A.whole_attention_backward_reference(q, k, v, ro, rlse, do,
+                                                  causal=causal)
+    outs = {"o": (o, ro), "lse": (lse, rlse),
+            **{n: p for n, p in zip(("dq", "dk", "dv"), zip(grads, rgrads))}}
+    require(all(bool(torch.isfinite(a).all()) for a, _ in outs.values()),
+            f"{name}: non-finite kernel output")
+    abs_err = {n: float((a.float() - b.float()).abs().max())
+               for n, (a, b) in outs.items()}
+    if dtype == "float32":
+        tol = F32_TOL
+        held = {n: abs_err[n] / (1 + float(b.float().abs().max()))
+                for n, (_, b) in outs.items()}
+        bad = [n for n, x in held.items() if x > tol]
+    else:
+        tol = BF16_RATIO
+        refs = dict(zip(("o", "lse"), A.whole_attention_forward_f64(
+            q, k, v, causal=causal)))
+        refs.update(zip(("dq", "dk", "dv"), A.whole_attention_backward_f64(
+            q, k, v, ro, rlse, do, causal=causal)))
+        held = {n: A.error_ratios(a, b, refs[n])
+                for n, (a, b) in outs.items()}
+        del refs
+        bad = [n for n, (r_max, r_rms) in held.items()
+               if r_max > tol[0] or r_rms > tol[1]]
+    print("kernel_check", json.dumps({"case": name, "dtype": dtype,
+                                      "max_abs_err": abs_err, "held": held,
+                                      "tol": tol}), flush=True)
+    require(not bad, f"{name}: {bad} outside {tol}: {held}")
+    f_abs = max(abs_err["o"], abs_err["lse"])
+    b_abs = max(abs_err[n] for n in ("dq", "dk", "dv"))
+
+    ms_f = time_ms(lambda: A.whole_attention_forward(q, k, v, causal=causal),
+                   flush)
+    plain_f = time_ms(lambda: A.whole_attention_forward_reference(
+        q, k, v, causal=causal), flush, iters=5)
+    ms_b = time_ms(lambda: A.whole_attention_backward(
+        q, k, v, ro, rlse, do, causal=causal), flush)
+    plain_b = time_ms(lambda: A.whole_attention_backward_reference(
+        q, k, v, ro, rlse, do, causal=causal), flush, iters=5)
+    # the library call, timed here and never called by the port
+    lib_f = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=causal, scale=1.0), flush)
+    qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=causal,
+                                         scale=1.0)
+    lib_b = time_ms(lambda: torch.autograd.grad(
+        out, (qq, kk, vv), do, retain_graph=True), flush)
+    del out
+    res = []
+    for kind, ms, plain, lib, ab in (
+            ("forward", ms_f, plain_f, lib_f, f_abs),
+            ("backward", ms_b, plain_b, lib_b, b_abs)):
+        bound, by, nbytes, flops = whole_bound(B, H, S, D, dtype, causal,
+                                               kind == "backward")
+        r = {"case": name, "kernel": f"whole_attention_{kind}",
+             "shape": [B, H, S, D], "dtype": dtype, "causal": causal,
+             "max_scaled_logit": s_max, "max_abs_err": ab,
+             "ms": ms, "plain_ms": plain,
+             "library_ms": lib, "bound_ms": bound, "bound_by": by,
+             "bytes": nbytes, "flops": flops}
+        print("kernel", json.dumps(r), flush=True)
+        res.append(r)
+    return res
+
+
+def profile_step(step) -> dict:
+    """Device time of one training step by kernel group, from the
+    kernel events of torch.profiler: the whole-kv kernels, matrix
+    products (cuBLAS/CUTLASS), and the rest (elementwise, reductions,
+    copies, the optimizer), with the ten largest kernels by name.
+    Informational; the step runs after the launch counts were read."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups = {"whole_kv_attention": 0.0, "matmul": 0.0, "other": 0.0}
+    by_name = {}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:    # kernels, copies, sets
+            continue
+        ms = ev.device_time_total / 1e3
+        low = ev.name.lower()
+        if "whole_fwd" in low or "whole_bwd" in low:
+            groups["whole_kv_attention"] += ms
+        elif any(w in low for w in ("gemm", "xmma", "cutlass", "nvjet",
+                                    "cublas", "sm90_")):
+            groups["matmul"] += ms
+        else:
+            groups["other"] += ms
+        tot, n = by_name.get(ev.name, (0.0, 0))
+        by_name[ev.name] = (tot + ms, n + 1)
+    busy = sum(groups.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    return {"wall_ms_profiled": wall_ms, "device_busy_ms": busy,
+            "device_idle_share": 1 - busy / wall_ms, "by_group_ms": groups,
+            "top_kernels": [{"ms": ms, "calls": n, "name": name[:90]}
+                            for name, (ms, n) in top]}
+
+
+def one_step(cfg, whole_kv, tokens) -> dict:
+    """One trainer step from the seeded init with the flash backend on
+    ``whole_kv``: loss, grad_norm, the params after the step, their
+    (clipped) grads and the launch counts of the step."""
+    from ray_tpu_torch import kernels
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.train import spmd
+    tr = spmd.make_causal_lm_trainer(cfg, model=gpt2.GPT2(cfg,
+                                                          whole_kv=whole_kv))
+    st = tr.init(SEED)
+    batch = spmd.put_batch(tr, {"input_ids": tokens, "labels": tokens})
+    kernels.reset_launch_counts()
+    st, m = tr.step(st, batch)
+    named = list(st["model"].named_parameters())
+    return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "params": {k: p.detach().clone() for k, p in named},
+            "grads": {k: p.grad.detach().clone() for k, p in named},
+            "launches": kernels.launch_counts()}
+
+
+def train_parity(cfg, tokens):
+    """Phase 7: the trainer's step through the whole-kv kernels against
+    the same step through their plain versions (GPT-2 at full width,
+    ``cfg.n_layer`` layers, the same seeded init and tokens), TF32 off.
+
+    f32 compute (the CUDA-core kernel bodies): nothing is rounded to
+    bf16, so loss and grad_norm agree within F32_TOL relative, and
+    each grad within F32_TOL of its tensor's largest entry. AdamW's
+    first step moves a param by lr * g / (|g| + eps) (and the decay,
+    the same on both sides), whose slope in g is lr * eps / (|g| +
+    eps)^2: where |g| is near eps = 1e-8, a grad that differs in its
+    last bits moves the param up to lr apart. So the params are held
+    to 1e-6 where the plain step's |g| > PARAM_MASK (= 100 eps; there
+    the slope is under 3 and the update ~lr, 300 times the bound, so
+    a step that left them unchanged fails), and the share of entries
+    left out is printed, with the key bias's largest grad: its true
+    grad is 0 (softmax ignores a shift common to a row).
+
+    bf16 compute (the training path's dtype and tensor-core bodies):
+    each leaf's grad is measured against the f32 plain step's, and the
+    kernels' max and rms error may be at most BF16_RATIO times the
+    plain versions' (``error_ratios``); loss and grad_norm agree
+    within BF16_STEP_REL relative. The params are not compared: after
+    the first AdamW step a param moves by about lr times the sign of
+    its grad, which the grads check covers."""
+    import torch
+    from ray_tpu_torch.ops import attention as A
+    E = cfg.n_embd
+    want = {"whole_attention_forward": cfg.n_layer,
+            "whole_attention_backward": cfg.n_layer}
+    runs = {}
+    for dt in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, dtype=getattr(torch, dt))
+        for label, whole_kv in (("kernels", A.WHOLE_KV_KERNELS),
+                                ("plain", A.WHOLE_KV_PLAIN)):
+            r = one_step(c, whole_kv, tokens)
+            require(r["launches"] == (want if label == "kernels" else {}),
+                    f"{dt} {label} step launched {r['launches']}")
+            runs[dt, label] = r
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    k32, p32 = runs["float32", "kernels"], runs["float32", "plain"]
+    held = {n: g.abs() > PARAM_MASK for n, g in p32["grads"].items()}
+    p_diff = {n: (k32["params"][n] - p).abs()
+              for n, p in p32["params"].items()}
+    f32 = {"loss_rel": rel(k32["loss"], p32["loss"]),
+           "grad_norm_rel": rel(k32["grad_norm"], p32["grad_norm"]),
+           "grads_rel_to_tensor_max": max(
+               float((k32["grads"][n] - g).abs().max()
+                     / g.abs().max().clamp(min=1e-30))
+               for n, g in p32["grads"].items()),
+           "params_max_abs_err": max(
+               float(d[held[n]].max()) if held[n].any() else 0.0
+               for n, d in p_diff.items())}
+    f32_tol = {"loss_rel": F32_TOL, "grad_norm_rel": F32_TOL,
+               "grads_rel_to_tensor_max": F32_TOL,
+               "params_max_abs_err": 1e-6}
+    n_held = sum(int(m.sum()) for m in held.values())
+    n_all = sum(m.numel() for m in held.values())
+    left_out = {"share": 1 - n_held / n_all, "params_max_abs_err": max(
+        float(d[~held[n]].max()) if (~held[n]).any() else 0.0
+        for n, d in p_diff.items())}
+    key_grad = max(float(r["grads"][n][E:2 * E].abs().max())
+                   for r in (k32, p32) for n in r["grads"]
+                   if n.endswith("attn.c_attn.bias"))
+
+    k16, p16 = runs["bfloat16", "kernels"], runs["bfloat16", "plain"]
+    ratios = {n: A.error_ratios(k16["grads"][n], p16["grads"][n], g)
+              for n, g in p32["grads"].items()}
+    bf16 = {"loss_rel": rel(k16["loss"], p16["loss"]),
+            "grad_norm_rel": rel(k16["grad_norm"], p16["grad_norm"]),
+            "grads_max_ratio": max(r[0] for r in ratios.values()),
+            "grads_rms_ratio": max(r[1] for r in ratios.values())}
+    bf16_tol = {"loss_rel": BF16_STEP_REL, "grad_norm_rel": BF16_STEP_REL,
+                "grads_max_ratio": BF16_RATIO[0],
+                "grads_rms_ratio": BF16_RATIO[1]}
+    print("train_numerics", json.dumps({
+        "n_layer": cfg.n_layer, "batch": int(tokens.shape[0]),
+        "seq": int(tokens.shape[1]),
+        "steps": {f"{dt} {label}": {"loss": r["loss"],
+                                    "grad_norm": r["grad_norm"]}
+                  for (dt, label), r in runs.items()},
+        "float32": f32, "float32_tol": f32_tol,
+        "float32_params_left_out": left_out,
+        "key_bias_grad_max_abs": key_grad,
+        "bfloat16": bf16, "bfloat16_tol": bf16_tol,
+        "bfloat16_grad_ratios": ratios}), flush=True)
+    for what, got, tol in (("f32", f32, f32_tol), ("bf16", bf16, bf16_tol)):
+        bad = {k: v for k, v in got.items() if not v <= tol[k]}
+        require(not bad, f"{what} step, kernels vs plain: {bad} outside "
+                f"{tol}")
+
+
 def ragged(rng, B, lo, hi):
     lens = rng.randint(lo, hi + 1, size=B)
     lens[0], lens[-1] = lo, hi
@@ -160,6 +465,20 @@ def main() -> int:
                "bfloat16", 2e-2, flush)
     paged_case("c: test_llm_serving tiny", 3, 8, 2, 16, 8, 4, [5, 17, 30],
                "float32", 1e-4, flush)
+    # whole-kv attention (tolerances: see whole_case)
+    fwd_case, bwd_case = whole_case("a: train shape", 16, 12, 1024, 64,
+                                    "bfloat16", True, flush)
+    whole_case("b: entry shape", 4, 12, 512, 64, "bfloat16", True, flush)
+    whole_case("c: small f32", 2, 3, 256, 32, "float32", True, flush)
+    whole_case("c: small f32, not causal", 2, 3, 256, 32, "float32", False,
+               flush)
+    capped = whole_case("d: logits past the cap", 2, 2, 256, 64, "float32",
+                        True, flush, scale=8.0)
+    capped += whole_case("d: logits past the cap", 2, 2, 256, 64,
+                         "bfloat16", True, flush, scale=8.0)
+    require(min(c["max_scaled_logit"] for c in capped) > 50.0,
+            f"case d: max scaled logit {capped[0]['max_scaled_logit']} "
+            "does not reach the cap")
     del scratch
 
     # 4. serve GPT-2 small through the port's entry points
@@ -263,7 +582,107 @@ def main() -> int:
                                   "max_abs_err_vs_full_forward": err_full,
                                   "tol": 1e-3}), flush=True)
 
-    # 6. summary
+    del m32, caches, via_kernel, via_plain
+    torch.cuda.empty_cache()
+
+    # 6. train GPT-2 small through the port's trainer
+    from ray_tpu_torch.train import spmd
+    cfg = gpt2.GPT2Config.small()
+    batch, seq, warmup, windows, per_window = 16, 1024, 2, 3, 4
+    t0 = time.time()
+    trainer = spmd.make_causal_lm_trainer(cfg)      # device: cuda
+    state = trainer.init(SEED)
+    init_s = time.time() - t0
+    tokens = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (batch, seq), dtype=np.int32)
+    resident = spmd.put_batch(trainer, {"input_ids": tokens,
+                                        "labels": tokens})
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms = [], []
+    for _ in range(warmup):
+        state, m = trainer.step(state, resident)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    kernels.reset_launch_counts()
+    host_ms, dev_ms = [], []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        metrics = [trainer.step(state, resident)[1]
+                   for _ in range(per_window)]
+        e1.record()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3 / per_window)
+        dev_ms.append(e0.elapsed_time(e1) / per_window)
+        losses += [float(m["loss"]) for m in metrics]
+        norms += [float(m["grad_norm"]) for m in metrics]
+    train_counts = kernels.launch_counts()
+    n_steps = windows * per_window
+    peak = torch.cuda.max_memory_allocated()
+    require(all(math.isfinite(x) for x in losses + norms),
+            f"non-finite loss or grad norm: {losses} {norms}")
+    require(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    for kname in ("whole_attention_forward", "whole_attention_backward"):
+        require(train_counts.get(kname, 0) == cfg.n_layer * n_steps,
+                f"{kname} launched {train_counts.get(kname, 0)} times in "
+                f"{n_steps} steps of {cfg.n_layer} layers")
+    require(set(train_counts) == {"whole_attention_forward",
+                                  "whole_attention_backward"},
+            f"unexpected kernels on the training path: {train_counts}")
+    best = min(host_ms)
+    print("train", json.dumps({
+        "model": "gpt2-small", "gpt2_batch_per_chip": batch,
+        "gpt2_seq_len": seq, "gpt2_step_time_ms": best,
+        "gpt2_tokens_per_sec_per_chip": batch * seq / best * 1e3,
+        "host_ms_per_step_by_window": host_ms,
+        "device_ms_per_step_by_window": dev_ms, "init_s": init_s,
+        "losses": losses, "grad_norms": norms,
+        "launches": train_counts, "steps_counted": n_steps,
+        "max_memory_allocated_bytes": peak, "device": name,
+        "nvidia_smi": card}), flush=True)
+    print("train_profile", json.dumps(profile_step(
+        lambda: trainer.step(state, resident))), flush=True)
+    del trainer, state, resident, metrics, m
+    torch.cuda.empty_cache()
+
+    # 7. one training step through the kernels against one through
+    # their plain versions, in f32 and in bf16 compute
+    train_parity(dataclasses.replace(cfg, n_layer=2), tokens[:4])
+    torch.cuda.empty_cache()
+
+    # 8. the port's entry(): the (4, 512) GPT-2-small forward
+    from ray_tpu_torch.entry import entry
+    fn, args = entry()
+    kernels.reset_launch_counts()
+    logits = fn(*args)
+    torch.cuda.synchronize()
+    entry_counts = kernels.launch_counts()
+    require(tuple(logits.shape) == (4, 512, cfg.vocab_size)
+            and bool(torch.isfinite(logits).all()),
+            f"entry logits {tuple(logits.shape)} not finite")
+    require(entry_counts == {"whole_attention_forward": cfg.n_layer},
+            f"entry forward launched {entry_counts}")
+    print("entry", json.dumps({"logits_shape": list(logits.shape),
+                               "dtype": str(logits.dtype),
+                               "launches": entry_counts}), flush=True)
+    del fn, args, logits
+
+    # 9. summary
+    def whole_entry(case, kname):
+        return {"name": kname, "route": "cuda",
+                "source": "ray_tpu_torch/kernels/csrc/whole_attention.cu",
+                "replaces": ("ray_tpu/ops/attention.py:86"
+                             if kname.endswith("forward")
+                             else "ray_tpu/ops/attention.py:110"),
+                "launches": train_counts[kname],
+                "max_abs_err": case["max_abs_err"], "ms": case["ms"],
+                "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
+                "bound_by": case["bound_by"],
+                "library_ms": case["library_ms"]}
+
     summary = {"kernels": [{
         "name": "paged_attention_decode", "route": "cuda",
         "source": "ray_tpu_torch/kernels/csrc/paged_decode.cu",
@@ -271,7 +690,9 @@ def main() -> int:
         "launches": launches, "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"], "library_ms": None}]}
+        "bound_by": main_case["bound_by"], "library_ms": None},
+        whole_entry(fwd_case, "whole_attention_forward"),
+        whole_entry(bwd_case, "whole_attention_backward")]}
     print(card)                  # nvidia-smi's name, power.limit line
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

@@ -1,22 +1,28 @@
-"""GPT-2 family as ``nn.Module``s: the serving slice's model.
+"""GPT-2 family as ``nn.Module``s: the serving and training slices' model.
 
 Counterpart of ``ray_tpu/models/gpt2.py`` with the same numerics:
 
   - module paths are flax's (``h_{i}.attn.c_attn`` ...), so weights
     carry across with ``params_from_flax``; a flax Dense kernel is
     [in, out] and lands transposed in ``nn.Linear.weight`` [out, in];
-  - Dense and Embed weights are stored in ``cfg.dtype``: flax keeps
-    them in f32 and casts them to ``cfg.dtype`` on every call, and
-    rounding once at load gives the same values;
+  - params are kept in f32 and Dense and Embed cast input, weight and
+    bias to ``cfg.dtype`` at every call, as flax does, so an optimizer
+    updates f32 weights (``to_compute_dtype`` stores them in
+    ``cfg.dtype`` instead, for serving: the casts are then no-ops and
+    give the same values);
   - LayerNorm is flax's: eps 1e-6, computed and returned in f32;
   - GELU is the tanh approximation;
   - the LM head is tied to ``wte`` and, like flax's ``Embed.attend``,
-    multiplies in ``cfg.dtype``, so bf16 models give bf16 logits.
+    multiplies in ``cfg.dtype``, so bf16 models give bf16 logits;
+  - dropout draws from an explicit ``torch.Generator`` and runs only
+    when one is passed (flax's ``deterministic=False`` with a dropout
+    rng).
 
-The full forward supports ``attention_backend="reference"`` only; the
-flash kernels come with the training slice. With ``kv_cache`` the
-forward is one incremental step over a contiguous cache
-(``init_kv_cache``) or one layer of a paged pool (the serve engine).
+``attention_backend="flash"`` runs ``ops.attention.flash_attention``
+(the whole-kv CUDA kernels at GPT-2's shapes), ``"reference"`` the
+plain attention. With ``kv_cache`` the forward is one incremental step
+over a contiguous cache (``init_kv_cache``) or one layer of a paged
+pool (the serve engine).
 """
 
 from __future__ import annotations
@@ -30,8 +36,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ray_tpu_torch.ops.attention import (attention_reference,
-                                         cached_attention,
+from ray_tpu_torch.ops.attention import (WHOLE_KV_KERNELS, WholeKV,
+                                         attention_reference,
+                                         cached_attention, flash_attention,
                                          paged_attention_decode)
 
 
@@ -44,7 +51,7 @@ class GPT2Config:
     n_head: int = 12
     dropout: float = 0.0
     dtype: Any = torch.bfloat16
-    attention_backend: str = "flash"  # flash (training slice) | reference
+    attention_backend: str = "flash"  # flash | reference
 
     @classmethod
     def small(cls):  # gpt2 124M
@@ -66,10 +73,32 @@ class GPT2Config:
 
 
 class Dense(nn.Linear):
-    """flax ``nn.Dense(dtype=...)``: input cast to the weight's dtype."""
+    """flax ``nn.Dense(dtype=...)``: f32 params; input, kernel and bias
+    cast to ``dtype`` at every call."""
+
+    def __init__(self, n_in: int, n_out: int, dtype):
+        super().__init__(n_in, n_out, dtype=torch.float32)
+        self.compute_dtype = dtype
 
     def forward(self, x):
-        return super().forward(x.to(self.weight.dtype))
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class Embed(nn.Embedding):
+    """flax ``nn.Embed(dtype=...)``: an f32 table cast to ``dtype`` at
+    every call; ``attend`` is the tied LM head."""
+
+    def __init__(self, num: int, features: int, dtype):
+        super().__init__(num, features, dtype=torch.float32)
+        self.compute_dtype = dtype
+
+    def forward(self, ids):
+        return F.embedding(ids, self.weight.to(self.compute_dtype))
+
+    def attend(self, x):
+        dt = self.compute_dtype
+        return x.to(dt) @ self.weight.to(dt).T
 
 
 class LayerNorm(nn.LayerNorm):
@@ -82,16 +111,27 @@ class LayerNorm(nn.LayerNorm):
         return super().forward(x.float())
 
 
+def dropout(x, p: float, generator: Optional[torch.Generator]):
+    """flax ``nn.Dropout``: identity without a generator (deterministic);
+    otherwise keep each element with probability 1 - p, scaled by
+    1 / (1 - p), from ``generator``'s stream."""
+    if generator is None or p == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator,
+                      device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), 0.0)
+
+
 class CausalSelfAttention(nn.Module):
-    def __init__(self, cfg: GPT2Config):
+    def __init__(self, cfg: GPT2Config, whole_kv: WholeKV):
         super().__init__()
         self.cfg = cfg
-        self.c_attn = Dense(cfg.n_embd, 3 * cfg.n_embd, dtype=cfg.dtype)
-        self.c_proj = Dense(cfg.n_embd, cfg.n_embd, dtype=cfg.dtype)
-        self.drop = nn.Dropout(cfg.dropout)
+        self.whole_kv = whole_kv
+        self.c_attn = Dense(cfg.n_embd, 3 * cfg.n_embd, cfg.dtype)
+        self.c_proj = Dense(cfg.n_embd, cfg.n_embd, cfg.dtype)
 
     def forward(self, x, kv_cache=None, seq_lengths=None, valid=None,
-                paged_decode=paged_attention_decode):
+                paged_decode=paged_attention_decode, generator=None):
         cfg = self.cfg
         B, S, E = x.shape
         H = cfg.n_head
@@ -102,61 +142,68 @@ class CausalSelfAttention(nn.Module):
             y, kv_cache = cached_attention(
                 tok(q), tok(k), tok(v), kv_cache, seq_lengths, valid=valid,
                 paged_decode=paged_decode)
-            return self.drop(self.c_proj(y.reshape(B, S, E))), kv_cache
-        if cfg.attention_backend != "reference":
-            raise NotImplementedError(
-                f"attention_backend={cfg.attention_backend!r}: the flash "
-                "kernels are ported with the training slice (ROADMAP.md "
-                "Queue B); use 'reference'")
+            y = self.c_proj(y.reshape(B, S, E))
+            return dropout(y, cfg.dropout, generator), kv_cache
 
         def heads(t):  # [B,S,E] -> [B,H,S,D]
             return t.reshape(B, S, H, E // H).transpose(1, 2)
-        y = attention_reference(heads(q), heads(k), heads(v), causal=True)
+        if cfg.attention_backend == "flash":
+            y = flash_attention(heads(q), heads(k), heads(v), causal=True,
+                                whole_kv=self.whole_kv)
+        elif cfg.attention_backend == "reference":
+            y = attention_reference(heads(q), heads(k), heads(v),
+                                    causal=True)
+        else:
+            raise NotImplementedError(
+                f"attention_backend={cfg.attention_backend!r} is not ported "
+                "(ring attention: ROADMAP.md Queue A item 8)")
         y = y.transpose(1, 2).reshape(B, S, E)
-        return self.drop(self.c_proj(y))
+        return dropout(self.c_proj(y), cfg.dropout, generator)
 
 
 class MLP(nn.Module):
     def __init__(self, cfg: GPT2Config):
         super().__init__()
-        self.c_fc = Dense(cfg.n_embd, 4 * cfg.n_embd, dtype=cfg.dtype)
-        self.c_proj = Dense(4 * cfg.n_embd, cfg.n_embd, dtype=cfg.dtype)
-        self.drop = nn.Dropout(cfg.dropout)
+        self.cfg = cfg
+        self.c_fc = Dense(cfg.n_embd, 4 * cfg.n_embd, cfg.dtype)
+        self.c_proj = Dense(4 * cfg.n_embd, cfg.n_embd, cfg.dtype)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         h = F.gelu(self.c_fc(x), approximate="tanh")
-        return self.drop(self.c_proj(h))
+        return dropout(self.c_proj(h), self.cfg.dropout, generator)
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: GPT2Config):
+    def __init__(self, cfg: GPT2Config, whole_kv: WholeKV):
         super().__init__()
         self.ln_1 = LayerNorm(cfg.n_embd)
-        self.attn = CausalSelfAttention(cfg)
+        self.attn = CausalSelfAttention(cfg, whole_kv)
         self.ln_2 = LayerNorm(cfg.n_embd)
         self.mlp = MLP(cfg)
 
     def forward(self, x, kv_cache=None, seq_lengths=None, valid=None,
-                paged_decode=paged_attention_decode):
+                paged_decode=paged_attention_decode, generator=None):
         if kv_cache is not None:
             y, kv_cache = self.attn(self.ln_1(x), kv_cache, seq_lengths,
-                                    valid, paged_decode)
+                                    valid, paged_decode, generator)
             x = x + y
-            return x + self.mlp(self.ln_2(x)), kv_cache
-        x = x + self.attn(self.ln_1(x))
-        return x + self.mlp(self.ln_2(x))
+            return x + self.mlp(self.ln_2(x), generator), kv_cache
+        x = x + self.attn(self.ln_1(x), generator=generator)
+        return x + self.mlp(self.ln_2(x), generator)
 
 
 class GPT2(nn.Module):
-    def __init__(self, cfg: GPT2Config):
+    """``whole_kv`` picks what the flash backend runs: the whole-kv
+    kernels (default) or their plain versions
+    (``ops.attention.WHOLE_KV_PLAIN``), to compare one with the other."""
+
+    def __init__(self, cfg: GPT2Config, whole_kv: WholeKV = WHOLE_KV_KERNELS):
         super().__init__()
         self.cfg = cfg
-        self.wte = nn.Embedding(cfg.vocab_size, cfg.n_embd, dtype=cfg.dtype)
-        self.wpe = nn.Embedding(cfg.n_positions, cfg.n_embd,
-                                dtype=cfg.dtype)
-        self.drop = nn.Dropout(cfg.dropout)
+        self.wte = Embed(cfg.vocab_size, cfg.n_embd, cfg.dtype)
+        self.wpe = Embed(cfg.n_positions, cfg.n_embd, cfg.dtype)
         for i in range(cfg.n_layer):
-            self.add_module(f"h_{i}", Block(cfg))
+            self.add_module(f"h_{i}", Block(cfg, whole_kv))
         self.ln_f = LayerNorm(cfg.n_embd)
 
     def blocks(self):
@@ -164,13 +211,14 @@ class GPT2(nn.Module):
 
     def trunk(self, input_ids, positions=None, kv_cache=None,
               seq_lengths=None, valid=None,
-              paged_decode=paged_attention_decode):
+              paged_decode=paged_attention_decode, dropout_generator=None):
         """Everything before the LM head: ``ln_f`` output, f32 [B,S,E].
         With ``kv_cache`` (a list of per-layer caches, updated in place)
         the S tokens are one incremental step after ``seq_lengths``
         cached tokens; ``valid`` marks real tokens when S is padded."""
         B, S = input_ids.shape
         dev = input_ids.device
+        gen = dropout_generator
         if positions is None:
             ar = torch.arange(S, device=dev)[None, :]
             if kv_cache is not None:
@@ -179,29 +227,41 @@ class GPT2(nn.Module):
                     positions = torch.where(valid, positions, 0)
             else:
                 positions = ar
-        x = self.drop(self.wte(input_ids) + self.wpe(positions))
+        x = dropout(self.wte(input_ids) + self.wpe(positions),
+                    self.cfg.dropout, gen)
         for i, block in enumerate(self.blocks()):
             if kv_cache is not None:
                 x, _ = block(x, kv_cache[i], seq_lengths, valid,
-                             paged_decode)
+                             paged_decode, gen)
             else:
-                x = block(x)
+                x = block(x, generator=gen)
         return self.ln_f(x)
 
     def head(self, h):
         """Weight-tied LM head in ``cfg.dtype`` (flax ``Embed.attend``)."""
-        w = self.wte.weight
-        return h.to(w.dtype) @ w.T
+        return self.wte.attend(h)
 
     def forward(self, input_ids, positions=None, kv_cache=None,
                 seq_lengths=None, valid=None,
-                paged_decode=paged_attention_decode):
+                paged_decode=paged_attention_decode, dropout_generator=None):
         """Full forward (logits) or, with ``kv_cache``, one incremental
         step returning ``(logits, kv_cache)``; the caches are updated in
-        place. Prefill is the ``seq_lengths == 0`` case."""
+        place. Prefill is the ``seq_lengths == 0`` case. Dropout runs
+        only with a ``dropout_generator``."""
         logits = self.head(self.trunk(input_ids, positions, kv_cache,
-                                      seq_lengths, valid, paged_decode))
+                                      seq_lengths, valid, paged_decode,
+                                      dropout_generator))
         return (logits, kv_cache) if kv_cache is not None else logits
+
+    @torch.no_grad()
+    def to_compute_dtype(self):
+        """Store the Dense and Embed weights in ``cfg.dtype`` (serving:
+        half the memory, no per-call casts, the same values). LayerNorm
+        stays f32. Not for training: optimizer updates need f32."""
+        for mod in self.modules():
+            if isinstance(mod, (Dense, Embed)):
+                mod.to(self.cfg.dtype)
+        return self
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator):
@@ -211,12 +271,10 @@ class GPT2(nn.Module):
         for mod in self.modules():
             if isinstance(mod, Dense):
                 std = math.sqrt(1.0 / mod.in_features) / .87962566103423978
-                w = torch.empty(mod.weight.shape)
-                nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
-                                      generator=generator)
-                mod.weight.copy_(w)
+                mod.weight.copy_(_truncated_normal(mod.weight.shape,
+                                                   generator) * std)
                 mod.bias.zero_()
-            elif isinstance(mod, nn.Embedding):
+            elif isinstance(mod, Embed):
                 w = torch.empty(mod.weight.shape)
                 nn.init.normal_(w, std=mod.embedding_dim ** -0.5,
                                 generator=generator)
@@ -225,6 +283,35 @@ class GPT2(nn.Module):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
         return self
+
+
+def _truncated_normal(shape, generator: torch.Generator):
+    """Standard normal truncated to [-2, 2], by redrawing the samples
+    outside it (the same law as inverse-CDF sampling, and much faster on
+    a CPU for GPT-2's 85M Dense weights)."""
+    w = torch.randn(shape, generator=generator)
+    bad = w.abs() > 2
+    while bool(bad.any()):
+        w[bad] = torch.randn(int(bad.sum()), generator=generator)
+        bad = w.abs() > 2
+    return w
+
+
+def causal_lm_loss(logits, labels, ignore_index: int = -100):
+    """Next-token cross entropy, the JAX package's rounding: the max has
+    no gradient; ``logits - max`` is taken in the logits' dtype, then
+    exp and the sum run in f32; the gathered logit is cast to f32; the
+    mean runs over labels != ``ignore_index``."""
+    shift_logits = logits[:, :-1]
+    shift_labels = labels[:, 1:].long()
+    mask = shift_labels != ignore_index
+    safe = torch.where(mask, shift_labels, 0)
+    m = shift_logits.detach().amax(dim=-1)
+    sumexp = torch.exp((shift_logits - m[..., None]).float()).sum(dim=-1)
+    lse = m.float() + torch.log(sumexp)
+    ll = torch.gather(shift_logits, -1, safe[..., None])[..., 0].float()
+    total = ((lse - ll) * mask).sum()
+    return total / mask.sum().clamp(min=1)
 
 
 def init_kv_cache(cfg: GPT2Config, batch_size: int, max_len: int,

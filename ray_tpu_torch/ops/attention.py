@@ -1,8 +1,8 @@
-"""Attention for the serving path: reference, cached and paged decode.
+"""Attention: reference, training (flash), cached and paged decode.
 
-Counterpart of ``ray_tpu/ops/attention.py`` (the parts the serving
-slice runs). Layouts are the JAX package's, so the two can be compared
-input for input:
+Counterpart of ``ray_tpu/ops/attention.py`` (the parts the serving and
+training slices run). Layouts are the JAX package's, so the two can be
+compared input for input:
 
   q                 [B, H, D] (decode) or [B, H, S, D]
   k/v pages         [P, bs, Hkv, D]; page 0 is the null page
@@ -10,7 +10,13 @@ input for input:
   lengths           [B] int32
 
 Paths:
-  attention_reference         full causal attention (full forward)
+  attention_reference         full attention (causal, segment ids)
+  flash_attention             training attention with its own backward:
+                              the whole-kv kernels
+                              (kernels/csrc/whole_attention.cu) where
+                              ``_use_whole_kv`` holds, the exact
+                              softmax otherwise (CPU only until the
+                              streaming kernels are ported)
   decode_attention            new-token queries against a contiguous,
                               padded cache (prefill and multi-token
                               steps; plain tensor code)
@@ -32,7 +38,8 @@ length then adds exactly 0, which lets the kernel stop at
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -46,9 +53,12 @@ _KERNEL_TILE_TOKENS = 64   # tokens per tile the kernel aims for
 
 
 def attention_reference(q, k, v, *, causal: bool = False,
-                        sm_scale: Optional[float] = None):
+                        sm_scale: Optional[float] = None,
+                        segment_ids=None):
     """q, k, v [B, H, S, D] -> [B, H, Sq, D]; f32 logits and softmax,
-    probabilities cast to v's dtype before the product with v."""
+    probabilities cast to v's dtype before the product with v.
+    ``segment_ids`` = (q_seg [B, Sq], k_seg [B, Sk]): a query attends
+    only to keys of its own segment (packed sequences)."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
@@ -57,8 +67,367 @@ def attention_reference(q, k, v, *, causal: bool = False,
         qi = torch.arange(seq_q, device=q.device)[:, None] + (seq_k - seq_q)
         ki = torch.arange(seq_k, device=q.device)[None, :]
         logits = logits.masked_fill(ki > qi, _NEG_INF)
+    if segment_ids is not None:
+        q_seg, k_seg = segment_ids
+        same = q_seg[:, None, :, None] == k_seg[:, None, None, :]
+        logits = logits.masked_fill(~same, _NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype), v)
+
+
+# ---------------------------------------------------------------------------
+# Training attention: whole-kv kernels and flash_attention
+#
+# For self-attention at s <= _WHOLE_KV_MAX_S the JAX package runs the
+# whole-kv kernels: no running max, a static shift with an overflow cap
+# (exp(min(s, _CAP_HI) - _CAP_SHIFT)), exact while pre-scaled logits
+# stay under _CAP_HI. The predicate that picks them is reproduced
+# exactly, because it chooses the numerics. ``exact=None`` means False:
+# the JAX package's RTPU_ATTN_EXACT / RTPU_ATTN_DEBUG env fallbacks are
+# not carried over (pass ``exact=`` / ``debug=``).
+
+DEFAULT_BLOCK_Q = 512
+DEFAULT_BLOCK_K = 512
+_WHOLE_KV_MAX_S = 2048
+_CAP_HI = 50.0             # logit cap: exp(50-25)=7e10 << f32 max
+_CAP_SHIFT = 25.0
+_WHOLE_TILE = 64                        # kTile in whole_attention.cu
+_WHOLE_HEAD_DIMS = (16, 32, 64, 128)    # head dims the kernels take
+
+
+def _whole_block_q(s: int) -> int:
+    bq = max(128, min(s, (4 << 20) // (4 * s) // 128 * 128))
+    while s % bq:
+        bq //= 2
+    return max(bq, 128)
+
+
+def _use_whole_kv(sq: int, sk: int, d: int,
+                  exact: Optional[bool] = None) -> bool:
+    if exact:
+        return False
+    return (sq == sk and sk <= _WHOLE_KV_MAX_S and d <= 128
+            and sk % 128 == 0 and sq % _whole_block_q(sq) == 0)
+
+
+def _debug_check_logits(q_scaled, k):
+    """Debug-mode range check for the whole-kv path: the static-shift
+    softmax is exact only while every pre-softmax logit stays under
+    ``_CAP_HI``; beyond it the clamp flattens the distribution. Builds
+    the full score matrix and syncs: debugging only."""
+    s_max = float(torch.einsum("bhqd,bhkd->bhqk", q_scaled.float(),
+                               k.float()).max())
+    if s_max > _CAP_HI:
+        raise FloatingPointError(
+            f"flash_attention whole-kv fast path: max scaled logit "
+            f"{s_max:.3f} exceeds the static softmax cap "
+            f"_CAP_HI={_CAP_HI}: the clamp would silently distort the "
+            f"distribution. Pass exact=True to use the exact streaming "
+            f"path, or rescale the logits.")
+
+
+def _causal_keep(s: int, device):
+    """[s, s] bool, True where key <= query."""
+    i = torch.arange(s, device=device)
+    return i[None, :] <= i[:, None]
+
+
+def whole_attention_forward_reference(q, k, v, *, causal: bool):
+    """Plain version of the whole-kv forward kernel, same rounding
+    points. q (pre-scaled), k, v [B, H, S, D] -> (o [B, H, S, D] in
+    q's dtype, lse [B, H, S] f32)."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+    e = torch.exp(torch.clamp(s, max=_CAP_HI) - _CAP_SHIFT)
+    if causal:
+        e = e.masked_fill(~_causal_keep(q.shape[2], q.device), 0.0)
+    l = torch.clamp(e.sum(-1, keepdim=True), min=1e-30)
+    acc = torch.einsum("bhqk,bhkd->bhqd", e.to(v.dtype).float(), v.float())
+    return (acc / l).to(q.dtype), torch.log(l[..., 0]) + _CAP_SHIFT
+
+
+def _delta(o, do):
+    """rowsum(o * do) in f32: computed outside the backward kernel, as
+    ``_whole_backward`` does in XLA."""
+    return (o.float() * do.float()).sum(-1)
+
+
+def whole_attention_backward_reference(q, k, v, o, lse, do, *,
+                                       causal: bool):
+    """Plain version of the whole-kv backward kernel, same rounding
+    points (ds and p rounded to the input dtype before their products;
+    dk and dv summed over all q rows in f32 and rounded once).
+    Returns (dq, dk, dv) in the inputs' dtype."""
+    delta = _delta(o, do)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+    p = torch.exp(torch.clamp(s, max=_CAP_HI) - lse[..., None])
+    if causal:
+        p = p.masked_fill(~_causal_keep(q.shape[2], q.device), 0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
+    ds = (p * (dp - delta[..., None])).to(q.dtype).float()
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float())
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(v.dtype).float(), do.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def whole_attention_forward_f64(q, k, v, *, causal: bool):
+    """The whole-kv forward's function in f64 with no rounding point (e
+    is not rounded before e.v, o is not rounded): the yardstick that a
+    bf16 kernel and its plain version are both measured against, since
+    both round. Returns (o, lse) in f64."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.double(), k.double())
+    e = torch.exp(torch.clamp(s, max=_CAP_HI) - _CAP_SHIFT)
+    if causal:
+        e = e.masked_fill(~_causal_keep(q.shape[2], q.device), 0.0)
+    l = torch.clamp(e.sum(-1, keepdim=True), min=1e-30)
+    o = torch.einsum("bhqk,bhkd->bhqd", e, v.double()) / l
+    return o, torch.log(l[..., 0]) + _CAP_SHIFT
+
+
+def whole_attention_backward_f64(q, k, v, o, lse, do, *, causal: bool):
+    """The whole-kv backward's function in f64 with no rounding point,
+    from the same o and lse: the backward's yardstick. Returns (dq, dk,
+    dv) in f64."""
+    q, k, v, o, do = (t.double() for t in (q, k, v, o, do))
+    delta = (o * do).sum(-1, keepdim=True)
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k)
+    p = torch.exp(torch.clamp(s, max=_CAP_HI) - lse.double()[..., None])
+    if causal:
+        p = p.masked_fill(~_causal_keep(q.shape[2], q.device), 0.0)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", do, v) - delta)
+    return (torch.einsum("bhqk,bhkd->bhqd", ds, k),
+            torch.einsum("bhqk,bhqd->bhkd", ds, q),
+            torch.einsum("bhqk,bhqd->bhkd", p, do))
+
+
+def error_ratios(out, plain, ref):
+    """(max, rms) of |out - ref| over the same of |plain - ref|: how far
+    a kernel's output strays from a yardstick, in units of its plain
+    version's own distance from it. Near 1 when the two make errors of
+    one kind (the same rounding points); a skipped tile or a wrong mask
+    adds an error of its own and drives the ratios up."""
+    ref = ref.double()
+    e_out = (out.double() - ref).abs()
+    e_plain = (plain.double() - ref).abs()
+    tiny = torch.finfo(torch.float64).tiny
+    return (float(e_out.max() / e_plain.max().clamp(min=tiny)),
+            float(e_out.square().mean().sqrt()
+                  / e_plain.square().mean().sqrt().clamp(min=tiny)))
+
+
+def _check_whole_args(name, tensors, f32_tensors):
+    q = tensors[0]
+    every = tuple(tensors) + tuple(f32_tensors)
+    if any(t.device != q.device for t in every):
+        raise ValueError(f"{name}: all inputs must be on one device, got "
+                         f"{[str(t.device) for t in every]}")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name}: dtype {q.dtype} is not supported "
+                        "(bfloat16, float32)")
+    if any(t.dtype != q.dtype for t in tensors):
+        raise TypeError(f"{name}: q, k, v (and do) must share one dtype")
+    if any(t.dtype != torch.float32 for t in f32_tensors):
+        raise TypeError(f"{name}: lse must be float32")
+    if q.dim() != 4 or any(t.shape != q.shape for t in tensors):
+        raise ValueError(f"{name}: want q, k, v of one shape [B, H, S, D] "
+                         f"(self-attention), got "
+                         f"{[tuple(t.shape) for t in tensors]}")
+    if any(t.shape != q.shape[:3] for t in f32_tensors):
+        raise ValueError(f"{name}: lse must be [B, H, S]")
+    S, D = q.shape[2], q.shape[3]
+    if D not in _WHOLE_HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {D} is not one the kernel "
+                         f"takes {_WHOLE_HEAD_DIMS}")
+    if S % _WHOLE_TILE:
+        raise ValueError(f"{name}: sequence length {S} is not a multiple "
+                         f"of {_WHOLE_TILE}")
+    if not all(t.is_contiguous() for t in every):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    if any(t.data_ptr() % 16 for t in every):
+        raise ValueError(f"{name}: inputs must be 16-byte aligned")
+
+
+@functools.cache
+def _whole_lib():
+    """The whole-kv library, with its C signatures set once."""
+    lib = kernels.load("whole_attention")
+    lib.rtt_whole_attention_fwd.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    lib.rtt_whole_attention_fwd.restype = ctypes.c_int
+    lib.rtt_whole_attention_bwd.argtypes = (
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    lib.rtt_whole_attention_bwd.restype = ctypes.c_int
+    return lib
+
+
+def _no_kernel(name, device):
+    raise ValueError(f"{name}: no kernel for device {device}")
+
+
+def whole_attention_forward(q, k, v, *, causal: bool):
+    """Whole-kv attention forward: q (pre-scaled), k, v [B, H, S, D] ->
+    (o, lse f32 [B, H, S]).
+
+    CUDA tensors go to the hand-written sm_90a kernel (counted as
+    ``whole_attention_forward``); CPU tensors to the plain version,
+    ``whole_attention_forward_reference``. Anything the kernel does not
+    take raises; nothing falls back."""
+    if q.device.type == "cpu":
+        return whole_attention_forward_reference(q, k, v, causal=causal)
+    if q.device.type != "cuda":
+        _no_kernel("whole_attention_forward", q.device)
+    _check_whole_args("whole_attention_forward", (q, k, v), ())
+    B, H, S, D = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+    lib = _whole_lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.rtt_whole_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), 1 if q.dtype == torch.bfloat16 else 0, B * H,
+            S, D, int(causal), stream)
+    kernels.check(lib, err, "whole_attention_forward")
+    kernels.count_launch("whole_attention_forward")
+    return out, lse
+
+
+def whole_attention_backward(q, k, v, o, lse, do, *, causal: bool):
+    """Whole-kv attention backward -> (dq, dk, dv) for q pre-scaled.
+
+    ``delta = rowsum(o * do)`` is one PyTorch op here; CUDA tensors then
+    go to the hand-written sm_90a kernel (one launch that computes dq,
+    dk and dv; counted as ``whole_attention_backward``), CPU tensors to
+    ``whole_attention_backward_reference``. Nothing falls back."""
+    if q.device.type == "cpu":
+        return whole_attention_backward_reference(q, k, v, o, lse, do,
+                                                  causal=causal)
+    if q.device.type != "cuda":
+        _no_kernel("whole_attention_backward", q.device)
+    _check_whole_args("whole_attention_backward", (q, k, v, o, do), (lse,))
+    B, H, S, D = q.shape
+    delta = _delta(o, do)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    lib = _whole_lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.rtt_whole_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), 1 if q.dtype == torch.bfloat16 else 0, B * H, S,
+            D, int(causal), stream)
+    kernels.check(lib, err, "whole_attention_backward")
+    kernels.count_launch("whole_attention_backward")
+    return dq, dk, dv
+
+
+class WholeKV(NamedTuple):
+    """The pair of whole-kv functions ``flash_attention`` runs."""
+    forward: object
+    backward: object
+
+
+WHOLE_KV_KERNELS = WholeKV(whole_attention_forward, whole_attention_backward)
+WHOLE_KV_PLAIN = WholeKV(whole_attention_forward_reference,
+                         whole_attention_backward_reference)
+
+
+def _streaming_forward(q, k, v, *, causal: bool):
+    """The exact (running-max) softmax for the shapes the whole-kv path
+    does not take: on the CPU the exact softmax, as JAX gives there. The
+    streaming CUDA kernels are the next slice."""
+    if q.device.type != "cpu":
+        raise NotImplementedError(
+            "flash_attention: the streaming kernels (exact=True, sq != sk "
+            "or s > 2048) are not ported to CUDA yet (ROADMAP.md Queue B "
+            "items 3-4)")
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+    if causal:
+        sq, sk = q.shape[2], k.shape[2]
+        qi = torch.arange(sq)[:, None] + (sk - sq)
+        logits = logits.masked_fill(torch.arange(sk)[None, :] > qi,
+                                    _NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype), v)
+    return out, torch.logsumexp(logits, dim=-1)
+
+
+def _streaming_backward(q, k, v, do, *, causal: bool):
+    with torch.enable_grad():
+        qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+        out = attention_reference(qq, kk, vv, causal=causal, sm_scale=1.0)
+        return torch.autograd.grad(out, (qq, kk, vv), do)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with its own backward (``jax.custom_vjp`` in the JAX
+    package): the whole-kv pair where ``_use_whole_kv`` holds, the
+    streaming path otherwise. q arrives pre-scaled (sm_scale 1)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, exact, whole_kv):
+        whole = _use_whole_kv(q.shape[2], k.shape[2], q.shape[3], exact)
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        if whole:
+            out, lse = whole_kv.forward(q, k, v, causal=causal)
+        else:
+            out, lse = _streaming_forward(q, k, v, causal=causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.whole, ctx.whole_kv = causal, whole, whole_kv
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        if ctx.whole:
+            grads = ctx.whole_kv.backward(q, k, v, out, lse, do.contiguous(),
+                                          causal=ctx.causal)
+        else:
+            grads = _streaming_backward(q, k, v, do, causal=ctx.causal)
+        return (*grads, None, None, None)
+
+
+def flash_attention(q, k, v, *, causal: bool = False,
+                    sm_scale: Optional[float] = None,
+                    block_q: int = DEFAULT_BLOCK_Q,
+                    block_k: int = DEFAULT_BLOCK_K,
+                    exact: Optional[bool] = None,
+                    debug: Optional[bool] = None,
+                    whole_kv: WholeKV = WHOLE_KV_KERNELS):
+    """Fused attention with its own backward. [b, h, s, d] -> [b, h, s, d].
+
+    The JAX package's dispatch, with the kernels where the TPU has them:
+    shapes its auto mode cannot tile (blocks fitted to the sequence fall
+    under 16) go to ``attention_reference``; otherwise sm_scale is
+    folded into q here (autograd routes the matching dq scale through
+    the multiply) and ``FlashAttention`` runs the whole-kv pair where
+    ``_use_whole_kv`` holds, the streaming path where it does not.
+
+    ``exact=True`` forces the streaming path (exact running-max softmax,
+    for logits that may pass ``_CAP_HI``); None and False allow the
+    whole-kv path. ``debug=True`` raises ``FloatingPointError`` when the
+    whole-kv path would clamp a logit. ``whole_kv`` picks the kernels
+    (default) or, to compare against them, their plain versions
+    (``WHOLE_KV_PLAIN``). ``block_q``/``block_k`` only decide, as in
+    JAX, whether the shape can be tiled.
+    """
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    sq, sk = q.shape[2], k.shape[2]
+
+    def _fit(block, s):
+        b = min(block, s)
+        while b >= 16 and s % b:
+            b //= 2
+        return b
+
+    bq, bk = _fit(block_q, sq), _fit(block_k, sk)
+    if bq < 16 or bk < 16 or sq % bq or sk % bk or bq % 16 or bk % 16:
+        return attention_reference(q, k, v, causal=causal, sm_scale=sm_scale)
+    q = (q * sm_scale).to(q.dtype)
+    if debug and _use_whole_kv(sq, sk, q.shape[3], exact):
+        _debug_check_logits(q, k)
+    return FlashAttention.apply(q, k, v, causal, exact, whole_kv)
 
 
 def _repeat_kv(k, rep: int, dim: int = 1):
@@ -208,6 +577,17 @@ def _check_kernel_args(q, k_pages, v_pages, block_tables, lengths):
                          "16-byte aligned")
 
 
+@functools.cache
+def _paged_lib():
+    """The paged-decode library, with its C signature set once."""
+    lib = kernels.load("paged_decode")
+    lib.rtt_paged_decode.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_float]
+        + [ctypes.c_int] * 7 + [ctypes.c_size_t, ctypes.c_void_p])
+    lib.rtt_paged_decode.restype = ctypes.c_int
+    return lib
+
+
 def paged_attention_decode(q, k_pages, v_pages, block_tables, lengths, *,
                            sm_scale: Optional[float] = None):
     """Paged-attention decode: q [B, H, D] against block-table-addressed
@@ -238,18 +618,15 @@ def paged_attention_decode(q, k_pages, v_pages, block_tables, lengths, *,
     if B == 0:
         return out
     tile_pages = _kernel_tile_pages(bs, D, G, elt)
-    lib = kernels.load("paged_decode")
-    fn = lib.rtt_paged_decode
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_float]
-                   + [ctypes.c_int] * 7 + [ctypes.c_size_t, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    lib = _paged_lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                 block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                 1 if q.dtype == torch.bfloat16 else 0, float(sm_scale),
-                 B, Hkv, G, D, bs, NB, tile_pages,
-                 _kernel_smem(tile_pages, bs, D, G, elt), stream)
+        err = lib.rtt_paged_decode(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            1 if q.dtype == torch.bfloat16 else 0, float(sm_scale),
+            B, Hkv, G, D, bs, NB, tile_pages,
+            _kernel_smem(tile_pages, bs, D, G, elt), stream)
     kernels.check(lib, err, "paged_attention_decode")
     kernels.count_launch("paged_attention_decode")
     return out

@@ -236,7 +236,9 @@ class TorchModelAdapter:
             model.init_weights(torch.Generator().manual_seed(seed))
         else:
             gpt2.params_from_flax(params, model)
-        self.model = model.to(self.device).eval()
+        # serving stores the weights in cfg.dtype (flax casts its f32
+        # params at every call: the same values)
+        self.model = model.to_compute_dtype().to(self.device).eval()
         self.n_layers = self.cfg.n_layer
         self.n_kv_heads = self.cfg.n_head
         self.head_dim = self.cfg.n_embd // self.cfg.n_head

@@ -153,10 +153,21 @@ def test_bf16_full_forward_matches_flax():
 
 
 def test_flash_backend_not_ported_yet():
+    """What of the flash backend is not ported yet: the streaming
+    kernels (exact=True, sq != sk, s > 2048). Off the CPU that path
+    raises (meta tensors stand in for a card's here); the whole-kv path
+    runs, and a flash-backend model equals the reference-backend one."""
+    from ray_tpu_torch.ops import attention as TA
+    q = torch.empty(1, 2, 128, 16, device="meta")
+    with pytest.raises(NotImplementedError, match="Queue B items 3-4"):
+        TA.flash_attention(q, q, q, causal=True, exact=True)
+    _, params, ref = _models()
     mt = TG.GPT2(dataclasses.replace(TG.GPT2Config.tiny(),
                                      attention_backend="flash"))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        mt(torch.zeros((1, 8), dtype=torch.long))
+    TG.params_from_flax(params, mt)
+    ids = torch.from_numpy(_ids(128)).long()
+    with torch.no_grad():
+        torch.testing.assert_close(mt(ids), ref(ids), **TOL)
 
 
 def test_init_weights_follows_flax_distributions():
