@@ -16,10 +16,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
               time the card could take. Paged decode at the serving
               shapes; the whole-kv attention forward and backward at
               GPT-2 training's b16 h12 s1024 d64 bf16, at the entry
-              shape b4 h12 s512, at a small f32 shape and at shapes
-              whose scaled logits pass the 50 cap (f32 and bf16). In
-              bf16 the kernel and its plain version are both held to
-              the function in f64 (whole_case).
+              shape b4 h12 s512, at Llama-2-7B's preset shape b1 h32
+              s2048 d128, at a small f32 shape and at shapes whose
+              scaled logits pass the 50 cap (f32 and bf16); the
+              streaming forward, dkv and dq kernels at Llama-2-7B
+              training's b2 h32 s4096 d128 bf16, at GPT-2's shape, at
+              small f32 shapes (a ragged 2064 = 16 * 129, sq != sk with
+              the top-left causal mask, not causal) and past the cap.
+              In bf16 each kernel and its plain version are both held to
+              the function in f64 (attention_case, hold_outputs).
 4. serve    — GPT-2 small at full width and depth (random weights from a
               seed) behind the port's LLMServer: 16 concurrent streams of
               64 greedy tokens. Launch counts are zeroed just before and
@@ -41,9 +46,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
               grad_norm, grads, updated params) and in bf16 compute,
               the training path's (loss, grad_norm, and grads held to
               the f32 step; train_parity).
-8. entry    — ray_tpu_torch.entry.entry() on the card: logits
+8. llama    — the Llama loop (llama.train_step: forward, causal_lm_loss,
+              backward, optax.adamw(3e-4)'s AdamW) on a Llama-2-7B-wide
+              decoder (dim 4096, 32 heads, d 128, ffn 11008, vocab
+              32000; 4 layers; bf16 compute, f32 params) at batch
+              2 x 4096 of seeded tokens: s = 4096 takes the streaming
+              kernels by its shape. Warm-up steps, then timed windows
+              with the launch counts zeroed before and read after (each
+              streaming kernel exactly n_layers times a step, no
+              whole-kv launch); the loss is finite and falls. Prints
+              step time, tokens/s, peak memory and one profiled step.
+9. llama numerics — the same model at 2 layers, batch 1 x 4096: one
+              loop step through the streaming kernels against one
+              through their plain versions, in f32 and in bf16
+              (llama_parity, the rules of train_parity).
+10. entry   — ray_tpu_torch.entry.entry() on the card: logits
               (4, 512, 50257), finite, one forward kernel per layer.
-9. summary  — nvidia-smi's card line, the kernels line, then the
+11. summary — nvidia-smi's card line, the kernels line, then the
               device line, last.
 
 Exits non-zero without printing a result when CUDA is absent or when
@@ -65,9 +84,17 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core bf16
               "float32": 67e12}    # f32 outside the tensor cores
 SEED = 0
+# profile_step's kernel groups, by substrings of the kernel's name: the
+# port's attention kernels, then f32 products (SIMT sgemm: Llama's f32
+# LM head, TF32 off), then the other matrix products (cuBLAS/CUTLASS)
+PROFILE_GROUPS = (
+    ("whole_kv_attention", ("whole_fwd", "whole_bwd")),
+    ("streaming_attention", ("flash_fwd", "flash_dkv", "flash_dq")),
+    ("matmul_f32", ("sgemm", "f32f32_f32f32")),
+    ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "cublas", "sm90_")))
 # whole-kv kernels against their plain versions: f32 within F32_TOL of
 # each output's scale; bf16 within BF16_RATIO = (max, rms) times the
-# plain version's own error against the f64 yardstick (whole_case). In
+# plain version's own error against the f64 yardstick (hold_outputs). In
 # a training step through them (train_parity): bf16 grads within
 # BF16_RATIO times the plain step's error against the f32 step, loss
 # and grad_norm within BF16_STEP_REL; f32 params within 1e-6 where the
@@ -150,96 +177,168 @@ def paged_case(name, B, H, Hkv, D, bs, NB, lengths, dtype, tol, flush):
     return res
 
 
-def whole_bound(B, H, S, D, dtype, causal, backward):
-    """(bound_ms, bound_by, bytes, flops) of the whole-kv wrapper's
-    function, causal pairs only. Forward: q, k, v in, o and lse out;
-    s = q.k^T and e.v. Backward (the wrapper, delta included): q, k, v,
-    o, do and lse in, dq, dk, dv out; s, dp, dq, dk, dv."""
+def hold_outputs(name, dtype, outs, refs) -> dict:
+    """Holds each kernel output to its plain version's, ``outs`` = {name:
+    (kernel, plain)} in the order o, lse, dq, dk, dv:
+
+    f32 outputs (all of them for f32 inputs; lse for bf16 inputs, which
+          neither side rounds to bf16):
+          max |kernel - plain| <= F32_TOL * (1 + max |plain|): the two
+          only sum in another order;
+    bf16 outputs: both round p, ds and the outputs, so each is measured
+          against the function in f64 on the same inputs (``refs()``,
+          the f64 yardsticks in the same order), and the kernel's max
+          and rms error may be at most BF16_RATIO times the plain
+          version's (``error_ratios``).
+
+    Prints the check, fails the run outside the tolerance, and returns
+    the max |kernel - plain| of each output."""
+    import torch
+    require(all(bool(torch.isfinite(a).all()) for a, _ in outs.values()),
+            f"{name}: non-finite kernel output")
+    abs_err = {n: float((a.float() - b.float()).abs().max())
+               for n, (a, b) in outs.items()}
+    held, bad = held_outputs(list(outs.values()), refs, list(outs))
+    print("kernel_check", json.dumps({"case": name, "dtype": dtype,
+                                      "max_abs_err": abs_err, "held": held,
+                                      "tol": {"float32": F32_TOL,
+                                              "bfloat16": BF16_RATIO}}),
+          flush=True)
+    require(not bad, f"{name}: {bad} outside their tolerance: {held}")
+    return abs_err
+
+
+def held_outputs(pairs, refs, names):
+    """``hold_outputs``'s rule on [(kernel, plain), ...]: (held, bad),
+    held[name] = the f32 measure (a float) or the bf16 ratios (max,
+    rms); bad = the names outside F32_TOL or BF16_RATIO. ``refs()`` is
+    called only when some output is bf16."""
+    from ray_tpu_torch.ops import attention as A
+    import torch
+    ref = refs() if any(a.dtype != torch.float32 for a, _ in pairs) else None
+    held, bad = {}, []
+    for i, (n, (a, b)) in enumerate(zip(names, pairs)):
+        if a.dtype == torch.float32:
+            held[n] = float((a - b.float()).abs().max()) / (
+                1 + float(b.float().abs().max()))
+            ok = held[n] <= F32_TOL
+        else:
+            held[n] = A.error_ratios(a, b, ref[i])
+            ok = held[n][0] <= BF16_RATIO[0] and held[n][1] <= BF16_RATIO[1]
+        if not ok:
+            bad.append(n)
+    return held, bad
+
+
+def causal_pairs(Sq: int, Sk: int, causal: bool) -> int:
+    """(query, key) pairs a head computes: with the top-left causal mask
+    row r sees min(r + 1, Sk) keys (bottom-right = top-left at Sq = Sk)."""
+    if not causal:
+        return Sq * Sk
+    n = min(Sq, Sk)
+    return n * (n + 1) // 2 + max(Sq - Sk, 0) * Sk
+
+
+# what each attention wrapper's function must move and compute: tensors
+# of q's shape and of k's shape read or written once, f32 rows (lse,
+# delta), and products of 2 * D flops per causal pair
+ATTENTION_WORK = {   # kernel: (q-shaped, k-shaped, f32 rows, products)
+    # q, k, v in, o and lse out; s = q.k^T, e.v
+    "whole_attention_forward": (2, 2, 1, 2),
+    # q, k, v, o, do, lse in (delta inside), dq, dk, dv out; s, dp, dq,
+    # dk, dv
+    "whole_attention_backward": (5, 3, 1, 5),
+    "flash_attention_forward": (2, 2, 1, 2),
+    # q, k, v, do, lse, delta in, dk, dv out; s, dp, dv, dk
+    "flash_attention_backward_dkv": (2, 4, 2, 4),
+    # the same in, dq out; s, dp, dq
+    "flash_attention_backward_dq": (3, 2, 2, 3)}
+
+
+def attention_bound(kname, B, H, Sq, Sk, D, dtype, causal):
+    """(bound_ms, bound_by, bytes, flops) of one attention wrapper's
+    function (ATTENTION_WORK), causal pairs only."""
+    n_q, n_k, n_rows, products = ATTENTION_WORK[kname]
     elt = 2 if dtype == "bfloat16" else 4
-    n = B * H * S * D
-    pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
-    if backward:
-        nbytes, flops = 8 * n * elt + B * H * S * 4, 10 * D * pairs
-    else:
-        nbytes, flops = 4 * n * elt + B * H * S * 4, 4 * D * pairs
+    nbytes = ((n_q * Sq + n_k * Sk) * D * elt + n_rows * Sq * 4) * B * H
+    flops = 2 * D * products * B * H * causal_pairs(Sq, Sk, causal)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
 
-def whole_case(name, B, H, S, D, dtype, causal, flush, scale=1.0):
-    """Whole-kv forward and backward kernels against their plain
-    versions on one shape, for each of o, lse, dq, dk and dv:
+def max_logit(q, k) -> float:
+    """The largest q.k over all heads, a few heads at a time."""
+    import torch
+    B, H = q.shape[:2]
+    return max(float(torch.einsum("hqd,hkd->hqk", q[b, h:h + 4].float(),
+                                  k[b, h:h + 4].float()).max())
+               for b in range(B) for h in range(0, H, 4))
 
-    f32   max |kernel - plain| <= F32_TOL * (1 + max |plain|): nothing
-          is rounded, the two only sum in another order;
-    bf16  both round e, p, ds and the outputs, so each is measured
-          against the function in f64 on the same inputs (the
-          ``whole_attention_*_f64`` yardsticks), and the kernel's max
-          and rms error may be at most BF16_RATIO times the plain
-          version's (``error_ratios``).
 
-    Both backwards start from the plain forward's o and lse, so each
-    kernel is held on its own. Returns the forward's and the
-    backward's measurements."""
+def attention_case(path, name, B, H, Sq, Sk, D, dtype, causal, flush,
+                   scale=1.0) -> dict:
+    """One training-attention path's kernels against their plain
+    versions on one shape: ``path`` "whole" (the whole-kv forward and
+    one backward launch; Sq = Sk) or "flash" (the streaming forward and
+    the backward as two launches, dkv and dq; plain versions at the
+    blocks flash_attention fits to the shape). Each of o, lse, dq, dk
+    and dv is held by ``hold_outputs`` (bf16 yardsticks:
+    ``{path}_attention_*_f64``, the streaming ones a few heads at a
+    time). The backwards start from the plain forward's o and lse, so
+    each kernel is held on its own. Returns {kernel name: its
+    measurements}. The library yardstick is SDPA: its forward for the
+    forward, its backward (dq, dk and dv in one call) for the backward,
+    and for the streaming pair dkv + dq together (``library_covers``
+    on both rows)."""
     import torch
     import torch.nn.functional as F
     from ray_tpu_torch.ops import attention as A
     g = torch.Generator().manual_seed(SEED)
     dt = getattr(torch, dtype)
 
-    def rand():
-        return (torch.randn(B, H, S, D, generator=g) * scale).to("cuda", dt)
-    q, k, v, do = rand(), rand(), rand(), rand()
+    def rand(s):
+        return (torch.randn(B, H, s, D, generator=g) * scale).to("cuda", dt)
+    q, k, v, do = rand(Sq), rand(Sk), rand(Sk), rand(Sq)
     q = (q * D ** -0.5).to(dt)      # pre-scaled, as flash_attention hands it
-    s_max = float(torch.einsum("bhqd,bhkd->bhqk", q.float(),
-                               k.float()).max())
-    o, lse = A.whole_attention_forward(q, k, v, causal=causal)
-    torch.cuda.synchronize()
-    ro, rlse = A.whole_attention_forward_reference(q, k, v, causal=causal)
-    grads = A.whole_attention_backward(q, k, v, ro, rlse, do, causal=causal)
-    torch.cuda.synchronize()
-    rgrads = A.whole_attention_backward_reference(q, k, v, ro, rlse, do,
-                                                  causal=causal)
-    outs = {"o": (o, ro), "lse": (lse, rlse),
-            **{n: p for n, p in zip(("dq", "dk", "dv"), zip(grads, rgrads))}}
-    require(all(bool(torch.isfinite(a).all()) for a, _ in outs.values()),
-            f"{name}: non-finite kernel output")
-    abs_err = {n: float((a.float() - b.float()).abs().max())
-               for n, (a, b) in outs.items()}
-    if dtype == "float32":
-        tol = F32_TOL
-        held = {n: abs_err[n] / (1 + float(b.float().abs().max()))
-                for n, (_, b) in outs.items()}
-        bad = [n for n, x in held.items() if x > tol]
+    s_max = max_logit(q, k)
+    ro, rlse = getattr(A, f"{path}_attention_forward_reference")(
+        q, k, v, causal=causal)
+    fwd_args = (q, k, v)
+    if path == "whole":
+        bwd = {"whole_attention_backward": ("dq", "dk", "dv")}
+        bwd_args = (q, k, v, ro, rlse, do)
     else:
-        tol = BF16_RATIO
-        refs = dict(zip(("o", "lse"), A.whole_attention_forward_f64(
-            q, k, v, causal=causal)))
-        refs.update(zip(("dq", "dk", "dv"), A.whole_attention_backward_f64(
-            q, k, v, ro, rlse, do, causal=causal)))
-        held = {n: A.error_ratios(a, b, refs[n])
-                for n, (a, b) in outs.items()}
-        del refs
-        bad = [n for n, (r_max, r_rms) in held.items()
-               if r_max > tol[0] or r_rms > tol[1]]
-    print("kernel_check", json.dumps({"case": name, "dtype": dtype,
-                                      "max_abs_err": abs_err, "held": held,
-                                      "tol": tol}), flush=True)
-    require(not bad, f"{name}: {bad} outside {tol}: {held}")
-    f_abs = max(abs_err["o"], abs_err["lse"])
-    b_abs = max(abs_err[n] for n in ("dq", "dk", "dv"))
+        bwd = {"flash_attention_backward_dkv": ("dk", "dv"),
+               "flash_attention_backward_dq": ("dq",)}
+        bwd_args = (q, k, v, do, rlse, A._delta(ro, do))
+    parts = {f"{path}_attention_forward": (fwd_args, ("o", "lse")),
+             **{kname: (bwd_args, names) for kname, names in bwd.items()}}
 
-    ms_f = time_ms(lambda: A.whole_attention_forward(q, k, v, causal=causal),
-                   flush)
-    plain_f = time_ms(lambda: A.whole_attention_forward_reference(
-        q, k, v, causal=causal), flush, iters=5)
-    ms_b = time_ms(lambda: A.whole_attention_backward(
-        q, k, v, ro, rlse, do, causal=causal), flush)
-    plain_b = time_ms(lambda: A.whole_attention_backward_reference(
-        q, k, v, ro, rlse, do, causal=causal), flush, iters=5)
-    # the library call, timed here and never called by the port
+    def run(kname, plain=False):
+        args, _ = parts[kname]
+        fn = getattr(A, kname + ("_reference" if plain else ""))
+        return lambda: fn(*args, causal=causal)
+
+    kernel_outs = {kname: run(kname)() for kname in parts}
+    torch.cuda.synchronize()
+    outs = {}
+    for kname, (_, names) in parts.items():
+        got, want = kernel_outs[kname], run(kname, plain=True)()
+        got, want = ((got,), (want,)) if len(names) == 1 else (got, want)
+        outs.update(zip(names, zip(got, want)))
+    outs = {n: outs[n] for n in ("o", "lse", "dq", "dk", "dv")}
+
+    def refs():
+        f64 = getattr(A, f"{path}_attention_forward_f64"), getattr(
+            A, f"{path}_attention_backward_f64")
+        return (f64[0](q, k, v, causal=causal)
+                + f64[1](q, k, v, ro, rlse, do, causal=causal))
+    abs_err = hold_outputs(name, dtype, outs, refs)
+    del outs, kernel_outs
+
+    # the library calls, timed here and never called by the port
     lib_f = time_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=causal, scale=1.0), flush)
     qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
@@ -248,28 +347,35 @@ def whole_case(name, B, H, S, D, dtype, causal, flush, scale=1.0):
     lib_b = time_ms(lambda: torch.autograd.grad(
         out, (qq, kk, vv), do, retain_graph=True), flush)
     del out
-    res = []
-    for kind, ms, plain, lib, ab in (
-            ("forward", ms_f, plain_f, lib_f, f_abs),
-            ("backward", ms_b, plain_b, lib_b, b_abs)):
-        bound, by, nbytes, flops = whole_bound(B, H, S, D, dtype, causal,
-                                               kind == "backward")
-        r = {"case": name, "kernel": f"whole_attention_{kind}",
-             "shape": [B, H, S, D], "dtype": dtype, "causal": causal,
-             "max_scaled_logit": s_max, "max_abs_err": ab,
-             "ms": ms, "plain_ms": plain,
-             "library_ms": lib, "bound_ms": bound, "bound_by": by,
+    res = {}
+    for kname, (_, names) in parts.items():
+        bound, by, nbytes, flops = attention_bound(kname, B, H, Sq, Sk, D,
+                                                   dtype, causal)
+        forward = kname.endswith("_forward")
+        r = {"case": name, "kernel": kname, "shape": [B, H, Sq, Sk, D],
+             "dtype": dtype, "causal": causal,
+             "max_scaled_logit": s_max,
+             "max_abs_err": max(abs_err[n] for n in names),
+             "ms": time_ms(run(kname), flush),
+             "plain_ms": time_ms(run(kname, plain=True), flush, iters=3),
+             "library_ms": lib_f if forward else lib_b,
+             "library_covers": [kname] if forward else list(bwd),
+             "bound_ms": bound, "bound_by": by,
              "bytes": nbytes, "flops": flops}
         print("kernel", json.dumps(r), flush=True)
-        res.append(r)
+        res[kname] = r
+    if len(bwd) > 1:
+        print("backward_pair", json.dumps({
+            "case": name, "kernels_ms": sum(res[k]["ms"] for k in bwd),
+            "sdpa_backward_ms": lib_b}), flush=True)
     return res
 
 
 def profile_step(step) -> dict:
-    """Device time of one training step by kernel group, from the
-    kernel events of torch.profiler: the whole-kv kernels, matrix
-    products (cuBLAS/CUTLASS), and the rest (elementwise, reductions,
-    copies, the optimizer), with the ten largest kernels by name.
+    """Device time of one training step by kernel group
+    (PROFILE_GROUPS, first match by kernel name; the rest is
+    elementwise, reductions, copies and the optimizer), from the kernel
+    events of torch.profiler, with the ten largest kernels by name.
     Informational; the step runs after the launch counts were read."""
     import torch
     from torch.autograd import DeviceType
@@ -281,20 +387,20 @@ def profile_step(step) -> dict:
         step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    groups = {"whole_kv_attention": 0.0, "matmul": 0.0, "other": 0.0}
+    groups = {g: 0.0 for g, _ in PROFILE_GROUPS}
+    groups["other"] = 0.0
     by_name = {}
     for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA:    # kernels, copies, sets
+        # kernels, copies and sets; not the ranges that user annotations
+        # (the optimizer's step) draw over them on the device
+        if (ev.device_type != DeviceType.CUDA
+                or getattr(ev, "is_user_annotation", False)):
             continue
         ms = ev.device_time_total / 1e3
         low = ev.name.lower()
-        if "whole_fwd" in low or "whole_bwd" in low:
-            groups["whole_kv_attention"] += ms
-        elif any(w in low for w in ("gemm", "xmma", "cutlass", "nvjet",
-                                    "cublas", "sm90_")):
-            groups["matmul"] += ms
-        else:
-            groups["other"] += ms
+        group = next((g for g, words in PROFILE_GROUPS
+                      if any(w in low for w in words)), "other")
+        groups[group] += ms
         tot, n = by_name.get(ev.name, (0.0, 0))
         by_name[ev.name] = (tot + ms, n + 1)
     busy = sum(groups.values())
@@ -305,15 +411,16 @@ def profile_step(step) -> dict:
                             for name, (ms, n) in top]}
 
 
-def one_step(cfg, whole_kv, tokens) -> dict:
+def one_step(cfg, impl, tokens) -> dict:
     """One trainer step from the seeded init with the flash backend on
-    ``whole_kv``: loss, grad_norm, the params after the step, their
-    (clipped) grads and the launch counts of the step."""
+    ``impl`` (kernels or plain versions): loss, grad_norm, the params
+    after the step, their (clipped) grads and the launch counts of the
+    step."""
     from ray_tpu_torch import kernels
     from ray_tpu_torch.models import gpt2
     from ray_tpu_torch.train import spmd
     tr = spmd.make_causal_lm_trainer(cfg, model=gpt2.GPT2(cfg,
-                                                          whole_kv=whole_kv))
+                                                          impl=impl))
     st = tr.init(SEED)
     batch = spmd.put_batch(tr, {"input_ids": tokens, "labels": tokens})
     kernels.reset_launch_counts()
@@ -325,10 +432,11 @@ def one_step(cfg, whole_kv, tokens) -> dict:
             "launches": kernels.launch_counts()}
 
 
-def train_parity(cfg, tokens):
-    """Phase 7: the trainer's step through the whole-kv kernels against
-    the same step through their plain versions (GPT-2 at full width,
-    ``cfg.n_layer`` layers, the same seeded init and tokens), TF32 off.
+def hold_step(tag, runs, info):
+    """Holds a training step through the kernels to the same step
+    through their plain versions. ``runs`` = {(dtype, "kernels" |
+    "plain"): one_step-like dict}, both from the same seeded init and
+    tokens, TF32 off.
 
     f32 compute (the CUDA-core kernel bodies): nothing is rounded to
     bf16, so loss and grad_norm agree within F32_TOL relative, and
@@ -340,8 +448,7 @@ def train_parity(cfg, tokens):
     to 1e-6 where the plain step's |g| > PARAM_MASK (= 100 eps; there
     the slope is under 3 and the update ~lr, 300 times the bound, so
     a step that left them unchanged fails), and the share of entries
-    left out is printed, with the key bias's largest grad: its true
-    grad is 0 (softmax ignores a shift common to a row).
+    left out is printed.
 
     bf16 compute (the training path's dtype and tensor-core bodies):
     each leaf's grad is measured against the f32 plain step's, and the
@@ -350,20 +457,7 @@ def train_parity(cfg, tokens):
     within BF16_STEP_REL relative. The params are not compared: after
     the first AdamW step a param moves by about lr times the sign of
     its grad, which the grads check covers."""
-    import torch
     from ray_tpu_torch.ops import attention as A
-    E = cfg.n_embd
-    want = {"whole_attention_forward": cfg.n_layer,
-            "whole_attention_backward": cfg.n_layer}
-    runs = {}
-    for dt in ("float32", "bfloat16"):
-        c = dataclasses.replace(cfg, dtype=getattr(torch, dt))
-        for label, whole_kv in (("kernels", A.WHOLE_KV_KERNELS),
-                                ("plain", A.WHOLE_KV_PLAIN)):
-            r = one_step(c, whole_kv, tokens)
-            require(r["launches"] == (want if label == "kernels" else {}),
-                    f"{dt} {label} step launched {r['launches']}")
-            runs[dt, label] = r
 
     def rel(a, b):
         return abs(a - b) / abs(b)
@@ -389,9 +483,6 @@ def train_parity(cfg, tokens):
     left_out = {"share": 1 - n_held / n_all, "params_max_abs_err": max(
         float(d[~held[n]].max()) if (~held[n]).any() else 0.0
         for n, d in p_diff.items())}
-    key_grad = max(float(r["grads"][n][E:2 * E].abs().max())
-                   for r in (k32, p32) for n in r["grads"]
-                   if n.endswith("attn.c_attn.bias"))
 
     k16, p16 = runs["bfloat16", "kernels"], runs["bfloat16", "plain"]
     ratios = {n: A.error_ratios(k16["grads"][n], p16["grads"][n], g)
@@ -403,21 +494,97 @@ def train_parity(cfg, tokens):
     bf16_tol = {"loss_rel": BF16_STEP_REL, "grad_norm_rel": BF16_STEP_REL,
                 "grads_max_ratio": BF16_RATIO[0],
                 "grads_rms_ratio": BF16_RATIO[1]}
-    print("train_numerics", json.dumps({
-        "n_layer": cfg.n_layer, "batch": int(tokens.shape[0]),
-        "seq": int(tokens.shape[1]),
+    print(tag, json.dumps({
+        **info,
         "steps": {f"{dt} {label}": {"loss": r["loss"],
                                     "grad_norm": r["grad_norm"]}
                   for (dt, label), r in runs.items()},
         "float32": f32, "float32_tol": f32_tol,
         "float32_params_left_out": left_out,
-        "key_bias_grad_max_abs": key_grad,
         "bfloat16": bf16, "bfloat16_tol": bf16_tol,
         "bfloat16_grad_ratios": ratios}), flush=True)
     for what, got, tol in (("f32", f32, f32_tol), ("bf16", bf16, bf16_tol)):
         bad = {k: v for k, v in got.items() if not v <= tol[k]}
-        require(not bad, f"{what} step, kernels vs plain: {bad} outside "
-                f"{tol}")
+        require(not bad, f"{tag}: {what} step, kernels vs plain: {bad} "
+                f"outside {tol}")
+
+
+def train_parity(cfg, tokens):
+    """Phase 7: the trainer's step through the whole-kv kernels against
+    the same step through their plain versions (GPT-2 at full width,
+    ``cfg.n_layer`` layers), by ``hold_step``; also prints the key
+    bias's largest grad: its true grad is 0 (softmax ignores a shift
+    common to a row)."""
+    import torch
+    from ray_tpu_torch.ops import attention as A
+    E = cfg.n_embd
+    want = {"whole_attention_forward": cfg.n_layer,
+            "whole_attention_backward": cfg.n_layer}
+    runs = {}
+    for dt in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, dtype=getattr(torch, dt))
+        for label, impl in (("kernels", A.TRAINING_KERNELS),
+                            ("plain", A.TRAINING_PLAIN)):
+            r = one_step(c, impl, tokens)
+            require(r["launches"] == (want if label == "kernels" else {}),
+                    f"{dt} {label} step launched {r['launches']}")
+            runs[dt, label] = r
+    key_grad = max(float(runs["float32", label]["grads"][n][E:2 * E]
+                         .abs().max())
+                   for label in ("kernels", "plain")
+                   for n in runs["float32", label]["grads"]
+                   if n.endswith("attn.c_attn.bias"))
+    hold_step("train_numerics", runs, {
+        "n_layer": cfg.n_layer, "batch": int(tokens.shape[0]),
+        "seq": int(tokens.shape[1]), "key_bias_grad_max_abs": key_grad})
+
+
+def llama_step(cfg, impl, ids) -> dict:
+    """One step of the Llama loop (``llama.train_step``) from the seeded
+    init with the flash backend on ``impl``: loss, the global norm
+    of the grads, the params after the step (f32 only), the grads and
+    the launch counts of the step."""
+    import torch
+    from ray_tpu_torch import kernels
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.train import spmd
+    model = llama.make_llama(cfg, SEED, impl=impl)      # device: cuda
+    opt = llama.adamw(model.parameters())
+    kernels.reset_launch_counts()
+    loss = float(llama.train_step(model, opt, ids))
+    launches = kernels.launch_counts()
+    named = list(model.named_parameters())
+    keep_params = cfg.dtype == torch.float32
+    return {"loss": loss,
+            "grad_norm": float(spmd.global_norm([p.grad for _, p in named])),
+            "params": ({k: p.detach().clone() for k, p in named}
+                       if keep_params else {}),
+            "grads": {k: p.grad.detach().clone() for k, p in named},
+            "launches": launches}
+
+
+def llama_parity(cfg, ids):
+    """Phase 9: one Llama loop step through the streaming kernels
+    against the same step through their plain versions (``TRAINING_PLAIN``
+    passed explicitly; Llama-2-7B wide, ``cfg.n_layers`` layers, the same
+    seeded init and tokens) in f32 and bf16 compute, by ``hold_step``."""
+    import torch
+    from ray_tpu_torch.ops import attention as A
+    want = {f"flash_attention_{k}": cfg.n_layers
+            for k in ("forward", "backward_dkv", "backward_dq")}
+    runs = {}
+    for dt in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, dtype=getattr(torch, dt))
+        for label, impl in (("kernels", A.TRAINING_KERNELS),
+                            ("plain", A.TRAINING_PLAIN)):
+            r = llama_step(c, impl, ids)
+            require(r["launches"] == (want if label == "kernels" else {}),
+                    f"llama {dt} {label} step launched {r['launches']}")
+            runs[dt, label] = r
+            torch.cuda.empty_cache()
+    hold_step("llama_numerics", runs, {
+        "n_layers": cfg.n_layers, "batch": int(ids.shape[0]),
+        "seq": int(ids.shape[1])})
 
 
 def ragged(rng, B, lo, hi):
@@ -465,20 +632,48 @@ def main() -> int:
                "bfloat16", 2e-2, flush)
     paged_case("c: test_llm_serving tiny", 3, 8, 2, 16, 8, 4, [5, 17, 30],
                "float32", 1e-4, flush)
-    # whole-kv attention (tolerances: see whole_case)
-    fwd_case, bwd_case = whole_case("a: train shape", 16, 12, 1024, 64,
-                                    "bfloat16", True, flush)
-    whole_case("b: entry shape", 4, 12, 512, 64, "bfloat16", True, flush)
-    whole_case("c: small f32", 2, 3, 256, 32, "float32", True, flush)
-    whole_case("c: small f32, not causal", 2, 3, 256, 32, "float32", False,
-               flush)
-    capped = whole_case("d: logits past the cap", 2, 2, 256, 64, "float32",
-                        True, flush, scale=8.0)
-    capped += whole_case("d: logits past the cap", 2, 2, 256, 64,
-                         "bfloat16", True, flush, scale=8.0)
-    require(min(c["max_scaled_logit"] for c in capped) > 50.0,
-            f"case d: max scaled logit {capped[0]['max_scaled_logit']} "
-            "does not reach the cap")
+    # training attention (tolerances: see hold_outputs): whole-kv, then
+    # streaming; case "a" of each is the shape its training path runs
+    whole = {}
+    for case in (("a: train shape", 16, 12, 1024, 64, "bfloat16", True),
+                 ("b: entry shape", 4, 12, 512, 64, "bfloat16", True),
+                 ("c: small f32", 2, 3, 256, 32, "float32", True),
+                 ("c: small f32, not causal", 2, 3, 256, 32, "float32",
+                  False),
+                 ("d: logits past the cap", 2, 2, 256, 64, "float32", True,
+                  8.0),
+                 ("d: logits past the cap", 2, 2, 256, 64, "bfloat16", True,
+                  8.0),
+                 ("e: llama-2-7b preset (s 2048, d 128)", 1, 32, 2048, 128,
+                  "bfloat16", True)):
+        label, B, H, S, D, dtype, causal, *scale = case
+        whole[label, dtype] = attention_case("whole", label, B, H, S, S, D,
+                                             dtype, causal, flush, *scale)
+    flash = {}
+    for case in (("a: llama train shape", 2, 32, 4096, 4096, 128,
+                  "bfloat16", True),
+                 ("b: gpt2 shape", 16, 12, 1024, 1024, 64, "bfloat16", True),
+                 ("c: ragged 2064, 16-blocks", 1, 2, 2064, 2064, 32,
+                  "float32", True),
+                 ("c: sq < sk, top-left", 2, 3, 128, 256, 32, "float32",
+                  True),
+                 ("c: sq > sk, top-left", 2, 3, 320, 192, 32, "float32",
+                  True),
+                 ("c: sq < sk, not causal", 2, 3, 128, 256, 32, "float32",
+                  False),
+                 ("d: logits past 50", 2, 2, 256, 256, 64, "float32", True,
+                  8.0),
+                 ("d: logits past 50", 2, 2, 256, 256, 64, "bfloat16", True,
+                  8.0)):
+        label, B, H, Sq, Sk, D, dtype, causal, *scale = case
+        flash[label, dtype] = attention_case("flash", label, B, H, Sq, Sk,
+                                             D, dtype, causal, flush, *scale)
+    for cases, letter in ((whole, "d: logits past the cap"),
+                          (flash, "d: logits past 50")):
+        s_max = min(r["max_scaled_logit"] for (n, _), rows in cases.items()
+                    if n == letter for r in rows.values())
+        require(s_max > 50.0, f"case {letter}: max scaled logit {s_max} "
+                "does not pass 50")
     del scratch
 
     # 4. serve GPT-2 small through the port's entry points
@@ -653,7 +848,72 @@ def main() -> int:
     train_parity(dataclasses.replace(cfg, n_layer=2), tokens[:4])
     torch.cuda.empty_cache()
 
-    # 8. the port's entry(): the (4, 512) GPT-2-small forward
+    # 8. train a Llama-2-7B-wide decoder at 2 x 4096 through the loop
+    from ray_tpu_torch.models import llama
+    lcfg = dataclasses.replace(llama.LlamaConfig.llama2_7b(),
+                               max_seq_len=4096, n_layers=4,
+                               attention_backend="flash")
+    batch, seq, warmup, windows, per_window = 2, 4096, 2, 3, 2
+    t0 = time.time()
+    model = llama.make_llama(lcfg, SEED)                # device: cuda
+    opt = llama.adamw(model.parameters())
+    init_s = time.time() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    ids = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, lcfg.vocab_size, (batch, seq)), device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    losses = [float(llama.train_step(model, opt, ids)) for _ in range(warmup)]
+    kernels.reset_launch_counts()
+    host_ms, dev_ms = [], []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        step_losses = [llama.train_step(model, opt, ids)
+                       for _ in range(per_window)]
+        e1.record()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3 / per_window)
+        dev_ms.append(e0.elapsed_time(e1) / per_window)
+        losses += [float(x) for x in step_losses]
+    llama_counts = kernels.launch_counts()
+    n_steps = windows * per_window
+    peak = torch.cuda.max_memory_allocated()
+    require(all(math.isfinite(x) for x in losses),
+            f"llama: non-finite loss: {losses}")
+    require(losses[-1] < losses[0], f"llama: loss did not fall: {losses}")
+    streaming_names = [f"flash_attention_{k}" for k in
+                       ("forward", "backward_dkv", "backward_dq")]
+    for kname in streaming_names:
+        require(llama_counts.get(kname, 0) == lcfg.n_layers * n_steps,
+                f"{kname} launched {llama_counts.get(kname, 0)} times in "
+                f"{n_steps} steps of {lcfg.n_layers} layers")
+    require(set(llama_counts) == set(streaming_names),
+            f"unexpected kernels on the Llama path: {llama_counts}")
+    best = min(host_ms)
+    print("llama_train", json.dumps({
+        "model": "llama-2-7b wide, 4 layers", "params": n_params,
+        "batch": batch, "seq_len": seq, "step_time_ms": best,
+        "tokens_per_sec": batch * seq / best * 1e3,
+        "host_ms_per_step_by_window": host_ms,
+        "device_ms_per_step_by_window": dev_ms, "init_s": init_s,
+        "losses": losses, "launches": llama_counts,
+        "steps_counted": n_steps, "max_memory_allocated_bytes": peak,
+        "device": name, "nvidia_smi": card}), flush=True)
+    print("llama_train_profile", json.dumps(profile_step(
+        lambda: llama.train_step(model, opt, ids))), flush=True)
+    del model, opt, step_losses
+    torch.cuda.empty_cache()
+
+    # 9. one Llama loop step through the streaming kernels against one
+    # through their plain versions, in f32 and in bf16 compute
+    llama_parity(dataclasses.replace(lcfg, n_layers=2), ids[:1])
+    del ids
+    torch.cuda.empty_cache()
+
+    # 10. the port's entry(): the (4, 512) GPT-2-small forward
     from ray_tpu_torch.entry import entry
     fn, args = entry()
     kernels.reset_launch_counts()
@@ -670,29 +930,31 @@ def main() -> int:
                                "launches": entry_counts}), flush=True)
     del fn, args, logits
 
-    # 9. summary
-    def whole_entry(case, kname):
+    # 11. summary
+    def kernel_entry(case, kname, source, line, launches):
         return {"name": kname, "route": "cuda",
-                "source": "ray_tpu_torch/kernels/csrc/whole_attention.cu",
-                "replaces": ("ray_tpu/ops/attention.py:86"
-                             if kname.endswith("forward")
-                             else "ray_tpu/ops/attention.py:110"),
-                "launches": train_counts[kname],
+                "source": f"ray_tpu_torch/kernels/csrc/{source}",
+                "replaces": f"ray_tpu/ops/attention.py:{line}",
+                "launches": launches,
                 "max_abs_err": case["max_abs_err"], "ms": case["ms"],
                 "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
                 "bound_by": case["bound_by"],
-                "library_ms": case["library_ms"]}
+                "library_ms": case["library_ms"],
+                "library_covers": case.get("library_covers", [])}
 
-    summary = {"kernels": [{
-        "name": "paged_attention_decode", "route": "cuda",
-        "source": "ray_tpu_torch/kernels/csrc/paged_decode.cu",
-        "replaces": "ray_tpu/ops/attention.py:803",
-        "launches": launches, "max_abs_err": main_case["max_abs_err"],
-        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"], "library_ms": None},
-        whole_entry(fwd_case, "whole_attention_forward"),
-        whole_entry(bwd_case, "whole_attention_backward")]}
+    main_whole = whole["a: train shape", "bfloat16"]
+    main_flash = flash["a: llama train shape", "bfloat16"]
+    summary = {"kernels": [
+        kernel_entry({**main_case, "library_ms": None},
+                     "paged_attention_decode", "paged_decode.cu", 803,
+                     launches),
+        *(kernel_entry(main_whole[kname], kname, "whole_attention.cu", line,
+                       train_counts[kname])
+          for kname, line in (("whole_attention_forward", 86),
+                              ("whole_attention_backward", 110))),
+        *(kernel_entry(main_flash[kname], kname, "flash_attention.cu", line,
+                       llama_counts[kname])
+          for kname, line in zip(streaming_names, (303, 410, 469)))]}
     print(card)                  # nvidia-smi's name, power.limit line
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

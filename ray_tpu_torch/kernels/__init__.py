@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels for Hopper: build, load and launch counts.
 
-Each kernel is one ``csrc/<name>.cu`` file with a plain C interface.
+Each kernel is one ``csrc/<name>.cu`` file with a plain C interface
+(tile helpers shared between sources live in ``csrc/*.cuh``).
 It is compiled with ``nvcc`` for ``sm_90a`` into a shared library at
 first use and loaded with ``ctypes`` (no PyTorch headers: a build takes
 seconds, not minutes). Libraries go to ``kernels/build/`` inside the
@@ -52,8 +53,13 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library's path, named by a hash of its source, every shared
+    header in ``csrc/`` and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for f in [name + ".cu"] + headers:
+        with open(os.path.join(CSRC_DIR, f), "rb") as fh:
+            digest.update(fh.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

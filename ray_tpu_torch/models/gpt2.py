@@ -36,7 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ray_tpu_torch.ops.attention import (WHOLE_KV_KERNELS, WholeKV,
+from ray_tpu_torch.ops.attention import (TRAINING_KERNELS, TrainingAttention,
                                          attention_reference,
                                          cached_attention, flash_attention,
                                          paged_attention_decode)
@@ -73,16 +73,17 @@ class GPT2Config:
 
 
 class Dense(nn.Linear):
-    """flax ``nn.Dense(dtype=...)``: f32 params; input, kernel and bias
-    cast to ``dtype`` at every call."""
+    """flax ``nn.Dense(dtype=..., use_bias=...)``: f32 params; input,
+    kernel and bias cast to ``dtype`` at every call."""
 
-    def __init__(self, n_in: int, n_out: int, dtype):
-        super().__init__(n_in, n_out, dtype=torch.float32)
+    def __init__(self, n_in: int, n_out: int, dtype, bias: bool = True):
+        super().__init__(n_in, n_out, bias=bias, dtype=torch.float32)
         self.compute_dtype = dtype
 
     def forward(self, x):
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
 class Embed(nn.Embedding):
@@ -123,10 +124,10 @@ def dropout(x, p: float, generator: Optional[torch.Generator]):
 
 
 class CausalSelfAttention(nn.Module):
-    def __init__(self, cfg: GPT2Config, whole_kv: WholeKV):
+    def __init__(self, cfg: GPT2Config, impl: TrainingAttention):
         super().__init__()
         self.cfg = cfg
-        self.whole_kv = whole_kv
+        self.impl = impl
         self.c_attn = Dense(cfg.n_embd, 3 * cfg.n_embd, cfg.dtype)
         self.c_proj = Dense(cfg.n_embd, cfg.n_embd, cfg.dtype)
 
@@ -149,7 +150,7 @@ class CausalSelfAttention(nn.Module):
             return t.reshape(B, S, H, E // H).transpose(1, 2)
         if cfg.attention_backend == "flash":
             y = flash_attention(heads(q), heads(k), heads(v), causal=True,
-                                whole_kv=self.whole_kv)
+                                impl=self.impl)
         elif cfg.attention_backend == "reference":
             y = attention_reference(heads(q), heads(k), heads(v),
                                     causal=True)
@@ -174,10 +175,10 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: GPT2Config, whole_kv: WholeKV):
+    def __init__(self, cfg: GPT2Config, impl: TrainingAttention):
         super().__init__()
         self.ln_1 = LayerNorm(cfg.n_embd)
-        self.attn = CausalSelfAttention(cfg, whole_kv)
+        self.attn = CausalSelfAttention(cfg, impl)
         self.ln_2 = LayerNorm(cfg.n_embd)
         self.mlp = MLP(cfg)
 
@@ -193,17 +194,18 @@ class Block(nn.Module):
 
 
 class GPT2(nn.Module):
-    """``whole_kv`` picks what the flash backend runs: the whole-kv
-    kernels (default) or their plain versions
-    (``ops.attention.WHOLE_KV_PLAIN``), to compare one with the other."""
+    """``impl`` picks what the flash backend runs: the attention kernels
+    (default) or their plain versions (``ops.attention.TRAINING_PLAIN``),
+    to compare one with the other."""
 
-    def __init__(self, cfg: GPT2Config, whole_kv: WholeKV = WHOLE_KV_KERNELS):
+    def __init__(self, cfg: GPT2Config,
+                 impl: TrainingAttention = TRAINING_KERNELS):
         super().__init__()
         self.cfg = cfg
         self.wte = Embed(cfg.vocab_size, cfg.n_embd, cfg.dtype)
         self.wpe = Embed(cfg.n_positions, cfg.n_embd, cfg.dtype)
         for i in range(cfg.n_layer):
-            self.add_module(f"h_{i}", Block(cfg, whole_kv))
+            self.add_module(f"h_{i}", Block(cfg, impl))
         self.ln_f = LayerNorm(cfg.n_embd)
 
     def blocks(self):
@@ -288,11 +290,12 @@ class GPT2(nn.Module):
 def _truncated_normal(shape, generator: torch.Generator):
     """Standard normal truncated to [-2, 2], by redrawing the samples
     outside it (the same law as inverse-CDF sampling, and much faster on
-    a CPU for GPT-2's 85M Dense weights)."""
-    w = torch.randn(shape, generator=generator)
+    a CPU for GPT-2's 85M Dense weights), on the generator's device."""
+    dev = generator.device
+    w = torch.randn(shape, generator=generator, device=dev)
     bad = w.abs() > 2
     while bool(bad.any()):
-        w[bad] = torch.randn(int(bad.sum()), generator=generator)
+        w[bad] = torch.randn(int(bad.sum()), generator=generator, device=dev)
         bad = w.abs() > 2
     return w
 

@@ -14,9 +14,11 @@ Paths:
   flash_attention             training attention with its own backward:
                               the whole-kv kernels
                               (kernels/csrc/whole_attention.cu) where
-                              ``_use_whole_kv`` holds, the exact
-                              softmax otherwise (CPU only until the
-                              streaming kernels are ported)
+                              ``_use_whole_kv`` holds, the streaming
+                              flash-v2 kernels
+                              (kernels/csrc/flash_attention.cu: exact
+                              running-max softmax, top-left causal)
+                              otherwise
   decode_attention            new-token queries against a contiguous,
                               padded cache (prefill and multi-token
                               steps; plain tensor code)
@@ -30,9 +32,9 @@ Paths:
                               append, then the kernel when S == 1, else
                               gather + decode_attention
 
-Masked logits are -1e30, never -inf: a page wholly past a sequence's
-length then adds exactly 0, which lets the kernel stop at
-``ceil(len / bs)`` pages and still compute the same function.
+Masked logits are -1e30, never -inf: a page (or kv tile) wholly past a
+sequence's length or the causal diagonal then adds exactly 0, which
+lets a kernel stop early and still compute the same function.
 """
 
 from __future__ import annotations
@@ -92,7 +94,7 @@ _WHOLE_KV_MAX_S = 2048
 _CAP_HI = 50.0             # logit cap: exp(50-25)=7e10 << f32 max
 _CAP_SHIFT = 25.0
 _WHOLE_TILE = 64                        # kTile in whole_attention.cu
-_WHOLE_HEAD_DIMS = (16, 32, 64, 128)    # head dims the kernels take
+_HEAD_DIMS = (16, 32, 64, 128)          # head dims the attention kernels take
 
 
 def _whole_block_q(s: int) -> int:
@@ -215,9 +217,14 @@ def error_ratios(out, plain, ref):
                   / e_plain.square().mean().sqrt().clamp(min=tiny)))
 
 
-def _check_whole_args(name, tensors, f32_tensors):
-    q = tensors[0]
-    every = tuple(tensors) + tuple(f32_tensors)
+def _check_attention_args(name, q, k, v, like_q=(), rows=(),
+                          seq_multiple=16):
+    """What the attention kernels take: q (and ``like_q``: o, do) [B, H,
+    Sq, D], k, v [B, H, Sk, D], ``rows`` (lse, delta) [B, H, Sq] f32;
+    bf16 or f32; D in _HEAD_DIMS; Sq, Sk positive multiples of
+    ``seq_multiple``; contiguous, 16-byte aligned, on one device."""
+    tensors = [q, k, v, *like_q]
+    every = tensors + list(rows)
     if any(t.device != q.device for t in every):
         raise ValueError(f"{name}: all inputs must be on one device, got "
                          f"{[str(t.device) for t in every]}")
@@ -225,43 +232,73 @@ def _check_whole_args(name, tensors, f32_tensors):
         raise TypeError(f"{name}: dtype {q.dtype} is not supported "
                         "(bfloat16, float32)")
     if any(t.dtype != q.dtype for t in tensors):
-        raise TypeError(f"{name}: q, k, v (and do) must share one dtype")
-    if any(t.dtype != torch.float32 for t in f32_tensors):
-        raise TypeError(f"{name}: lse must be float32")
-    if q.dim() != 4 or any(t.shape != q.shape for t in tensors):
-        raise ValueError(f"{name}: want q, k, v of one shape [B, H, S, D] "
-                         f"(self-attention), got "
-                         f"{[tuple(t.shape) for t in tensors]}")
-    if any(t.shape != q.shape[:3] for t in f32_tensors):
-        raise ValueError(f"{name}: lse must be [B, H, S]")
-    S, D = q.shape[2], q.shape[3]
-    if D not in _WHOLE_HEAD_DIMS:
+        raise TypeError(f"{name}: q, k, v (and o, do) must share one dtype")
+    if any(t.dtype != torch.float32 for t in rows):
+        raise TypeError(f"{name}: lse and delta must be float32")
+    if (q.dim() != 4 or k.dim() != 4 or v.shape != k.shape
+            or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]
+            or any(t.shape != q.shape for t in like_q)
+            or any(t.shape != q.shape[:3] for t in rows)):
+        raise ValueError(
+            f"{name}: want q (o, do) [B, H, Sq, D], k, v [B, H, Sk, D], "
+            f"lse/delta [B, H, Sq]; got {[tuple(t.shape) for t in every]}")
+    Sq, Sk, D = q.shape[2], k.shape[2], q.shape[3]
+    if D not in _HEAD_DIMS:
         raise ValueError(f"{name}: head dim {D} is not one the kernel "
-                         f"takes {_WHOLE_HEAD_DIMS}")
-    if S % _WHOLE_TILE:
-        raise ValueError(f"{name}: sequence length {S} is not a multiple "
-                         f"of {_WHOLE_TILE}")
+                         f"takes {_HEAD_DIMS}")
+    if Sq % seq_multiple or Sk % seq_multiple or not Sq * Sk:
+        raise ValueError(f"{name}: sequence lengths {Sq}, {Sk} must be "
+                         f"positive multiples of {seq_multiple}")
     if not all(t.is_contiguous() for t in every):
         raise ValueError(f"{name}: inputs must be contiguous")
     if any(t.data_ptr() % 16 for t in every):
         raise ValueError(f"{name}: inputs must be 16-byte aligned")
 
 
+def _check_whole_args(name, q, k, v, like_q=(), rows=()):
+    """The whole-kv kernels take self-attention only, in 64-row tiles."""
+    if k.shape != q.shape:
+        raise ValueError(f"{name}: want q, k, v of one shape [B, H, S, D] "
+                         f"(self-attention), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}")
+    _check_attention_args(name, q, k, v, like_q, rows, _WHOLE_TILE)
+
+
+def _attention_lib(name, n_ints, n_pointers):
+    """Kernel library ``name`` with its C signatures set: for each
+    function in ``n_pointers``, that many pointers, ``n_ints`` ints (the
+    dtype flag, dims, causal) and the stream; each returns an int."""
+    lib = kernels.load(name)
+    for fn, n_ptr in n_pointers.items():
+        f = getattr(lib, fn)
+        f.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_ints
+                      + [ctypes.c_void_p])
+        f.restype = ctypes.c_int
+    return lib
+
+
 @functools.cache
 def _whole_lib():
-    """The whole-kv library, with its C signatures set once."""
-    lib = kernels.load("whole_attention")
-    lib.rtt_whole_attention_fwd.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    lib.rtt_whole_attention_fwd.restype = ctypes.c_int
-    lib.rtt_whole_attention_bwd.argtypes = (
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    lib.rtt_whole_attention_bwd.restype = ctypes.c_int
-    return lib
+    return _attention_lib("whole_attention", 5, {
+        "rtt_whole_attention_fwd": 5, "rtt_whole_attention_bwd": 9})
 
 
 def _no_kernel(name, device):
     raise ValueError(f"{name}: no kernel for device {device}")
+
+
+def _launch(lib, fn, name, ptrs, dims, causal):
+    """Launch one attention kernel (C function ``fn`` of ``lib``) on the
+    current stream of ptrs[0]'s device: pointers, the dtype flag,
+    ``dims``, causal, the stream. Checks the launch and counts it."""
+    q = ptrs[0]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = getattr(lib, fn)(*(t.data_ptr() for t in ptrs),
+                               1 if q.dtype == torch.bfloat16 else 0, *dims,
+                               int(causal), stream)
+    kernels.check(lib, err, name)
+    kernels.count_launch(name)
 
 
 def whole_attention_forward(q, k, v, *, causal: bool):
@@ -276,19 +313,12 @@ def whole_attention_forward(q, k, v, *, causal: bool):
         return whole_attention_forward_reference(q, k, v, causal=causal)
     if q.device.type != "cuda":
         _no_kernel("whole_attention_forward", q.device)
-    _check_whole_args("whole_attention_forward", (q, k, v), ())
+    _check_whole_args("whole_attention_forward", q, k, v)
     B, H, S, D = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
-    lib = _whole_lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.rtt_whole_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), 1 if q.dtype == torch.bfloat16 else 0, B * H,
-            S, D, int(causal), stream)
-    kernels.check(lib, err, "whole_attention_forward")
-    kernels.count_launch("whole_attention_forward")
+    _launch(_whole_lib(), "rtt_whole_attention_fwd", "whole_attention_forward",
+            (q, k, v, out, lse), (B * H, S, D), causal)
     return out, lse
 
 
@@ -304,87 +334,338 @@ def whole_attention_backward(q, k, v, o, lse, do, *, causal: bool):
                                                   causal=causal)
     if q.device.type != "cuda":
         _no_kernel("whole_attention_backward", q.device)
-    _check_whole_args("whole_attention_backward", (q, k, v, o, do), (lse,))
+    _check_whole_args("whole_attention_backward", q, k, v, (o, do), (lse,))
     B, H, S, D = q.shape
     delta = _delta(o, do)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    lib = _whole_lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.rtt_whole_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), 1 if q.dtype == torch.bfloat16 else 0, B * H, S,
-            D, int(causal), stream)
-    kernels.check(lib, err, "whole_attention_backward")
-    kernels.count_launch("whole_attention_backward")
+    _launch(_whole_lib(), "rtt_whole_attention_bwd", "whole_attention_backward",
+            (q, k, v, do, lse, delta, dq, dk, dv), (B * H, S, D), causal)
     return dq, dk, dv
 
 
-class WholeKV(NamedTuple):
-    """The pair of whole-kv functions ``flash_attention`` runs."""
+# ---------------------------------------------------------------------------
+# Streaming attention (flash-v2): the exact running-max softmax the JAX
+# package runs where ``_use_whole_kv`` does not hold (exact=True,
+# sq != sk, s > 2048). No logit cap. The causal mask is aligned
+# top-left, as in the Pallas kernels: query row r sees keys 0..r,
+# whatever sk - sq is (``attention_reference`` aligns bottom-right; the
+# two agree where sq == sk, as for every in-repo caller).
+
+def _fit_block(block: int, s: int) -> int:
+    """The JAX auto mode's block for a sequence of ``s``: ``block``
+    halved until it divides ``s`` (under 16 means the shape cannot be
+    tiled)."""
+    b = min(block, s)
+    while b >= 16 and s % b:
+        b //= 2
+    return b
+
+
+def _masked(s, rows, keys, causal: bool):
+    """Scores with -1e30 where a key lies right of its row (causal,
+    top-left); ``rows`` and ``keys`` are the absolute positions."""
+    if not causal:
+        return s
+    return s.masked_fill(keys[None, :] > rows[:, None], _NEG_INF)
+
+
+def _n_kv_blocks(sq: int, sk: int, block_k: int, causal: bool) -> int:
+    """kv blocks some row reaches; causal blocks past the last row's
+    diagonal add exactly 0 (p = exp(-1e30 - m) = 0), so they are skipped."""
+    n = -(-sk // block_k)
+    return min(n, -(-sq // block_k)) if causal else n
+
+
+def flash_attention_forward_reference(q, k, v, *, causal: bool,
+                                      block_k: Optional[int] = None):
+    """Plain version of the streaming forward kernel (``_fwd_kernel``),
+    with its rounding points: kv blocks of ``block_k`` (default: the
+    block ``flash_attention`` fits to Sk by default) walked with a
+    running max m and sum l in f32; p = exp(s - m_new) rounded to v's
+    dtype before p.v, l from the unrounded p; o = acc / max(l, 1e-30)
+    rounded to q's dtype, lse = m + log max(l, 1e-30). Masked logits
+    are -1e30 (top-left causal). q (pre-scaled) [B, H, Sq, D], k, v
+    [B, H, Sk, D] -> (o, lse f32 [B, H, Sq])."""
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    block_k = block_k or _fit_block(DEFAULT_BLOCK_K, Sk)
+    dev = q.device
+    qf = q.float()
+    rows = torch.arange(Sq, device=dev)
+    m = torch.full((B, H, Sq, 1), _NEG_INF, device=dev)
+    l = torch.zeros(B, H, Sq, 1, device=dev)
+    acc = torch.zeros(B, H, Sq, D, device=dev)
+    for j in range(_n_kv_blocks(Sq, Sk, block_k, causal)):
+        cols = slice(j * block_k, (j + 1) * block_k)
+        kj, vj = k[:, :, cols].float(), v[:, :, cols]
+        keys = torch.arange(j * block_k, j * block_k + kj.shape[2],
+                            device=dev)
+        s = _masked(torch.einsum("bhqd,bhkd->bhqk", qf, kj), rows, keys,
+                    causal)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.einsum(
+            "bhqk,bhkd->bhqd", p.to(v.dtype).float(), vj.float())
+        m = m_new
+    l = l.clamp(min=1e-30)
+    return (acc / l).to(q.dtype), (m + torch.log(l))[..., 0]
+
+
+def flash_attention_backward_dkv_reference(q, k, v, do, lse, delta, *,
+                                           causal: bool,
+                                           block_q: Optional[int] = None):
+    """Plain version of the dkv kernel (``_bwd_dkv_kernel``): over q
+    blocks of ``block_q`` (default: fitted to Sq, as in the forward),
+    p = exp(s - lse) (0 where masked),
+    dv += (p rounded to do's dtype)^T . do, ds = p (dp - delta) rounded
+    to q's dtype, dk += ds^T . q; dk, dv summed in f32 and rounded
+    once. Returns (dk, dv)."""
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    block_q = block_q or _fit_block(DEFAULT_BLOCK_Q, Sq)
+    dev = q.device
+    kf, vf = k.float(), v.float()
+    keys = torch.arange(Sk, device=dev)
+    dk = torch.zeros(B, H, Sk, D, device=dev)
+    dv = torch.zeros(B, H, Sk, D, device=dev)
+    for i in range(-(-Sq // block_q)):
+        rs = slice(i * block_q, (i + 1) * block_q)
+        qi, doi = q[:, :, rs].float(), do[:, :, rs].float()
+        rows = torch.arange(i * block_q, i * block_q + qi.shape[2],
+                            device=dev)
+        s = _masked(torch.einsum("bhqd,bhkd->bhqk", qi, kf), rows, keys,
+                    causal)
+        p = torch.exp(s - lse[:, :, rs, None])
+        dv += torch.einsum("bhqk,bhqd->bhkd", p.to(do.dtype).float(), doi)
+        dp = torch.einsum("bhqd,bhkd->bhqk", doi, vf)
+        ds = (p * (dp - delta[:, :, rs, None])).to(q.dtype).float()
+        dk += torch.einsum("bhqk,bhqd->bhkd", ds, qi)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_backward_dq_reference(q, k, v, do, lse, delta, *,
+                                          causal: bool,
+                                          block_k: Optional[int] = None):
+    """Plain version of the dq kernel (``_bwd_dq_kernel``): over kv
+    blocks of ``block_k`` (default: fitted to Sk), ds = p (dp - delta) rounded to k's dtype,
+    dq += ds . k, summed in f32 and rounded once. Returns dq."""
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    block_k = block_k or _fit_block(DEFAULT_BLOCK_K, Sk)
+    dev = q.device
+    qf, dof = q.float(), do.float()
+    rows = torch.arange(Sq, device=dev)
+    dq = torch.zeros(B, H, Sq, D, device=dev)
+    for j in range(_n_kv_blocks(Sq, Sk, block_k, causal)):
+        cols = slice(j * block_k, (j + 1) * block_k)
+        kj, vj = k[:, :, cols].float(), v[:, :, cols].float()
+        keys = torch.arange(j * block_k, j * block_k + kj.shape[2],
+                            device=dev)
+        s = _masked(torch.einsum("bhqd,bhkd->bhqk", qf, kj), rows, keys,
+                    causal)
+        p = torch.exp(s - lse[..., None])
+        dp = torch.einsum("bhqd,bhkd->bhqk", dof, vj)
+        ds = (p * (dp - delta[..., None])).to(k.dtype).float()
+        dq += torch.einsum("bhqk,bhkd->bhqd", ds, kj)
+    return dq.to(q.dtype)
+
+
+def _head_slices(n_heads: int, sq: int, sk: int, budget: int = 1 << 29):
+    """Slices of the b*h heads, each small enough that one f64 [n, sq,
+    sk] matrix stays under ``budget`` bytes (the f64 yardsticks hold a
+    few such at once)."""
+    n = max(1, budget // (8 * sq * sk))
+    return [slice(i, min(i + n, n_heads)) for i in range(0, n_heads, n)]
+
+
+def flash_attention_forward_f64(q, k, v, *, causal: bool):
+    """The streaming forward's function in f64 with no rounding point:
+    the exact softmax, top-left causal. The yardstick that a bf16 kernel
+    and its plain version are both measured against; computed a few
+    heads at a time. Returns (o, lse) in f64."""
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    dev = q.device
+    q3, k3, v3 = (t.reshape(B * H, -1, D) for t in (q, k, v))
+    rows, keys = torch.arange(Sq, device=dev), torch.arange(Sk, device=dev)
+    o = torch.empty(B * H, Sq, D, dtype=torch.float64, device=dev)
+    lse = torch.empty(B * H, Sq, dtype=torch.float64, device=dev)
+    for hs in _head_slices(B * H, Sq, Sk):
+        s = _masked(torch.einsum("nqd,nkd->nqk", q3[hs].double(),
+                                 k3[hs].double()), rows, keys, causal)
+        lse[hs] = torch.logsumexp(s, -1)
+        o[hs] = torch.einsum("nqk,nkd->nqd", torch.exp(s - lse[hs, :, None]),
+                             v3[hs].double())
+    return o.reshape(B, H, Sq, D), lse.reshape(B, H, Sq)
+
+
+def flash_attention_backward_f64(q, k, v, o, lse, do, *, causal: bool):
+    """The streaming backward's function in f64 with no rounding point,
+    from the same o and lse (delta = rowsum(o * do) in f64): the
+    backward's yardstick, a few heads at a time. Returns (dq, dk, dv)
+    in f64."""
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    dev = q.device
+    q3, o3, do3 = (t.reshape(B * H, Sq, D) for t in (q, o, do))
+    k3, v3 = (t.reshape(B * H, Sk, D) for t in (k, v))
+    lse3 = lse.reshape(B * H, Sq)
+    rows, keys = torch.arange(Sq, device=dev), torch.arange(Sk, device=dev)
+    out = [torch.empty(B * H, n, D, dtype=torch.float64, device=dev)
+           for n in (Sq, Sk, Sk)]
+    for hs in _head_slices(B * H, Sq, Sk):
+        qq, kk, vv, oo, dd = (t[hs].double() for t in (q3, k3, v3, o3, do3))
+        s = _masked(torch.einsum("nqd,nkd->nqk", qq, kk), rows, keys, causal)
+        p = torch.exp(s - lse3[hs].double()[..., None])
+        ds = p * (torch.einsum("nqd,nkd->nqk", dd, vv)
+                  - (oo * dd).sum(-1, keepdim=True))
+        out[0][hs] = torch.einsum("nqk,nkd->nqd", ds, kk)
+        out[1][hs] = torch.einsum("nqk,nqd->nkd", ds, qq)
+        out[2][hs] = torch.einsum("nqk,nqd->nkd", p, dd)
+    return tuple(t.reshape(B, H, -1, D) for t in out)
+
+
+@functools.cache
+def _flash_lib():
+    return _attention_lib("flash_attention", 6, {
+        "rtt_flash_attention_fwd": 5, "rtt_flash_attention_bwd_dkv": 8,
+        "rtt_flash_attention_bwd_dq": 7})
+
+
+def _flash_dims(q, k):
+    B, H, Sq, D = q.shape
+    return (B * H, Sq, k.shape[2], D)
+
+
+def flash_attention_forward(q, k, v, *, causal: bool):
+    """Streaming attention forward: q (pre-scaled) [B, H, Sq, D], k, v
+    [B, H, Sk, D] -> (o, lse f32 [B, H, Sq]).
+
+    CUDA tensors go to the hand-written sm_90a kernel (64-row tiles;
+    counted as ``flash_attention_forward``); CPU tensors to the plain
+    version, ``flash_attention_forward_reference`` at its default
+    blocks. Anything the kernel does not take raises; nothing falls
+    back."""
+    name = "flash_attention_forward"
+    if q.device.type == "cpu":
+        return flash_attention_forward_reference(q, k, v, causal=causal)
+    if q.device.type != "cuda":
+        _no_kernel(name, q.device)
+    _check_attention_args(name, q, k, v)
+    out = torch.empty_like(q)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    _launch(_flash_lib(), "rtt_flash_attention_fwd", name, (q, k, v, out, lse),
+            _flash_dims(q, k), causal)
+    return out, lse
+
+
+def flash_attention_backward_dkv(q, k, v, do, lse, delta, *, causal: bool):
+    """Streaming backward, the dkv pass -> (dk, dv). ``delta`` is
+    rowsum(o * do) in f32 (``_delta``). CUDA tensors go to the kernel
+    (counted as ``flash_attention_backward_dkv``), CPU tensors to
+    ``flash_attention_backward_dkv_reference``. Nothing falls back."""
+    name = "flash_attention_backward_dkv"
+    if q.device.type == "cpu":
+        return flash_attention_backward_dkv_reference(
+            q, k, v, do, lse, delta, causal=causal)
+    if q.device.type != "cuda":
+        _no_kernel(name, q.device)
+    _check_attention_args(name, q, k, v, (do,), (lse, delta))
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch(_flash_lib(), "rtt_flash_attention_bwd_dkv", name,
+            (q, k, v, do, lse, delta, dk, dv), _flash_dims(q, k), causal)
+    return dk, dv
+
+
+def flash_attention_backward_dq(q, k, v, do, lse, delta, *, causal: bool):
+    """Streaming backward, the dq pass -> dq. CUDA tensors go to the
+    kernel (counted as ``flash_attention_backward_dq``), CPU tensors to
+    ``flash_attention_backward_dq_reference``. Nothing falls back."""
+    name = "flash_attention_backward_dq"
+    if q.device.type == "cpu":
+        return flash_attention_backward_dq_reference(
+            q, k, v, do, lse, delta, causal=causal)
+    if q.device.type != "cuda":
+        _no_kernel(name, q.device)
+    _check_attention_args(name, q, k, v, (do,), (lse, delta))
+    dq = torch.empty_like(q)
+    _launch(_flash_lib(), "rtt_flash_attention_bwd_dq", name,
+            (q, k, v, do, lse, delta, dq), _flash_dims(q, k), causal)
+    return dq
+
+
+class TrainingAttention(NamedTuple):
+    """What ``flash_attention`` runs: the whole-kv pair and the streaming
+    triple, as kernels (``TRAINING_KERNELS``) or, to compare one with the
+    other, as their plain versions (``TRAINING_PLAIN``)."""
+    whole_forward: object
+    whole_backward: object
     forward: object
-    backward: object
+    backward_dkv: object
+    backward_dq: object
 
 
-WHOLE_KV_KERNELS = WholeKV(whole_attention_forward, whole_attention_backward)
-WHOLE_KV_PLAIN = WholeKV(whole_attention_forward_reference,
-                         whole_attention_backward_reference)
+TRAINING_KERNELS = TrainingAttention(
+    whole_attention_forward, whole_attention_backward,
+    flash_attention_forward, flash_attention_backward_dkv,
+    flash_attention_backward_dq)
+TRAINING_PLAIN = TrainingAttention(
+    whole_attention_forward_reference, whole_attention_backward_reference,
+    flash_attention_forward_reference, flash_attention_backward_dkv_reference,
+    flash_attention_backward_dq_reference)
 
 
-def _streaming_forward(q, k, v, *, causal: bool):
-    """The exact (running-max) softmax for the shapes the whole-kv path
-    does not take: on the CPU the exact softmax, as JAX gives there. The
-    streaming CUDA kernels are the next slice."""
-    if q.device.type != "cpu":
-        raise NotImplementedError(
-            "flash_attention: the streaming kernels (exact=True, sq != sk "
-            "or s > 2048) are not ported to CUDA yet (ROADMAP.md Queue B "
-            "items 3-4)")
-    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
-    if causal:
-        sq, sk = q.shape[2], k.shape[2]
-        qi = torch.arange(sq)[:, None] + (sk - sq)
-        logits = logits.masked_fill(torch.arange(sk)[None, :] > qi,
-                                    _NEG_INF)
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype), v)
-    return out, torch.logsumexp(logits, dim=-1)
-
-
-def _streaming_backward(q, k, v, do, *, causal: bool):
-    with torch.enable_grad():
-        qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
-        out = attention_reference(qq, kk, vv, causal=causal, sm_scale=1.0)
-        return torch.autograd.grad(out, (qq, kk, vv), do)
+def _streaming(impl: TrainingAttention, q, blocks):
+    """The streaming (forward, backward_dkv, backward_dq) that
+    ``FlashAttention`` calls. A kernel wrapper runs on CUDA tensors with
+    its own 64-row tiles; on CPU tensors it stands for its plain version.
+    Plain versions run at the fitted ``blocks`` = (block_q, block_k)."""
+    kernel_fns = TRAINING_KERNELS[2:]       # forward, backward_dkv, _dq
+    fns = impl[2:]
+    if q.device.type == "cpu":
+        fns = [plain if f is kernel else f for f, kernel, plain in
+               zip(fns, kernel_fns, TRAINING_PLAIN[2:])]
+    bq, bk = blocks
+    return [f if f in kernel_fns else functools.partial(f, **kw)
+            for f, kw in zip(fns, ({"block_k": bk}, {"block_q": bq},
+                                   {"block_k": bk}))]
 
 
 class FlashAttention(torch.autograd.Function):
     """Attention with its own backward (``jax.custom_vjp`` in the JAX
-    package): the whole-kv pair where ``_use_whole_kv`` holds, the
-    streaming path otherwise. q arrives pre-scaled (sm_scale 1)."""
+    package) on ``impl``: the whole-kv pair where ``_use_whole_kv``
+    holds, the streaming triple otherwise (``_streaming``). q arrives
+    pre-scaled (sm_scale 1)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, exact, whole_kv):
+    def forward(ctx, q, k, v, causal, exact, blocks, impl):
         whole = _use_whole_kv(q.shape[2], k.shape[2], q.shape[3], exact)
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         if whole:
-            out, lse = whole_kv.forward(q, k, v, causal=causal)
+            out, lse = impl.whole_forward(q, k, v, causal=causal)
         else:
-            out, lse = _streaming_forward(q, k, v, causal=causal)
+            ctx.streaming = _streaming(impl, q, blocks)
+            out, lse = ctx.streaming[0](q, k, v, causal=causal)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.whole, ctx.whole_kv = causal, whole, whole_kv
+        ctx.causal, ctx.whole, ctx.impl = causal, whole, impl
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
+        do = do.contiguous()
         if ctx.whole:
-            grads = ctx.whole_kv.backward(q, k, v, out, lse, do.contiguous(),
-                                          causal=ctx.causal)
+            grads = ctx.impl.whole_backward(q, k, v, out, lse, do,
+                                            causal=ctx.causal)
         else:
-            grads = _streaming_backward(q, k, v, do, causal=ctx.causal)
-        return (*grads, None, None, None)
+            _, backward_dkv, backward_dq = ctx.streaming
+            delta = _delta(out, do)
+            dk, dv = backward_dkv(q, k, v, do, lse, delta, causal=ctx.causal)
+            dq = backward_dq(q, k, v, do, lse, delta, causal=ctx.causal)
+            grads = (dq, dk, dv)
+        return (*grads, None, None, None, None)
 
 
 def flash_attention(q, k, v, *, causal: bool = False,
@@ -393,41 +674,37 @@ def flash_attention(q, k, v, *, causal: bool = False,
                     block_k: int = DEFAULT_BLOCK_K,
                     exact: Optional[bool] = None,
                     debug: Optional[bool] = None,
-                    whole_kv: WholeKV = WHOLE_KV_KERNELS):
+                    impl: TrainingAttention = TRAINING_KERNELS):
     """Fused attention with its own backward. [b, h, s, d] -> [b, h, s, d].
 
-    The JAX package's dispatch, with the kernels where the TPU has them:
+    The JAX package's dispatch, with a kernel wherever the TPU has one:
     shapes its auto mode cannot tile (blocks fitted to the sequence fall
     under 16) go to ``attention_reference``; otherwise sm_scale is
     folded into q here (autograd routes the matching dq scale through
     the multiply) and ``FlashAttention`` runs the whole-kv pair where
-    ``_use_whole_kv`` holds, the streaming path where it does not.
+    ``_use_whole_kv`` holds, the streaming triple where it does not
+    (exact=True, sq != sk, s > 2048, s not a multiple of 128).
 
     ``exact=True`` forces the streaming path (exact running-max softmax,
     for logits that may pass ``_CAP_HI``); None and False allow the
     whole-kv path. ``debug=True`` raises ``FloatingPointError`` when the
-    whole-kv path would clamp a logit. ``whole_kv`` picks the kernels
+    whole-kv path would clamp a logit. ``impl`` picks the kernels
     (default) or, to compare against them, their plain versions
-    (``WHOLE_KV_PLAIN``). ``block_q``/``block_k`` only decide, as in
-    JAX, whether the shape can be tiled.
+    (``TRAINING_PLAIN``). ``block_q`` and
+    ``block_k`` decide, as in JAX, whether the shape can be tiled; the
+    fitted blocks are the plain streaming versions' block sizes. The
+    kernels take none: they use their own 64-row tiles.
     """
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     sq, sk = q.shape[2], k.shape[2]
-
-    def _fit(block, s):
-        b = min(block, s)
-        while b >= 16 and s % b:
-            b //= 2
-        return b
-
-    bq, bk = _fit(block_q, sq), _fit(block_k, sk)
+    bq, bk = _fit_block(block_q, sq), _fit_block(block_k, sk)
     if bq < 16 or bk < 16 or sq % bq or sk % bk or bq % 16 or bk % 16:
         return attention_reference(q, k, v, causal=causal, sm_scale=sm_scale)
     q = (q * sm_scale).to(q.dtype)
     if debug and _use_whole_kv(sq, sk, q.shape[3], exact):
         _debug_check_logits(q, k)
-    return FlashAttention.apply(q, k, v, causal, exact, whole_kv)
+    return FlashAttention.apply(q, k, v, causal, exact, (bq, bk), impl)
 
 
 def _repeat_kv(k, rep: int, dim: int = 1):

@@ -153,13 +153,14 @@ def test_bf16_full_forward_matches_flax():
 
 
 def test_flash_backend_not_ported_yet():
-    """What of the flash backend is not ported yet: the streaming
-    kernels (exact=True, sq != sk, s > 2048). Off the CPU that path
-    raises (meta tensors stand in for a card's here); the whole-kv path
-    runs, and a flash-backend model equals the reference-backend one."""
+    """Nothing of the flash backend is left unported: the streaming path
+    (exact=True, sq != sk, s > 2048) has its kernels too, so on a device
+    with no kernel it raises like the whole-kv path (meta tensors stand
+    in for such a device here) rather than saying it is not ported; a
+    flash-backend model equals the reference-backend one."""
     from ray_tpu_torch.ops import attention as TA
     q = torch.empty(1, 2, 128, 16, device="meta")
-    with pytest.raises(NotImplementedError, match="Queue B items 3-4"):
+    with pytest.raises(ValueError, match="flash_attention_forward: no kernel"):
         TA.flash_attention(q, q, q, causal=True, exact=True)
     _, params, ref = _models()
     mt = TG.GPT2(dataclasses.replace(TG.GPT2Config.tiny(),

@@ -1,5 +1,5 @@
 """The port's CUDA kernels against their plain versions, on the card
-(paged decode; whole-kv attention forward and backward).
+(paged decode; whole-kv and streaming attention, forward and backward).
 
 Marked ``cuda`` and skipped without a CUDA device. This file imports
 no JAX, so it runs on a machine that has only PyTorch:
@@ -83,29 +83,31 @@ def test_paged_decode_kernel_refuses_cpu_mix():
         TA.paged_attention_decode(q, k.cpu(), v, bt, lens)
 
 
-# (B, H, S, D, causal): GPT-2 training's shape, the entry() shape, and
-# small shapes for each head dim the kernels take
+# (B, H, S, D, causal): GPT-2 training's shape, the entry() shape,
+# small shapes for each head dim the kernels take, and Llama-2-7B at its
+# preset's max_seq_len (2048, d = 128)
 WHOLE_SHAPES = [
     (16, 12, 1024, 64, True),
     (4, 12, 512, 64, True),
     (2, 3, 256, 16, True),
     (2, 3, 128, 32, False),
     (1, 2, 192, 128, True),
+    (1, 32, 2048, 128, True),
 ]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", WHOLE_SHAPES,
-                         ids=["train", "entry", "d16", "d32-full", "d128"])
+                         ids=["train", "entry", "d16", "d32-full", "d128",
+                              "llama-2048"])
 def test_whole_attention_kernels_match_plain_versions(shape, dtype):
     """Forward (o, lse) and backward (dq, dk, dv) kernels against their
-    plain versions on the same inputs, by chip_smoke.py's rules. f32:
-    each output within F32_TOL * (1 + its largest entry) (sums in
-    another order, nothing rounded). bf16: both round e, p, ds and the
-    outputs, so each is measured against the function in f64, and the
-    kernel's max and rms error may be at most BF16_RATIO times the
-    plain version's."""
+    plain versions on the same inputs, by chip_smoke.py's rules
+    (``_hold``): f32 outputs within F32_TOL * (1 + their largest entry)
+    (sums in another order, nothing rounded); bf16 outputs, which both
+    sides round, measured against the function in f64, the kernel's max
+    and rms error at most BF16_RATIO times the plain version's."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -124,34 +126,106 @@ def test_whole_attention_kernels_match_plain_versions(shape, dtype):
     ro, rlse = TA.whole_attention_forward_reference(q, k, v, causal=causal)
     rgrads = TA.whole_attention_backward_reference(q, k, v, o, lse, do,
                                                    causal=causal)
-    refs = (TA.whole_attention_forward_f64(q, k, v, causal=causal)
-            + TA.whole_attention_backward_f64(q, k, v, o, lse, do,
-                                              causal=causal))
-    rules = _chip_smoke()
-    for a, b, ref in zip((o, lse) + grads, (ro, rlse) + rgrads, refs):
+    _hold((o, lse) + grads, (ro, rlse) + rgrads, lambda: (
+        TA.whole_attention_forward_f64(q, k, v, causal=causal)
+        + TA.whole_attention_backward_f64(q, k, v, o, lse, do,
+                                          causal=causal)))
+
+
+def _hold(outs, plains, refs):
+    """chip_smoke.py's rules (``held_outputs``): an f32 output within
+    F32_TOL * (1 + the plain output's largest entry); a bf16 output's max
+    and rms error against the f64 yardstick (``refs()``) at most
+    BF16_RATIO times the plain version's."""
+    for a, b in zip(outs, plains):
         assert a.dtype == b.dtype and bool(torch.isfinite(a).all())
-        if dtype == "float32":
-            scale = 1 + float(b.float().abs().max())
-            assert (float((a.float() - b.float()).abs().max())
-                    <= rules.F32_TOL * scale)
-        else:
-            r_max, r_rms = TA.error_ratios(a, b, ref)
-            c_max, c_rms = rules.BF16_RATIO
-            assert r_max <= c_max and r_rms <= c_rms, (r_max, r_rms)
+    names = ["o", "lse", "dq", "dk", "dv"]
+    held, bad = _chip_smoke().held_outputs(list(zip(outs, plains)), refs,
+                                           names)
+    assert not bad, held
+
+
+# (B, H, Sq, Sk, D, causal): Llama-2-7B training (s = 4096, d = 128),
+# GPT-2's shape on the exact path, a ragged length (2064 = 16 * 129),
+# sq != sk both ways (top-left causal), and each head dim
+FLASH_SHAPES = [
+    (2, 32, 4096, 4096, 128, True),
+    (16, 12, 1024, 1024, 64, True),
+    (1, 4, 2064, 2064, 64, True),
+    (2, 3, 128, 256, 32, True),
+    (2, 3, 320, 192, 128, True),
+    (2, 3, 256, 144, 16, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", FLASH_SHAPES,
+                         ids=["llama", "gpt2", "ragged", "sq<sk", "sq>sk",
+                              "d16-full"])
+def test_flash_attention_kernels_match_plain_versions(shape, dtype):
+    """Streaming forward (o, lse), dkv (dk, dv) and dq kernels against
+    their plain versions at the blocks flash_attention fits, by
+    chip_smoke.py's rules, each backward from the plain forward's o and
+    lse. One launch of each kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, H, Sq, Sk, D, causal = shape
+    if dtype == "float32" and Sq * Sk > 1 << 23:
+        Sq, Sk = Sq // 4, Sk // 4      # the CUDA-core bodies, smaller
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(0)
+
+    def rand(s):
+        return torch.randn(B, H, s, D, generator=g).to("cuda", dt)
+    q, k, v, do = rand(Sq), rand(Sk), rand(Sk), rand(Sq)
+    q = (q * D ** -0.5).to(dt)
+    # the plain versions' default blocks are the ones flash_attention fits
+    ro, rlse = TA.flash_attention_forward_reference(q, k, v, causal=causal)
+    delta = TA._delta(ro, do)
+    args = (q, k, v, do, rlse, delta)
+    kernels.reset_launch_counts()
+    o, lse = TA.flash_attention_forward(q, k, v, causal=causal)
+    dk, dv = TA.flash_attention_backward_dkv(*args, causal=causal)
+    dq = TA.flash_attention_backward_dq(*args, causal=causal)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {"flash_attention_forward": 1,
+                                       "flash_attention_backward_dkv": 1,
+                                       "flash_attention_backward_dq": 1}
+    rdk, rdv = TA.flash_attention_backward_dkv_reference(*args,
+                                                         causal=causal)
+    rdq = TA.flash_attention_backward_dq_reference(*args, causal=causal)
+    _hold((o, lse, dq, dk, dv), (ro, rlse, rdq, rdk, rdv), lambda: (
+        TA.flash_attention_forward_f64(q, k, v, causal=causal)
+        + TA.flash_attention_backward_f64(q, k, v, ro, rlse, do,
+                                          causal=causal)))
 
 
 @pytest.mark.cuda
 def test_whole_attention_kernels_refuse_what_they_do_not_take():
+    """The whole-kv and streaming wrappers raise on what their kernels
+    do not take; exact=True on the card goes to the streaming kernels."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     q = torch.randn(1, 2, 128, 48, device="cuda")
     with pytest.raises(ValueError, match="head dim"):
         TA.whole_attention_forward(q, q, q, causal=True)
+    with pytest.raises(ValueError, match="head dim"):
+        TA.flash_attention_forward(q, q, q, causal=True)
     q = torch.randn(1, 2, 128, 64, device="cuda", dtype=torch.float16)
     with pytest.raises(TypeError, match="not supported"):
         TA.whole_attention_forward(q, q, q, causal=True)
+    with pytest.raises(TypeError, match="not supported"):
+        TA.flash_attention_forward(q, q, q, causal=True)
     q = torch.randn(1, 2, 128, 64, device="cuda")
     with pytest.raises(ValueError, match="one device"):
         TA.whole_attention_forward(q, q.cpu(), q, causal=True)
-    with pytest.raises(NotImplementedError, match="Queue B"):
-        TA.flash_attention(q, q, q, causal=True, exact=True)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        TA.flash_attention_forward(q[:, :, :100].contiguous(), q, q,
+                                   causal=True)
+    kernels.reset_launch_counts()
+    out = TA.flash_attention(q, q, q, causal=True, exact=True)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    assert kernels.launch_counts() == {"flash_attention_forward": 1}
