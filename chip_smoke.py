@@ -8,7 +8,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
 1. device   — a CUDA card of compute capability 9.0; prints its name and
               power limit (nvidia-smi); TF32 off for the f32 checks.
 2. build    — compiles every kernel in ray_tpu_torch/kernels/csrc from
-              the checkout, one nvcc per source, in parallel.
+              the checkout, one nvcc per source, in parallel; prints
+              the registers, spills and shared memory per CTA of the
+              streaming kernels' bf16 bodies.
 3. kernel   — each kernel's wrapper against its plain PyTorch version on
               the card, at the main paths' shapes and more: max error
               against a stated tolerance, kernel / plain / library time
@@ -22,7 +24,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
               streaming forward, dkv and dq kernels at Llama-2-7B
               training's b2 h32 s4096 d128 bf16, at GPT-2's shape, at
               small f32 shapes (a ragged 2064 = 16 * 129, sq != sk with
-              the top-left causal mask, not causal) and past the cap.
+              the top-left causal mask, not causal), at the same edges
+              in bf16 for the wgmma backward (d 64 and 128; 1040 and
+              2064, not multiples of 64 or 128) and past the cap.
               In bf16 each kernel and its plain version are both held to
               the function in f64 (attention_case, hold_outputs).
 4. serve    — GPT-2 small at full width and depth (random weights from a
@@ -618,6 +622,11 @@ def main() -> int:
     t0 = time.time()
     libs = kernels.build()
     print(f"build: {sorted(libs)} in {time.time() - t0:.2f} s", flush=True)
+    # registers and spills (ptxas) and shared memory per CTA of the
+    # streaming kernels' tensor-core bodies
+    print("kernel_resources", json.dumps(
+        [r for r in A.flash_resource_usage()
+         if not r["kernel"].endswith("_kernel")]), flush=True)
 
     # 3. kernel against its plain version
     scratch = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
@@ -661,17 +670,33 @@ def main() -> int:
                   True),
                  ("c: sq < sk, not causal", 2, 3, 128, 256, 32, "float32",
                   False),
+                 # the wgmma bodies' edges (d 64, 128): lengths that are not
+                 # a multiple of the 128-row CTA tile or of 64, sq != sk
+                 ("c: ragged 1040, d 128", 2, 4, 1040, 1040, 128,
+                  "bfloat16", True),
+                 ("c: ragged 2064, d 64", 1, 2, 2064, 2064, 64, "bfloat16",
+                  True),
+                 ("c: sq < sk, top-left", 2, 3, 128, 256, 128, "bfloat16",
+                  True),
+                 ("c: sq > sk, top-left", 2, 3, 320, 192, 64, "bfloat16",
+                  True),
+                 ("c: sq > sk ragged, not causal", 2, 3, 256, 144, 128,
+                  "bfloat16", False),
+                 ("c: sq < sk ragged, not causal", 2, 3, 144, 400, 64,
+                  "bfloat16", False),
                  ("d: logits past 50", 2, 2, 256, 256, 64, "float32", True,
                   8.0),
                  ("d: logits past 50", 2, 2, 256, 256, 64, "bfloat16", True,
-                  8.0)):
+                  8.0),
+                 ("d: logits past 50, d 128", 2, 2, 256, 256, 128,
+                  "bfloat16", True, 8.0)):
         label, B, H, Sq, Sk, D, dtype, causal, *scale = case
         flash[label, dtype] = attention_case("flash", label, B, H, Sq, Sk,
                                              D, dtype, causal, flush, *scale)
     for cases, letter in ((whole, "d: logits past the cap"),
                           (flash, "d: logits past 50")):
         s_max = min(r["max_scaled_logit"] for (n, _), rows in cases.items()
-                    if n == letter for r in rows.values())
+                    if n.startswith(letter) for r in rows.values())
         require(s_max > 50.0, f"case {letter}: max scaled logit {s_max} "
                 "does not pass 50")
     del scratch

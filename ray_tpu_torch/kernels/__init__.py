@@ -8,6 +8,10 @@ seconds, not minutes). Libraries go to ``kernels/build/`` inside the
 package, named by a hash of the source and flags, so an edited source
 is rebuilt and an unchanged one is reused.
 
+Every build runs with ``-Xptxas -v`` and keeps the compiler's report
+beside the library; ``resource_usage`` reads it (registers and spills
+per kernel instance; ``python3 -m ray_tpu_torch.kernels`` prints it).
+
 Every wrapper that launches a kernel adds one to that kernel's launch
 count (``count_launch``), so a run can show that its main path went
 through the kernel: ``reset_launch_counts()`` before, ``launch_counts()``
@@ -19,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -28,7 +33,7 @@ CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "build")
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -86,10 +91,49 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
         if p.returncode != 0:
             failed.append(f"{n}.cu:\n{log}")
         else:
+            with open(_log_path(paths[n]), "w") as fh:
+                fh.write(log)
             os.replace(tmp, paths[n])
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return paths
+
+
+def _log_path(lib_path: str) -> str:
+    return lib_path[:-3] + ".ptxas.txt"
+
+
+_ENTRY = re.compile(r"Compiling entry function '.*?((?:flash_(?:fwd|dkv|dq)"
+                    r"|whole_(?:fwd|bwd)|paged_decode)_[a-z0-9]+)"
+                    r"(?:ILi(\d+)E)?")
+_SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                    r"(\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+
+
+def parse_ptxas(log: str) -> List[dict]:
+    """One dict per kernel instance in ``nvcc -Xptxas -v`` output:
+    kernel, template head dim, registers per thread at launch, stack and
+    spill bytes."""
+    out: List[dict] = []
+    for line in log.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            out.append({"kernel": m.group(1),
+                        "d": int(m.group(2)) if m.group(2) else None})
+        elif out and _SPILL.search(line):
+            st, ss, sl = map(int, _SPILL.search(line).groups())
+            out[-1].update(stack_bytes=st, spill_stores=ss, spill_loads=sl)
+        elif out and _REGS.search(line):
+            out[-1]["registers"] = int(_REGS.search(line).group(1))
+    return out
+
+
+def resource_usage(name: str) -> List[dict]:
+    """``parse_ptxas`` of the build log of source ``name`` (built first
+    if it is not)."""
+    with open(_log_path(build([name])[name])) as fh:
+        return parse_ptxas(fh.read())
 
 
 def load(name: str) -> ctypes.CDLL:

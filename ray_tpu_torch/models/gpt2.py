@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.ops.attention import (TRAINING_KERNELS, TrainingAttention,
                                          attention_reference,
                                          cached_attention, flash_attention,
@@ -318,9 +319,11 @@ def causal_lm_loss(logits, labels, ignore_index: int = -100):
 
 
 def init_kv_cache(cfg: GPT2Config, batch_size: int, max_len: int,
-                  device="cpu"):
+                  device="cuda"):
     """Per-layer contiguous KV caches for incremental decode ([B, S_max,
-    H, D] token-major, the layout the paged pool shares)."""
+    H, D] token-major, the layout the paged pool shares), on ``cuda``
+    unless the caller asks for ``cpu``."""
+    device = resolve_device(device)
     hd = cfg.n_embd // cfg.n_head
     shape = (batch_size, max_len, cfg.n_head, hd)
     return [{"k": torch.zeros(shape, dtype=cfg.dtype, device=device),

@@ -534,6 +534,22 @@ def _flash_lib():
         "rtt_flash_attention_bwd_dq": 7})
 
 
+def flash_resource_usage():
+    """ptxas's report on each streaming-kernel instance
+    (``kernels.resource_usage``) with ``smem_bytes``, the dynamic shared
+    memory per CTA that its launch sets. Builds the library: needs
+    ``nvcc``."""
+    f = _flash_lib().rtt_flash_attention_smem_bytes
+    f.argtypes = [ctypes.c_int] * 3
+    f.restype = ctypes.c_longlong
+    out = kernels.resource_usage("flash_attention")
+    for r in out:
+        which = ("fwd", "dkv", "dq").index(r["kernel"].split("_")[1])
+        r["smem_bytes"] = f(which, 0 if r["kernel"].endswith("_kernel") else 1,
+                            r["d"])
+    return out
+
+
 def _flash_dims(q, k):
     B, H, Sq, D = q.shape
     return (B * H, Sq, k.shape[2], D)

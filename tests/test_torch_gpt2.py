@@ -124,7 +124,7 @@ def test_contiguous_cache_decode_matches_full_forward():
     """``init_kv_cache`` (contiguous caches): prefill 6, decode 4."""
     _, _, mt = _models()
     ids = torch.from_numpy(_ids()).long()
-    cache = TG.init_kv_cache(mt.cfg, B, 32)
+    cache = TG.init_kv_cache(mt.cfg, B, 32, device="cpu")
     L = torch.zeros(B, dtype=torch.int32)
     with torch.no_grad():
         full = mt(ids)

@@ -145,9 +145,12 @@ def _hold(outs, plains, refs):
     assert not bad, held
 
 
-# (B, H, Sq, Sk, D, causal): Llama-2-7B training (s = 4096, d = 128),
-# GPT-2's shape on the exact path, a ragged length (2064 = 16 * 129),
-# sq != sk both ways (top-left causal), and each head dim
+# (B, H, Sq, Sk, D, causal[, scale]): Llama-2-7B training (s = 4096,
+# d = 128), GPT-2's shape on the exact path, a ragged length (2064 =
+# 16 * 129), sq != sk both ways (top-left causal), each head dim, and
+# the edges of the wgmma backward (d 64 and 128; 128-row CTA tiles):
+# 1040 (a multiple of 16, not of 64), sq != sk with ragged ends, not
+# causal, and inputs scaled so that the logits pass 50
 FLASH_SHAPES = [
     (2, 32, 4096, 4096, 128, True),
     (16, 12, 1024, 1024, 64, True),
@@ -155,6 +158,12 @@ FLASH_SHAPES = [
     (2, 3, 128, 256, 32, True),
     (2, 3, 320, 192, 128, True),
     (2, 3, 256, 144, 16, False),
+    (2, 4, 1040, 1040, 128, True),
+    (2, 3, 128, 256, 128, True),
+    (2, 3, 320, 192, 64, True),
+    (2, 3, 256, 144, 128, False),
+    (2, 3, 144, 400, 64, False),
+    (2, 2, 256, 256, 128, True, 8.0),
 ]
 
 
@@ -162,25 +171,31 @@ FLASH_SHAPES = [
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", FLASH_SHAPES,
                          ids=["llama", "gpt2", "ragged", "sq<sk", "sq>sk",
-                              "d16-full"])
+                              "d16-full", "ragged-1040-d128", "sq<sk-d128",
+                              "sq>sk-d64", "sq>sk-full-d128",
+                              "sq<sk-full-d64", "past-50-d128"])
 def test_flash_attention_kernels_match_plain_versions(shape, dtype):
     """Streaming forward (o, lse), dkv (dk, dv) and dq kernels against
     their plain versions at the blocks flash_attention fits, by
     chip_smoke.py's rules, each backward from the plain forward's o and
-    lse. One launch of each kernel."""
+    lse. One launch of each kernel. bf16 at d = 64 and 128 runs the
+    wgmma backward; the scaled case's logits pass 50."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    B, H, Sq, Sk, D, causal = shape
+    B, H, Sq, Sk, D, causal, *scale = shape
     if dtype == "float32" and Sq * Sk > 1 << 23:
         Sq, Sk = Sq // 4, Sk // 4      # the CUDA-core bodies, smaller
     dt = getattr(torch, dtype)
     g = torch.Generator().manual_seed(0)
 
     def rand(s):
-        return torch.randn(B, H, s, D, generator=g).to("cuda", dt)
+        return (torch.randn(B, H, s, D, generator=g) * (scale or [1.0])[0]
+                ).to("cuda", dt)
     q, k, v, do = rand(Sq), rand(Sk), rand(Sk), rand(Sq)
     q = (q * D ** -0.5).to(dt)
+    if scale:
+        assert _chip_smoke().max_logit(q, k) > 50.0
     # the plain versions' default blocks are the ones flash_attention fits
     ro, rlse = TA.flash_attention_forward_reference(q, k, v, causal=causal)
     delta = TA._delta(ro, do)

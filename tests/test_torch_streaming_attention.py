@@ -365,3 +365,27 @@ def test_wrappers_take_plain_versions_on_cpu_and_refuse_other_devices():
                   (TA.flash_attention_backward_dq, (m, m, m, m, r, r))):
         with pytest.raises(ValueError, match="no kernel"):
             fn(*a, causal=True)
+
+
+PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__1927b273_18_flash_attention_cu_4b62497615flash_dkv_wgmmaILi128EEEv14CUtensorMap_stS1_S1_S1_S1_S1_P13__nv_bfloat16S3_iiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__1927b273_18_flash_attention_cu_4b62497615flash_dkv_wgmmaILi128EEEv14CUtensorMap_stS1_S1_S1_S1_S1_P13__nv_bfloat16S3_iiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+ptxas info    : Compile time = 351.984 ms
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__1927b273_18_flash_attention_cu_4b62497613flash_dkv_mmaILi16EEEvPK13__nv_bfloat16S3_S3_S3_PKfS5_PS1_S6_iiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__1927b273_18_flash_attention_cu_4b62497613flash_dkv_mmaILi16EEEvPK13__nv_bfloat16S3_S3_S3_PKfS5_PS1_S6_iiii
+    16 bytes stack frame, 12 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 96 registers, used 1 barriers, 388 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_is_read_per_kernel_instance():
+    """``kernels.parse_ptxas`` on the report nvcc -Xptxas -v prints on
+    the card (two instances of flash_attention.cu): kernel name, head
+    dim, registers at launch, stack and spill bytes."""
+    assert kernels.parse_ptxas(PTXAS_LOG) == [
+        {"kernel": "flash_dkv_wgmma", "d": 128, "stack_bytes": 0,
+         "spill_stores": 0, "spill_loads": 0, "registers": 168},
+        {"kernel": "flash_dkv_mma", "d": 16, "stack_bytes": 16,
+         "spill_stores": 12, "spill_loads": 12, "registers": 96}]
