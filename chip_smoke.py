@@ -10,7 +10,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
 2. build    — compiles every kernel in ray_tpu_torch/kernels/csrc from
               the checkout, one nvcc per source, in parallel; prints
               the registers, spills and shared memory per CTA of the
-              streaming kernels' bf16 bodies.
+              attention kernels' bf16 bodies.
 3. kernel   — each kernel's wrapper against its plain PyTorch version on
               the card, at the main paths' shapes and more: max error
               against a stated tolerance, kernel / plain / library time
@@ -19,16 +19,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
               shapes; the whole-kv attention forward and backward at
               GPT-2 training's b16 h12 s1024 d64 bf16, at the entry
               shape b4 h12 s512, at Llama-2-7B's preset shape b1 h32
-              s2048 d128, at a small f32 shape and at shapes whose
-              scaled logits pass the 50 cap (f32 and bf16); the
+              s2048 d128, at a small f32 shape, at shapes whose scaled
+              logits pass the 50 cap (f32 and bf16, d 64 and 128) and
+              at the edges of the wgmma backward in bf16 (s 192 and
+              320, not multiples of 128; not causal); the
               streaming forward, dkv and dq kernels at Llama-2-7B
               training's b2 h32 s4096 d128 bf16, at GPT-2's shape, at
               small f32 shapes (a ragged 2064 = 16 * 129, sq != sk with
               the top-left causal mask, not causal), at the same edges
               in bf16 for the wgmma backward (d 64 and 128; 1040 and
-              2064, not multiples of 64 or 128) and past the cap.
-              In bf16 each kernel and its plain version are both held to
+              2064, not multiples of 64 or 128) and past the cap; with
+              each attention case, the delta pass that both training
+              backwards run (attention_delta) on its o and do. In bf16 each kernel and its plain version are both held to
               the function in f64 (attention_case, hold_outputs).
+              SDPA's backward is timed as device time (a CUDA graph's
+              replays; sdpa_backward_ms).
 4. serve    — GPT-2 small at full width and depth (random weights from a
               seed) behind the port's LLMServer: 16 concurrent streams of
               64 greedy tokens. Launch counts are zeroed just before and
@@ -40,8 +45,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 6. train    — make_causal_lm_trainer(GPT2Config.small()) on the card,
               batch 16 x 1024 of seeded tokens: warm-up steps, then
               timed windows with the launch counts zeroed before and
-              read after (each whole-kv kernel exactly n_layer times a
-              step); the loss is finite and falls on the repeated
+              read after (each whole-kv kernel and the delta pass
+              exactly n_layer times a step); the loss is finite and falls on the repeated
               batch. Prints bench.py's gpt2_* keys and peak memory,
               then one profiled step's device time by kernel group.
 7. train numerics — GPT-2 at full width, 2 layers, TF32 off: one
@@ -57,8 +62,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
               2 x 4096 of seeded tokens: s = 4096 takes the streaming
               kernels by its shape. Warm-up steps, then timed windows
               with the launch counts zeroed before and read after (each
-              streaming kernel exactly n_layers times a step, no
-              whole-kv launch); the loss is finite and falls. Prints
+              streaming kernel and the delta pass exactly n_layers times
+              a step, no whole-kv launch); the loss is finite and falls. Prints
               step time, tokens/s, peak memory and one profiled step.
 9. llama numerics — the same model at 2 layers, batch 1 x 4096: one
               loop step through the streaming kernels against one
@@ -89,11 +94,12 @@ PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core bf16
               "float32": 67e12}    # f32 outside the tensor cores
 SEED = 0
 # profile_step's kernel groups, by substrings of the kernel's name: the
-# port's attention kernels, then f32 products (SIMT sgemm: Llama's f32
+# port's attention kernels and their delta pass, then f32 products (SIMT sgemm: Llama's f32
 # LM head, TF32 off), then the other matrix products (cuBLAS/CUTLASS)
 PROFILE_GROUPS = (
     ("whole_kv_attention", ("whole_fwd", "whole_bwd")),
     ("streaming_attention", ("flash_fwd", "flash_dkv", "flash_dq")),
+    ("attention_delta", ("attention_delta",)),
     ("matmul_f32", ("sgemm", "f32f32_f32f32")),
     ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "cublas", "sm90_")))
 # whole-kv kernels against their plain versions: f32 within F32_TOL of
@@ -183,10 +189,10 @@ def paged_case(name, B, H, Hkv, D, bs, NB, lengths, dtype, tol, flush):
 
 def hold_outputs(name, dtype, outs, refs) -> dict:
     """Holds each kernel output to its plain version's, ``outs`` = {name:
-    (kernel, plain)} in the order o, lse, dq, dk, dv:
+    (kernel, plain)} in the order o, lse, dq, dk, dv, delta:
 
-    f32 outputs (all of them for f32 inputs; lse for bf16 inputs, which
-          neither side rounds to bf16):
+    f32 outputs (all of them for f32 inputs; lse and delta for bf16
+          inputs, which neither side rounds to bf16):
           max |kernel - plain| <= F32_TOL * (1 + max |plain|): the two
           only sum in another order;
     bf16 outputs: both round p, ds and the outputs, so each is measured
@@ -245,29 +251,36 @@ def causal_pairs(Sq: int, Sk: int, causal: bool) -> int:
 
 # what each attention wrapper's function must move and compute: tensors
 # of q's shape and of k's shape read or written once, f32 rows (lse,
-# delta), and products of 2 * D flops per causal pair
-ATTENTION_WORK = {   # kernel: (q-shaped, k-shaped, f32 rows, products)
+# delta), products of 2 * D flops per causal pair in the inputs' dtype,
+# and 2 * D f32 flops per row
+ATTENTION_WORK = {   # kernel: (q-shaped, k-shaped, f32 rows, products,
+    #                           row passes)
     # q, k, v in, o and lse out; s = q.k^T, e.v
-    "whole_attention_forward": (2, 2, 1, 2),
+    "whole_attention_forward": (2, 2, 1, 2, 0),
     # q, k, v, o, do, lse in (delta inside), dq, dk, dv out; s, dp, dq,
-    # dk, dv
-    "whole_attention_backward": (5, 3, 1, 5),
-    "flash_attention_forward": (2, 2, 1, 2),
+    # dk, dv (delta's row pass left out: under 0.1% of the products)
+    "whole_attention_backward": (5, 3, 1, 5, 0),
+    "flash_attention_forward": (2, 2, 1, 2, 0),
     # q, k, v, do, lse, delta in, dk, dv out; s, dp, dv, dk
-    "flash_attention_backward_dkv": (2, 4, 2, 4),
+    "flash_attention_backward_dkv": (2, 4, 2, 4, 0),
     # the same in, dq out; s, dp, dq
-    "flash_attention_backward_dq": (3, 2, 2, 3)}
+    "flash_attention_backward_dq": (3, 2, 2, 3, 0),
+    # o, do in, delta out; o . do per row
+    "attention_delta": (2, 0, 1, 0, 1)}
 
 
 def attention_bound(kname, B, H, Sq, Sk, D, dtype, causal):
     """(bound_ms, bound_by, bytes, flops) of one attention wrapper's
     function (ATTENTION_WORK), causal pairs only."""
-    n_q, n_k, n_rows, products = ATTENTION_WORK[kname]
+    n_q, n_k, n_rows, products, row_passes = ATTENTION_WORK[kname]
     elt = 2 if dtype == "bfloat16" else 4
     nbytes = ((n_q * Sq + n_k * Sk) * D * elt + n_rows * Sq * 4) * B * H
     flops = 2 * D * products * B * H * causal_pairs(Sq, Sk, causal)
+    row_flops = 2 * D * row_passes * B * H * Sq
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = (flops / PEAK_FLOPS[dtype]
+             + row_flops / PEAK_FLOPS["float32"]) * 1e3
+    flops += row_flops
     return (max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
@@ -285,17 +298,20 @@ def attention_case(path, name, B, H, Sq, Sk, D, dtype, causal, flush,
                    scale=1.0) -> dict:
     """One training-attention path's kernels against their plain
     versions on one shape: ``path`` "whole" (the whole-kv forward and
-    one backward launch; Sq = Sk) or "flash" (the streaming forward and
-    the backward as two launches, dkv and dq; plain versions at the
-    blocks flash_attention fits to the shape). Each of o, lse, dq, dk
-    and dv is held by ``hold_outputs`` (bf16 yardsticks:
-    ``{path}_attention_*_f64``, the streaming ones a few heads at a
-    time). The backwards start from the plain forward's o and lse, so
-    each kernel is held on its own. Returns {kernel name: its
-    measurements}. The library yardstick is SDPA: its forward for the
-    forward, its backward (dq, dk and dv in one call) for the backward,
-    and for the streaming pair dkv + dq together (``library_covers``
-    on both rows)."""
+    one backward launch after the delta pass; Sq = Sk) or "flash" (the
+    streaming forward and the backward as two launches, dkv and dq;
+    plain versions at the blocks flash_attention fits to the shape),
+    and the delta pass both backwards run (``attention_delta``). Each of
+    o, lse, dq, dk, dv and delta is held by ``hold_outputs`` (bf16
+    yardsticks: ``{path}_attention_*_f64``, the streaming ones a few
+    heads at a time). The backwards and the delta pass start from the
+    plain forward's o and lse (the streaming ones from the plain
+    delta), so each kernel is held on its own. Returns {kernel name:
+    its measurements}. The library yardstick is SDPA: its forward for
+    the forward, its backward (dq, dk and dv in one call, device time:
+    ``sdpa_backward_ms``) for the backward, and for the streaming pair
+    dkv + dq together (``library_covers`` on both rows); the delta pass
+    has none."""
     import torch
     import torch.nn.functional as F
     from ray_tpu_torch.ops import attention as A
@@ -316,14 +332,16 @@ def attention_case(path, name, B, H, Sq, Sk, D, dtype, causal, flush,
     else:
         bwd = {"flash_attention_backward_dkv": ("dk", "dv"),
                "flash_attention_backward_dq": ("dq",)}
-        bwd_args = (q, k, v, do, rlse, A._delta(ro, do))
+        bwd_args = (q, k, v, do, rlse, A.attention_delta_reference(ro, do))
     parts = {f"{path}_attention_forward": (fwd_args, ("o", "lse")),
-             **{kname: (bwd_args, names) for kname, names in bwd.items()}}
+             **{kname: (bwd_args, names) for kname, names in bwd.items()},
+             "attention_delta": ((ro, do), ("delta",))}
 
     def run(kname, plain=False):
         args, _ = parts[kname]
         fn = getattr(A, kname + ("_reference" if plain else ""))
-        return lambda: fn(*args, causal=causal)
+        kw = {} if kname == "attention_delta" else {"causal": causal}
+        return lambda: fn(*args, **kw)
 
     kernel_outs = {kname: run(kname)() for kname in parts}
     torch.cuda.synchronize()
@@ -332,38 +350,39 @@ def attention_case(path, name, B, H, Sq, Sk, D, dtype, causal, flush,
         got, want = kernel_outs[kname], run(kname, plain=True)()
         got, want = ((got,), (want,)) if len(names) == 1 else (got, want)
         outs.update(zip(names, zip(got, want)))
-    outs = {n: outs[n] for n in ("o", "lse", "dq", "dk", "dv")}
+    outs = {n: outs[n] for n in ("o", "lse", "dq", "dk", "dv", "delta")}
 
     def refs():
         f64 = getattr(A, f"{path}_attention_forward_f64"), getattr(
             A, f"{path}_attention_backward_f64")
         return (f64[0](q, k, v, causal=causal)
-                + f64[1](q, k, v, ro, rlse, do, causal=causal))
+                + f64[1](q, k, v, ro, rlse, do, causal=causal)
+                + ((ro.double() * do.double()).sum(-1),))
     abs_err = hold_outputs(name, dtype, outs, refs)
     del outs, kernel_outs
 
     # the library calls, timed here and never called by the port
     lib_f = time_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=causal, scale=1.0), flush)
-    qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
-    out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=causal,
-                                         scale=1.0)
-    lib_b = time_ms(lambda: torch.autograd.grad(
-        out, (qq, kk, vv), do, retain_graph=True), flush)
-    del out
+    lib_b, lib_b_host = sdpa_backward_ms(q, k, v, do, causal, flush)
+    library = {f"{path}_attention_forward": {
+                   "library_ms": lib_f,
+                   "library_covers": [f"{path}_attention_forward"]},
+               **{kname: {"library_ms": lib_b, "library_covers": list(bwd),
+                          "library_ms_autograd": lib_b_host}
+                  for kname in bwd},
+               "attention_delta": {"library_ms": None, "library_covers": []}}
     res = {}
     for kname, (_, names) in parts.items():
         bound, by, nbytes, flops = attention_bound(kname, B, H, Sq, Sk, D,
                                                    dtype, causal)
-        forward = kname.endswith("_forward")
         r = {"case": name, "kernel": kname, "shape": [B, H, Sq, Sk, D],
              "dtype": dtype, "causal": causal,
              "max_scaled_logit": s_max,
              "max_abs_err": max(abs_err[n] for n in names),
              "ms": time_ms(run(kname), flush),
              "plain_ms": time_ms(run(kname, plain=True), flush, iters=3),
-             "library_ms": lib_f if forward else lib_b,
-             "library_covers": [kname] if forward else list(bwd),
+             **library[kname],
              "bound_ms": bound, "bound_by": by,
              "bytes": nbytes, "flops": flops}
         print("kernel", json.dumps(r), flush=True)
@@ -371,8 +390,43 @@ def attention_case(path, name, B, H, Sq, Sk, D, dtype, causal, flush,
     if len(bwd) > 1:
         print("backward_pair", json.dumps({
             "case": name, "kernels_ms": sum(res[k]["ms"] for k in bwd),
-            "sdpa_backward_ms": lib_b}), flush=True)
+            "sdpa_backward_ms": lib_b,
+            "sdpa_backward_autograd_ms": lib_b_host}), flush=True)
     return res
+
+
+def sdpa_backward_ms(q, k, v, do, causal, flush):
+    """SDPA's backward (dq, dk and dv in one ``torch.autograd.grad``
+    call) timed two ways, by ``time_ms``: (device, autograd). device:
+    the call captured once in a CUDA graph (its forward run on the
+    capture stream first, so that autograd's backward runs there too)
+    and the graph's replays timed, so no host work of autograd falls in
+    the window; autograd: the call itself between the events, as
+    earlier runs timed it."""
+    import torch
+    import torch.nn.functional as F
+
+    def leaves():
+        return tuple(t.detach().requires_grad_() for t in (q, k, v))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        xs = leaves()
+        out = F.scaled_dot_product_attention(*xs, is_causal=causal,
+                                             scale=1.0)
+        for _ in range(2):      # warm-up on the capture stream
+            torch.autograd.grad(out, xs, do, retain_graph=True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        torch.autograd.grad(out, xs, do, retain_graph=True)
+    device = time_ms(graph.replay, flush)
+    del graph, out
+    xs = leaves()
+    out = F.scaled_dot_product_attention(*xs, is_causal=causal, scale=1.0)
+    host = time_ms(lambda: torch.autograd.grad(out, xs, do,
+                                               retain_graph=True), flush)
+    return device, host
 
 
 def profile_step(step) -> dict:
@@ -523,7 +577,8 @@ def train_parity(cfg, tokens):
     from ray_tpu_torch.ops import attention as A
     E = cfg.n_embd
     want = {"whole_attention_forward": cfg.n_layer,
-            "whole_attention_backward": cfg.n_layer}
+            "whole_attention_backward": cfg.n_layer,
+            "attention_delta": cfg.n_layer}
     runs = {}
     for dt in ("float32", "bfloat16"):
         c = dataclasses.replace(cfg, dtype=getattr(torch, dt))
@@ -576,6 +631,7 @@ def llama_parity(cfg, ids):
     from ray_tpu_torch.ops import attention as A
     want = {f"flash_attention_{k}": cfg.n_layers
             for k in ("forward", "backward_dkv", "backward_dq")}
+    want["attention_delta"] = cfg.n_layers
     runs = {}
     for dt in ("float32", "bfloat16"):
         c = dataclasses.replace(cfg, dtype=getattr(torch, dt))
@@ -623,10 +679,12 @@ def main() -> int:
     libs = kernels.build()
     print(f"build: {sorted(libs)} in {time.time() - t0:.2f} s", flush=True)
     # registers and spills (ptxas) and shared memory per CTA of the
-    # streaming kernels' tensor-core bodies
+    # attention kernels' tensor-core bodies
     print("kernel_resources", json.dumps(
-        [r for r in A.flash_resource_usage()
-         if not r["kernel"].endswith("_kernel")]), flush=True)
+        [r for src in ("whole_attention", "flash_attention")
+         for r in A.attention_resource_usage(src)
+         if not r["kernel"].endswith("_kernel")]
+        + kernels.resource_usage("attention_delta")), flush=True)
 
     # 3. kernel against its plain version
     scratch = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
@@ -654,7 +712,15 @@ def main() -> int:
                  ("d: logits past the cap", 2, 2, 256, 64, "bfloat16", True,
                   8.0),
                  ("e: llama-2-7b preset (s 2048, d 128)", 1, 32, 2048, 128,
-                  "bfloat16", True)):
+                  "bfloat16", True),
+                 # the wgmma backward's edges (d 64, 128; 128-row CTA
+                 # tiles): lengths that are not a multiple of 128, not
+                 # causal, past the cap at d 128
+                 ("f: s 192, d 128", 2, 3, 192, 128, "bfloat16", True),
+                 ("f: s 320, d 64", 2, 3, 320, 64, "bfloat16", True),
+                 ("f: not causal, d 64", 2, 3, 256, 64, "bfloat16", False),
+                 ("d: logits past the cap, d 128", 2, 2, 256, 128,
+                  "bfloat16", True, 8.0)):
         label, B, H, S, D, dtype, causal, *scale = case
         whole[label, dtype] = attention_case("whole", label, B, H, S, S, D,
                                              dtype, causal, flush, *scale)
@@ -845,12 +911,13 @@ def main() -> int:
     require(all(math.isfinite(x) for x in losses + norms),
             f"non-finite loss or grad norm: {losses} {norms}")
     require(losses[-1] < losses[0], f"loss did not fall: {losses}")
-    for kname in ("whole_attention_forward", "whole_attention_backward"):
+    whole_names = ["whole_attention_forward", "whole_attention_backward",
+                   "attention_delta"]
+    for kname in whole_names:
         require(train_counts.get(kname, 0) == cfg.n_layer * n_steps,
                 f"{kname} launched {train_counts.get(kname, 0)} times in "
                 f"{n_steps} steps of {cfg.n_layer} layers")
-    require(set(train_counts) == {"whole_attention_forward",
-                                  "whole_attention_backward"},
+    require(set(train_counts) == set(whole_names),
             f"unexpected kernels on the training path: {train_counts}")
     best = min(host_ms)
     print("train", json.dumps({
@@ -911,11 +978,11 @@ def main() -> int:
     require(losses[-1] < losses[0], f"llama: loss did not fall: {losses}")
     streaming_names = [f"flash_attention_{k}" for k in
                        ("forward", "backward_dkv", "backward_dq")]
-    for kname in streaming_names:
+    for kname in streaming_names + ["attention_delta"]:
         require(llama_counts.get(kname, 0) == lcfg.n_layers * n_steps,
                 f"{kname} launched {llama_counts.get(kname, 0)} times in "
                 f"{n_steps} steps of {lcfg.n_layers} layers")
-    require(set(llama_counts) == set(streaming_names),
+    require(set(llama_counts) == set(streaming_names + ["attention_delta"]),
             f"unexpected kernels on the Llama path: {llama_counts}")
     best = min(host_ms)
     print("llama_train", json.dumps({
@@ -960,7 +1027,7 @@ def main() -> int:
         return {"name": kname, "route": "cuda",
                 "source": f"ray_tpu_torch/kernels/csrc/{source}",
                 "replaces": f"ray_tpu/ops/attention.py:{line}",
-                "launches": launches,
+                "launches": launches, "case": case.get("case"),
                 "max_abs_err": case["max_abs_err"], "ms": case["ms"],
                 "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
                 "bound_by": case["bound_by"],
@@ -979,7 +1046,20 @@ def main() -> int:
                               ("whole_attention_backward", 110))),
         *(kernel_entry(main_flash[kname], kname, "flash_attention.cu", line,
                        llama_counts[kname])
-          for kname, line in zip(streaming_names, (303, 410, 469)))]}
+          for kname, line in zip(streaming_names, (303, 410, 469))),
+        # the delta pass of both backwards: in the JAX package a jnp.sum
+        # in _whole_backward (:262) and _flash_backward (:528) that XLA
+        # compiles, no Pallas kernel; held and timed at GPT-2's shape,
+        # launched by both training paths
+        {**kernel_entry(main_whole["attention_delta"], "attention_delta",
+                        "attention_delta.cu", 262,
+                        train_counts["attention_delta"]
+                        + llama_counts["attention_delta"]),
+         "launches_by_path": {
+             "gpt2_train": train_counts["attention_delta"],
+             "llama_train": llama_counts["attention_delta"]},
+         "replaces_note": "jnp.sum in _whole_backward (:262) and "
+                          "_flash_backward (:528): XLA, no Pallas kernel"}]}
     print(card)                  # nvidia-smi's name, power.limit line
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

@@ -103,9 +103,12 @@ def _log_path(lib_path: str) -> str:
     return lib_path[:-3] + ".ptxas.txt"
 
 
-_ENTRY = re.compile(r"Compiling entry function '.*?((?:flash_(?:fwd|dkv|dq)"
-                    r"|whole_(?:fwd|bwd)|paged_decode)_[a-z0-9]+)"
-                    r"(?:ILi(\d+)E)?")
+_ENTRY = re.compile(r"Compiling entry function '([^']*)'")
+# a kernel's name, then its template arguments in its mangled name:
+# element type (paged decode, attention delta) and head dim (attention)
+_NAME = re.compile(r"((?:flash_(?:fwd|dkv|dq)|whole_(?:fwd|bwd))_[a-z0-9]+"
+                   r"|paged_decode_kernel|attention_delta_kernel)"
+                   r"(?:I(13__nv_bfloat16|f)?(?:Li(\d+)E)?)?")
 _SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                     r"(\d+) bytes spill loads")
 _REGS = re.compile(r"Used (\d+) registers")
@@ -113,20 +116,25 @@ _REGS = re.compile(r"Used (\d+) registers")
 
 def parse_ptxas(log: str) -> List[dict]:
     """One dict per kernel instance in ``nvcc -Xptxas -v`` output:
-    kernel, template head dim, registers per thread at launch, stack and
-    spill bytes."""
+    kernel, template head dim and element type (where the kernel takes
+    them), registers per thread at launch, stack and spill bytes.
+    Entries of other kernels are left out."""
     out: List[dict] = []
     for line in log.splitlines():
         m = _ENTRY.search(line)
         if m:
-            out.append({"kernel": m.group(1),
-                        "d": int(m.group(2)) if m.group(2) else None})
+            n = _NAME.search(m.group(1))
+            out.append({"kernel": n and n.group(1),
+                        "d": int(n.group(3)) if n and n.group(3) else None})
+            if n and n.group(2):
+                out[-1]["dtype"] = ("bfloat16" if n.group(2) != "f"
+                                    else "float32")
         elif out and _SPILL.search(line):
             st, ss, sl = map(int, _SPILL.search(line).groups())
             out[-1].update(stack_bytes=st, spill_stores=ss, spill_loads=sl)
         elif out and _REGS.search(line):
             out[-1]["registers"] = int(_REGS.search(line).group(1))
-    return out
+    return [r for r in out if r["kernel"]]
 
 
 def resource_usage(name: str) -> List[dict]:

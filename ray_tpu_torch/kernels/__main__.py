@@ -5,8 +5,8 @@
 Builds every source in ``csrc/`` (``nvcc``, so on a machine with the
 CUDA toolkit) and prints one JSON line per kernel instance: registers
 per thread at launch, stack and spill bytes (``-Xptxas -v``), and for
-the streaming attention kernels the dynamic shared memory per CTA that
-their launch sets.
+the attention kernels the dynamic shared memory per CTA that their
+launch sets.
 """
 
 import json
@@ -17,7 +17,8 @@ from ray_tpu_torch.ops import attention
 
 def main():
     for name in kernels.sources():
-        rows = (attention.flash_resource_usage() if name == "flash_attention"
+        rows = (attention.attention_resource_usage(name)
+                if name in ("flash_attention", "whole_attention")
                 else kernels.resource_usage(name))
         for r in rows:
             print(json.dumps({"source": name + ".cu", **r}))

@@ -222,7 +222,8 @@ __device__ __forceinline__ void mma_pm(float (&c)[D / 8][4],
 // Score fragment n holds rows g, g + 8 and columns n*8 + 2q, +1 of the
 // warp's block: pairs (v0, v1) and (v2, v3) become the A fragment of
 // the columns' 16-wide k step.
-__device__ __forceinline__ void to_frag(uint32_t (&p)[4][4], int n, float v0,
+template <int K>
+__device__ __forceinline__ void to_frag(uint32_t (&p)[K][4], int n, float v0,
                                         float v1, float v2, float v3) {
   p[n / 2][(n % 2) * 2] = pack2(v0, v1);
   p[n / 2][(n % 2) * 2 + 1] = pack2(v2, v3);

@@ -14,7 +14,7 @@
 //           dp  = do . v^T
 //           ds  = p * (dp - delta), rounded to the input dtype
 //           dq  = ds . k;  dk = ds^T . q;  dv = (p rounded)^T . do
-//           (delta = rowsum(o * do) comes from the wrapper, as in JAX)
+//           (delta = rowsum(o * do) is an input: attention_delta.cu)
 //
 // No running max: softmax is shift-invariant, so the static shift with
 // the cap at 50 replaces the max/rescale passes. That makes the tiles
@@ -23,15 +23,15 @@
 //
 // Bound on this card at GPT-2 training's shape (b16 h12 s1024 d64,
 // bf16, causal): the forward moves ~101 MB for ~26 GFLOP and is bound
-// by HBM bytes (~0.030 ms); the backward does ~64 GFLOP on ~178 MB and
-// is bound by tensor-core operations (~0.065 ms).
+// by HBM bytes (~0.030 ms); the backward's function does 5 products
+// (~64 GFLOP) on ~178 MB and is bound by tensor-core operations
+// (~0.065 ms).
 //
 // Design. The TPU grid gives one program a whole [bq = s, s] score
 // block in VMEM and walks q blocks in order, carrying dk/dv in VMEM.
 // A GPU runs CTAs at once and has 227 KB of shared memory, so:
-//   * both kernels cut the sequence into 64-row tiles; a CTA owns one
-//     tile of q rows (forward, dq) or of keys (dk, dv) and walks the
-//     64-row tiles of the other side through shared memory;
+//   * a CTA owns a tile of q rows (forward, dq) or of keys (dk, dv)
+//     and walks the tiles of the other side through shared memory;
 //   * causal tiles wholly above the diagonal are skipped (the TPU
 //     computes and zeroes them: e there is exactly 0, the same
 //     function); only the diagonal tile is masked;
@@ -44,26 +44,32 @@
 //     which differs only at s > 1024);
 //   * CTAs with the most tiles are launched first, so the long causal
 //     rows do not trail at the end of the grid.
-// bf16 inputs (training) run on the tensor cores (mma.sync, below);
-// f32 inputs on the CUDA cores with fma, 16 x 16 threads each owning a
-// 4 x 4 piece of the score tile. Neither pipelines its loads (no
-// cp.async/TMA double buffering, no wgmma): later work.
+//
+// The backward in bf16 at d = 64 and 128 (the training path;
+// whole_bwd_wgmma) runs attention_wgmma.cuh's bodies, the streaming
+// backward's (flash_attention.cu), with the cap: 128-key and 128-row
+// CTAs of two consumer warpgroups and a TMA producer warpgroup, the
+// other side's 64-row tiles streaming through a 2-stage mbarrier ring,
+// every product a wgmma with Q, dO or K read MN-major (no transposed
+// copy). Both kinds of CTA compute s and dp, so the launch does 7
+// products where the function needs 5. Shared memory per CTA is the
+// larger of the two kinds' layouts.
+//
+// Elsewhere 64-row tiles: the forward and the backward at d = 16, 32
+// in bf16 on the tensor cores with mma.sync m16n8k16 (below; loads
+// through registers, no overlap: later work), f32 on the CUDA cores
+// with fma, 16 x 16 threads each owning a 4 x 4 piece of the score
+// tile.
 //
 // Plain C interface, loaded with ctypes by ray_tpu_torch/kernels.
 
-#include "attention_tiles.cuh"
+#include "attention_wgmma.cuh"
 
 namespace {
 
 using namespace rtt;
 
-constexpr float kCapHi = 50.f;
 constexpr float kCapShift = 25.f;
-
-// min(s, 50) that keeps a NaN a NaN, as jnp.minimum does.
-__device__ __forceinline__ float cap(float s) {
-  return s > kCapHi ? kCapHi : s;
-}
 
 template <int D>
 constexpr size_t fwd_smem_floats() {
@@ -317,12 +323,12 @@ whole_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // ------------------------------------------------ tensor-core path (bf16)
 //
-// The same two kernels for bf16 inputs on the tensor cores, with
-// mma.sync m16n8k16 (layouts in attention_tiles.cuh): the operands a
-// product needs k-major (v for p.v, q and do for dk/dv, k for dq) are
-// stored transposed, and e, p and ds go from f32 registers to bf16
-// registers (rounded to nearest even, as the reference rounds) without
-// passing through shared memory.
+// The forward, and the backward at d = 16, 32, for bf16 inputs on the
+// tensor cores with mma.sync m16n8k16 (layouts in attention_tiles.cuh):
+// the operands a product needs k-major (v for p.v, q and do for dk/dv,
+// k for dq) are stored transposed, and e, p and ds go from f32
+// registers to bf16 registers (rounded to nearest even, as the
+// reference rounds) without passing through shared memory.
 
 template <int D>
 constexpr size_t fwd_mma_smem_bytes() {
@@ -565,100 +571,114 @@ whole_bwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 delta + rows, dk + slab, dv + slab, S, rank, causal, smem);
 }
 
+// bf16 at d = 64, 128: one launch, 2 * BH * cdiv(S, 128) CTAs of three
+// warpgroups running attention_wgmma.cuh's bodies with the cap: even
+// ones sum dk, dv of a 128-key tile over the q tiles at or below the
+// diagonal (dkv_wgmma), odd ones dq of a 128-row tile over the kv tiles
+// (dq_wgmma). Rank r = blockIdx / (2 BH) orders them by work: kv tile r
+// and q tile nt-1-r each walk S/64 - 2r tiles of 64 when causal. Each
+// kind gets its own tensor maps (the other side's tiles stream in
+// 64-row boxes, its own arrive in 128-row ones).
 template <int D>
-int launch_fwd_mma(const void* q, const void* k, const void* v, void* o,
-                   void* lse, int BH, int S, int causal,
-                   cudaStream_t stream) {
-  const size_t smem = fwd_mma_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      (const void*)whole_fwd_mma<D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  whole_fwd_mma<D><<<BH * (S / kTile), kMmaThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o),
-      static_cast<float*>(lse), BH, S, causal);
-  return static_cast<int>(cudaGetLastError());
+__global__ void __launch_bounds__(kWgThreads, 1)
+whole_bwd_wgmma(const __grid_constant__ BwdMaps kv_maps,
+                const __grid_constant__ BwdMaps q_maps, bf16* __restrict__ dq,
+                bf16* __restrict__ dk, bf16* __restrict__ dv, int BH, int S,
+                int causal) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* sm = align_1k(smem_raw);
+  const int rank = blockIdx.x / (2 * BH);
+  const int rem = blockIdx.x % (2 * BH);
+  const int bh = rem >> 1;
+  if (rem & 1)
+    dq_wgmma<D, true>(sm, &q_maps.q, &q_maps.k, &q_maps.v, &q_maps.dout,
+                      &q_maps.lse, &q_maps.delta, dq,
+                      cdiv(S, 2 * kTile) - 1 - rank, bh, S, S, causal);
+  else
+    dkv_wgmma<D, true>(sm, &kv_maps.q, &kv_maps.k, &kv_maps.v, &kv_maps.dout,
+                       &kv_maps.lse, &kv_maps.delta, dk, dv, rank, bh, S, S,
+                       causal);
 }
 
 template <int D>
-int launch_bwd_mma(const void* q, const void* k, const void* v,
-                   const void* dout, const void* lse, const void* delta,
-                   void* dq, void* dk, void* dv, int BH, int S, int causal,
-                   cudaStream_t stream) {
-  const size_t smem = bwd_mma_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      (const void*)whole_bwd_mma<D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  whole_bwd_mma<D><<<2 * BH * (S / kTile), kMmaThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-      BH, S, causal);
-  return static_cast<int>(cudaGetLastError());
+constexpr size_t bwd_wgmma_smem_bytes() {
+  return DkvSmem<D>::kBytes > DqSmem<D>::kBytes ? DkvSmem<D>::kBytes
+                                                : DqSmem<D>::kBytes;
 }
 
+// bf16 on the tensor cores, f32 on the CUDA cores.
 template <int D>
-int launch_fwd(const void* q, const void* k, const void* v, void* o,
-               void* lse, int BH, int S, int causal, cudaStream_t stream) {
-  const size_t smem = fwd_smem_floats<D>() * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      (const void*)whole_fwd_kernel<D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  whole_fwd_kernel<D><<<BH * (S / kTile), kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), static_cast<float*>(lse),
-      BH, S, causal);
-  return static_cast<int>(cudaGetLastError());
+int launch_fwd(int bf16_in, const void* q, const void* k, const void* v,
+               void* o, void* lse, int BH, int S, int causal,
+               cudaStream_t stream) {
+  const int grid = BH * (S / kTile);
+  if (bf16_in)
+    return launch(whole_fwd_mma<D>, grid, kMmaThreads, fwd_mma_smem_bytes<D>(),
+                  stream, static_cast<const bf16*>(q),
+                  static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+                  static_cast<bf16*>(o), static_cast<float*>(lse), BH, S,
+                  causal);
+  return launch(whole_fwd_kernel<D>, grid, kThreads,
+                fwd_smem_floats<D>() * sizeof(float), stream,
+                static_cast<const float*>(q), static_cast<const float*>(k),
+                static_cast<const float*>(v), static_cast<float*>(o),
+                static_cast<float*>(lse), BH, S, causal);
 }
 
+// bf16 at d = 64, 128: the TMA + wgmma bodies (128-row CTAs); d = 16,
+// 32: the mma.sync bodies (64-row CTAs). f32: CUDA cores.
 template <int D>
-int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, void* dq, void* dk,
-               void* dv, int BH, int S, int causal, cudaStream_t stream) {
-  const size_t smem = bwd_smem_floats<D>() * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      (const void*)whole_bwd_kernel<D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  whole_bwd_kernel<D><<<2 * BH * (S / kTile), kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv), BH, S,
-      causal);
-  return static_cast<int>(cudaGetLastError());
+int launch_bwd(int bf16_in, const void* q, const void* k, const void* v,
+               const void* dout, const void* lse, const void* delta, void* dq,
+               void* dk, void* dv, int BH, int S, int causal,
+               cudaStream_t stream) {
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  if (bf16_in) {
+    if constexpr (D >= 64) {
+      BwdMaps kv_maps, q_maps;
+      if (!bwd_maps<D>(&kv_maps, q, k, v, dout, lse, delta, BH, S, S, kTile,
+                       2 * kTile) ||
+          !bwd_maps<D>(&q_maps, q, k, v, dout, lse, delta, BH, S, S,
+                       2 * kTile, kTile))
+        return static_cast<int>(cudaErrorInvalidValue);
+      return launch(whole_bwd_wgmma<D>, 2 * BH * cdiv(S, 2 * kTile),
+                    kWgThreads, bwd_wgmma_smem_bytes<D>(), stream, kv_maps,
+                    q_maps, static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+                    static_cast<bf16*>(dv), BH, S, causal);
+    } else {
+      return launch(whole_bwd_mma<D>, 2 * BH * (S / kTile), kMmaThreads,
+                    bwd_mma_smem_bytes<D>(), stream,
+                    static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                    static_cast<const bf16*>(v),
+                    static_cast<const bf16*>(dout), l, dl,
+                    static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+                    static_cast<bf16*>(dv), BH, S, causal);
+    }
+  }
+  return launch(whole_bwd_kernel<D>, 2 * BH * (S / kTile), kThreads,
+                bwd_smem_floats<D>() * sizeof(float), stream,
+                static_cast<const float*>(q), static_cast<const float*>(k),
+                static_cast<const float*>(v), static_cast<const float*>(dout),
+                l, dl, static_cast<float*>(dq), static_cast<float*>(dk),
+                static_cast<float*>(dv), BH, S, causal);
+}
+
+// Dynamic shared memory per CTA that a launch of `pass` (0 forward,
+// 1 backward) sets.
+template <int D>
+size_t smem_bytes(int pass, int bf16_in) {
+  if (!bf16_in)
+    return (pass == 0 ? fwd_smem_floats<D>() : bwd_smem_floats<D>()) *
+           sizeof(float);
+  if (pass == 0) return fwd_mma_smem_bytes<D>();
+  if constexpr (D >= 64)
+    return bwd_wgmma_smem_bytes<D>();
+  else
+    return bwd_mma_smem_bytes<D>();
 }
 
 #define RTT_HEAD_DIMS(X) X(16) X(32) X(64) X(128)
-
-int fwd_for(int bf16_in, int D, const void* q, const void* k, const void* v,
-            void* o, void* lse, int BH, int S, int causal, cudaStream_t s) {
-#define RTT_CASE(d)                                                       \
-  if (D == d)                                                             \
-    return bf16_in ? launch_fwd_mma<d>(q, k, v, o, lse, BH, S, causal, s) \
-                   : launch_fwd<d>(q, k, v, o, lse, BH, S, causal, s);
-  RTT_HEAD_DIMS(RTT_CASE)
-#undef RTT_CASE
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-int bwd_for(int bf16_in, int D, const void* q, const void* k, const void* v,
-            const void* dout, const void* lse, const void* delta, void* dq,
-            void* dk, void* dv, int BH, int S, int causal, cudaStream_t s) {
-#define RTT_CASE(d)                                                          \
-  if (D == d)                                                                \
-    return bf16_in ? launch_bwd_mma<d>(q, k, v, dout, lse, delta, dq, dk, dv, \
-                                       BH, S, causal, s)                     \
-                   : launch_bwd<d>(q, k, v, dout, lse, delta, dq, dk,  \
-                                          dv, BH, S, causal, s);
-  RTT_HEAD_DIMS(RTT_CASE)
-#undef RTT_CASE
-  return static_cast<int>(cudaErrorInvalidValue);
-}
 
 }  // namespace
 
@@ -671,8 +691,13 @@ extern "C" {
 int rtt_whole_attention_fwd(const void* q, const void* k, const void* v,
                             void* o, void* lse, int dtype, int BH, int S,
                             int D, int causal, void* stream) {
-  return fwd_for(dtype == 1, D, q, k, v, o, lse, BH, S, causal,
-                 static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define RTT_CASE(d)                                                     \
+  if (D == d)                                                           \
+    return launch_fwd<d>(dtype == 1, q, k, v, o, lse, BH, S, causal, s);
+  RTT_HEAD_DIMS(RTT_CASE)
+#undef RTT_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 int rtt_whole_attention_bwd(const void* q, const void* k, const void* v,
@@ -680,8 +705,25 @@ int rtt_whole_attention_bwd(const void* q, const void* k, const void* v,
                             const void* delta, void* dq, void* dk, void* dv,
                             int dtype, int BH, int S, int D, int causal,
                             void* stream) {
-  return bwd_for(dtype == 1, D, q, k, v, dout, lse, delta, dq, dk, dv, BH, S,
-                 causal, static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define RTT_CASE(d)                                                       \
+  if (D == d)                                                             \
+    return launch_bwd<d>(dtype == 1, q, k, v, dout, lse, delta, dq, dk, dv, \
+                         BH, S, causal, s);
+  RTT_HEAD_DIMS(RTT_CASE)
+#undef RTT_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Bytes of dynamic shared memory per CTA of a launch (pass 0 forward,
+// 1 backward; dtype as above); -1 for a head dim the kernels do not
+// take.
+long long rtt_whole_attention_smem_bytes(int pass, int dtype, int D) {
+#define RTT_CASE(d) \
+  if (D == d) return static_cast<long long>(smem_bytes<d>(pass, dtype == 1));
+  RTT_HEAD_DIMS(RTT_CASE)
+#undef RTT_CASE
+  return -1;
 }
 
 const char* rtt_error_string(int err) {

@@ -19,6 +19,11 @@ Paths:
                               (kernels/csrc/flash_attention.cu: exact
                               running-max softmax, top-left causal)
                               otherwise
+  attention_delta             rowsum(o * do) in f32, the row term of
+                              both backwards: a hand-written kernel
+                              (kernels/csrc/attention_delta.cu) for
+                              CUDA tensors, its plain version for CPU
+                              tensors
   decode_attention            new-token queries against a contiguous,
                               padded cache (prefill and multi-token
                               steps; plain tensor code)
@@ -147,9 +152,10 @@ def whole_attention_forward_reference(q, k, v, *, causal: bool):
     return (acc / l).to(q.dtype), torch.log(l[..., 0]) + _CAP_SHIFT
 
 
-def _delta(o, do):
-    """rowsum(o * do) in f32: computed outside the backward kernel, as
-    ``_whole_backward`` does in XLA."""
+def attention_delta_reference(o, do):
+    """rowsum(o * do) in f32: computed outside the backward kernels, as
+    ``_whole_backward`` and ``_flash_backward`` do in XLA. The plain
+    version of ``attention_delta``'s kernel."""
     return (o.float() * do.float()).sum(-1)
 
 
@@ -159,7 +165,7 @@ def whole_attention_backward_reference(q, k, v, o, lse, do, *,
     points (ds and p rounded to the input dtype before their products;
     dk and dv summed over all q rows in f32 and rounded once).
     Returns (dq, dk, dv) in the inputs' dtype."""
-    delta = _delta(o, do)
+    delta = attention_delta_reference(o, do)
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
     p = torch.exp(torch.clamp(s, max=_CAP_HI) - lse[..., None])
     if causal:
@@ -283,6 +289,11 @@ def _whole_lib():
         "rtt_whole_attention_fwd": 5, "rtt_whole_attention_bwd": 9})
 
 
+@functools.cache
+def _delta_lib():
+    return _attention_lib("attention_delta", 3, {"rtt_attention_delta": 3})
+
+
 def _no_kernel(name, device):
     raise ValueError(f"{name}: no kernel for device {device}")
 
@@ -299,6 +310,44 @@ def _launch(lib, fn, name, ptrs, dims, causal):
                                int(causal), stream)
     kernels.check(lib, err, name)
     kernels.count_launch(name)
+
+
+def attention_delta(o, do):
+    """delta = rowsum(o * do) in f32, [B, H, S, D] -> [B, H, S]: the row
+    term both training-attention backwards take.
+
+    CUDA tensors go to the hand-written sm_90a kernel
+    (kernels/csrc/attention_delta.cu; counted as ``attention_delta``),
+    CPU tensors to the plain version, ``attention_delta_reference``.
+    Nothing falls back."""
+    name = "attention_delta"
+    if o.device.type == "cpu":
+        return attention_delta_reference(o, do)
+    if o.device.type != "cuda":
+        _no_kernel(name, o.device)
+    if do.device != o.device:
+        raise ValueError(f"{name}: o on {o.device}, do on {do.device}")
+    if o.dtype not in (torch.bfloat16, torch.float32) or do.dtype != o.dtype:
+        raise TypeError(f"{name}: o, do must share one dtype of bfloat16, "
+                        f"float32; got {o.dtype}, {do.dtype}")
+    if do.shape != o.shape or o.shape[-1] not in _HEAD_DIMS:
+        raise ValueError(f"{name}: want o, do of one shape [..., D], D in "
+                         f"{_HEAD_DIMS}; got {tuple(o.shape)}, "
+                         f"{tuple(do.shape)}")
+    if not (o.is_contiguous() and do.is_contiguous()) or (
+            o.data_ptr() % 16 or do.data_ptr() % 16):
+        raise ValueError(f"{name}: o, do must be contiguous and 16-byte "
+                         "aligned")
+    lib = _delta_lib()
+    delta = torch.empty(o.shape[:-1], dtype=torch.float32, device=o.device)
+    with torch.cuda.device(o.device):
+        err = lib.rtt_attention_delta(
+            o.data_ptr(), do.data_ptr(), delta.data_ptr(),
+            1 if o.dtype == torch.bfloat16 else 0, delta.numel(),
+            o.shape[-1], torch.cuda.current_stream(o.device).cuda_stream)
+    kernels.check(lib, err, name)
+    kernels.count_launch(name)
+    return delta
 
 
 def whole_attention_forward(q, k, v, *, causal: bool):
@@ -325,9 +374,9 @@ def whole_attention_forward(q, k, v, *, causal: bool):
 def whole_attention_backward(q, k, v, o, lse, do, *, causal: bool):
     """Whole-kv attention backward -> (dq, dk, dv) for q pre-scaled.
 
-    ``delta = rowsum(o * do)`` is one PyTorch op here; CUDA tensors then
-    go to the hand-written sm_90a kernel (one launch that computes dq,
-    dk and dv; counted as ``whole_attention_backward``), CPU tensors to
+    CUDA tensors go to the hand-written sm_90a kernels: delta =
+    ``attention_delta(o, do)``, then one launch that computes dq, dk and
+    dv (counted as ``whole_attention_backward``). CPU tensors go to
     ``whole_attention_backward_reference``. Nothing falls back."""
     if q.device.type == "cpu":
         return whole_attention_backward_reference(q, k, v, o, lse, do,
@@ -336,10 +385,11 @@ def whole_attention_backward(q, k, v, o, lse, do, *, causal: bool):
         _no_kernel("whole_attention_backward", q.device)
     _check_whole_args("whole_attention_backward", q, k, v, (o, do), (lse,))
     B, H, S, D = q.shape
-    delta = _delta(o, do)
+    delta = attention_delta(o, do)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    _launch(_whole_lib(), "rtt_whole_attention_bwd", "whole_attention_backward",
-            (q, k, v, do, lse, delta, dq, dk, dv), (B * H, S, D), causal)
+    _launch(_whole_lib(), "rtt_whole_attention_bwd",
+            "whole_attention_backward", (q, k, v, do, lse, delta, dq, dk, dv),
+            (B * H, S, D), causal)
     return dq, dk, dv
 
 
@@ -534,17 +584,22 @@ def _flash_lib():
         "rtt_flash_attention_bwd_dq": 7})
 
 
-def flash_resource_usage():
-    """ptxas's report on each streaming-kernel instance
-    (``kernels.resource_usage``) with ``smem_bytes``, the dynamic shared
-    memory per CTA that its launch sets. Builds the library: needs
-    ``nvcc``."""
-    f = _flash_lib().rtt_flash_attention_smem_bytes
+_PASSES = {"whole_attention": ("fwd", "bwd"),
+           "flash_attention": ("fwd", "dkv", "dq")}
+
+
+def attention_resource_usage(source: str):
+    """ptxas's report on each kernel instance of ``source``
+    ("whole_attention" or "flash_attention"; ``kernels.resource_usage``)
+    with ``smem_bytes``, the dynamic shared memory per CTA that its
+    launch sets. Builds the library: needs ``nvcc``."""
+    lib = (_whole_lib if source == "whole_attention" else _flash_lib)()
+    f = getattr(lib, f"rtt_{source}_smem_bytes")
     f.argtypes = [ctypes.c_int] * 3
     f.restype = ctypes.c_longlong
-    out = kernels.resource_usage("flash_attention")
+    out = kernels.resource_usage(source)
     for r in out:
-        which = ("fwd", "dkv", "dq").index(r["kernel"].split("_")[1])
+        which = _PASSES[source].index(r["kernel"].split("_")[1])
         r["smem_bytes"] = f(which, 0 if r["kernel"].endswith("_kernel") else 1,
                             r["d"])
     return out
@@ -559,7 +614,7 @@ def flash_attention_forward(q, k, v, *, causal: bool):
     """Streaming attention forward: q (pre-scaled) [B, H, Sq, D], k, v
     [B, H, Sk, D] -> (o, lse f32 [B, H, Sq]).
 
-    CUDA tensors go to the hand-written sm_90a kernel (64-row tiles;
+    CUDA tensors go to the hand-written sm_90a kernel (its own tiles;
     counted as ``flash_attention_forward``); CPU tensors to the plain
     version, ``flash_attention_forward_reference`` at its default
     blocks. Anything the kernel does not take raises; nothing falls
@@ -579,8 +634,8 @@ def flash_attention_forward(q, k, v, *, causal: bool):
 
 def flash_attention_backward_dkv(q, k, v, do, lse, delta, *, causal: bool):
     """Streaming backward, the dkv pass -> (dk, dv). ``delta`` is
-    rowsum(o * do) in f32 (``_delta``). CUDA tensors go to the kernel
-    (counted as ``flash_attention_backward_dkv``), CPU tensors to
+    rowsum(o * do) in f32 (``attention_delta``). CUDA tensors go to the
+    kernel (counted as ``flash_attention_backward_dkv``), CPU tensors to
     ``flash_attention_backward_dkv_reference``. Nothing falls back."""
     name = "flash_attention_backward_dkv"
     if q.device.type == "cpu":
@@ -613,36 +668,38 @@ def flash_attention_backward_dq(q, k, v, do, lse, delta, *, causal: bool):
 
 
 class TrainingAttention(NamedTuple):
-    """What ``flash_attention`` runs: the whole-kv pair and the streaming
-    triple, as kernels (``TRAINING_KERNELS``) or, to compare one with the
-    other, as their plain versions (``TRAINING_PLAIN``)."""
+    """What ``flash_attention`` runs: the whole-kv pair, the streaming
+    triple and the streaming backward's delta, as kernels
+    (``TRAINING_KERNELS``) or, to compare one with the other, as their
+    plain versions (``TRAINING_PLAIN``)."""
     whole_forward: object
     whole_backward: object
     forward: object
     backward_dkv: object
     backward_dq: object
+    delta: object
 
 
 TRAINING_KERNELS = TrainingAttention(
     whole_attention_forward, whole_attention_backward,
     flash_attention_forward, flash_attention_backward_dkv,
-    flash_attention_backward_dq)
+    flash_attention_backward_dq, attention_delta)
 TRAINING_PLAIN = TrainingAttention(
     whole_attention_forward_reference, whole_attention_backward_reference,
     flash_attention_forward_reference, flash_attention_backward_dkv_reference,
-    flash_attention_backward_dq_reference)
+    flash_attention_backward_dq_reference, attention_delta_reference)
 
 
 def _streaming(impl: TrainingAttention, q, blocks):
     """The streaming (forward, backward_dkv, backward_dq) that
     ``FlashAttention`` calls. A kernel wrapper runs on CUDA tensors with
-    its own 64-row tiles; on CPU tensors it stands for its plain version.
+    its own tiles; on CPU tensors it stands for its plain version.
     Plain versions run at the fitted ``blocks`` = (block_q, block_k)."""
-    kernel_fns = TRAINING_KERNELS[2:]       # forward, backward_dkv, _dq
-    fns = impl[2:]
+    kernel_fns = TRAINING_KERNELS[2:5]      # forward, backward_dkv, _dq
+    fns = impl[2:5]
     if q.device.type == "cpu":
         fns = [plain if f is kernel else f for f, kernel, plain in
-               zip(fns, kernel_fns, TRAINING_PLAIN[2:])]
+               zip(fns, kernel_fns, TRAINING_PLAIN[2:5])]
     bq, bk = blocks
     return [f if f in kernel_fns else functools.partial(f, **kw)
             for f, kw in zip(fns, ({"block_k": bk}, {"block_q": bq},
@@ -677,7 +734,7 @@ class FlashAttention(torch.autograd.Function):
                                             causal=ctx.causal)
         else:
             _, backward_dkv, backward_dq = ctx.streaming
-            delta = _delta(out, do)
+            delta = ctx.impl.delta(out, do)
             dk, dv = backward_dkv(q, k, v, do, lse, delta, causal=ctx.causal)
             dq = backward_dq(q, k, v, do, lse, delta, causal=ctx.causal)
             grads = (dq, dk, dv)
@@ -709,7 +766,7 @@ def flash_attention(q, k, v, *, causal: bool = False,
     (``TRAINING_PLAIN``). ``block_q`` and
     ``block_k`` decide, as in JAX, whether the shape can be tiled; the
     fitted blocks are the plain streaming versions' block sizes. The
-    kernels take none: they use their own 64-row tiles.
+    kernels take none: they use their own tiles.
     """
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5

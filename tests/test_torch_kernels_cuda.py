@@ -83,9 +83,12 @@ def test_paged_decode_kernel_refuses_cpu_mix():
         TA.paged_attention_decode(q, k.cpu(), v, bt, lens)
 
 
-# (B, H, S, D, causal): GPT-2 training's shape, the entry() shape,
-# small shapes for each head dim the kernels take, and Llama-2-7B at its
-# preset's max_seq_len (2048, d = 128)
+# (B, H, S, D, causal[, scale]): GPT-2 training's shape, the entry()
+# shape, small shapes for each head dim the kernels take, Llama-2-7B at
+# its preset's max_seq_len (2048, d = 128), and the edges of the wgmma
+# backward (d 64 and 128; 128-row CTA tiles): 192 and 320 (multiples of
+# 64, not of 128), not causal, and inputs scaled so that the logits
+# pass the cap
 WHOLE_SHAPES = [
     (16, 12, 1024, 64, True),
     (4, 12, 512, 64, True),
@@ -93,6 +96,9 @@ WHOLE_SHAPES = [
     (2, 3, 128, 32, False),
     (1, 2, 192, 128, True),
     (1, 32, 2048, 128, True),
+    (2, 3, 320, 64, True),
+    (2, 3, 256, 64, False),
+    (2, 2, 256, 128, True, 8.0),
 ]
 
 
@@ -100,29 +106,35 @@ WHOLE_SHAPES = [
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", WHOLE_SHAPES,
                          ids=["train", "entry", "d16", "d32-full", "d128",
-                              "llama-2048"])
+                              "llama-2048", "s320-d64", "d64-full",
+                              "past-cap-d128"])
 def test_whole_attention_kernels_match_plain_versions(shape, dtype):
     """Forward (o, lse) and backward (dq, dk, dv) kernels against their
     plain versions on the same inputs, by chip_smoke.py's rules
     (``_hold``): f32 outputs within F32_TOL * (1 + their largest entry)
     (sums in another order, nothing rounded); bf16 outputs, which both
     sides round, measured against the function in f64, the kernel's max
-    and rms error at most BF16_RATIO times the plain version's."""
+    and rms error at most BF16_RATIO times the plain version's. bf16 at
+    d = 64 and 128 runs the wgmma backward; the scaled case's logits
+    pass the cap."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    B, H, S, D, causal = shape
+    B, H, S, D, causal, *scale = shape
     dt = getattr(torch, dtype)
     g = torch.Generator().manual_seed(0)
-    q, k, v, do = (torch.randn(B, H, S, D, generator=g).to("cuda", dt)
-                   for _ in range(4))
+    q, k, v, do = ((torch.randn(B, H, S, D, generator=g)
+                    * (scale or [1.0])[0]).to("cuda", dt) for _ in range(4))
     q = (q * D ** -0.5).to(dt)
+    if scale:
+        assert _chip_smoke().max_logit(q, k) > 50.0
     kernels.reset_launch_counts()
     o, lse = TA.whole_attention_forward(q, k, v, causal=causal)
     grads = TA.whole_attention_backward(q, k, v, o, lse, do, causal=causal)
     torch.cuda.synchronize()
     assert kernels.launch_counts() == {"whole_attention_forward": 1,
-                                       "whole_attention_backward": 1}
+                                       "whole_attention_backward": 1,
+                                       "attention_delta": 1}
     ro, rlse = TA.whole_attention_forward_reference(q, k, v, causal=causal)
     rgrads = TA.whole_attention_backward_reference(q, k, v, o, lse, do,
                                                    causal=causal)
@@ -198,7 +210,7 @@ def test_flash_attention_kernels_match_plain_versions(shape, dtype):
         assert _chip_smoke().max_logit(q, k) > 50.0
     # the plain versions' default blocks are the ones flash_attention fits
     ro, rlse = TA.flash_attention_forward_reference(q, k, v, causal=causal)
-    delta = TA._delta(ro, do)
+    delta = TA.attention_delta_reference(ro, do)
     args = (q, k, v, do, rlse, delta)
     kernels.reset_launch_counts()
     o, lse = TA.flash_attention_forward(q, k, v, causal=causal)
@@ -215,6 +227,36 @@ def test_flash_attention_kernels_match_plain_versions(shape, dtype):
         TA.flash_attention_forward_f64(q, k, v, causal=causal)
         + TA.flash_attention_backward_f64(q, k, v, ro, rlse, do,
                                           causal=causal)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_attention_delta_kernel_matches_plain_version(D, dtype):
+    """delta = rowsum(o * do) in f32 against its plain version, by
+    chip_smoke.py's f32 rule (only the order of the sum differs), on a
+    row count that does not fill the last block; one launch counted.
+    It refuses a head dim it does not take and mixed shapes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator().manual_seed(0)
+    dt = getattr(torch, dtype)
+    o, do = (torch.randn(2, 3, 100, D, generator=g).to("cuda", dt)
+             for _ in range(2))
+    kernels.reset_launch_counts()
+    delta = TA.attention_delta(o, do)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {"attention_delta": 1}
+    plain = TA.attention_delta_reference(o, do)
+    assert delta.dtype == torch.float32 and delta.shape == plain.shape
+    held, bad = _chip_smoke().held_outputs([(delta, plain)], None,
+                                           ["delta"])
+    assert not bad, held
+    with pytest.raises(ValueError, match="one shape"):
+        TA.attention_delta(o, do[:, :, :50].contiguous())
+    x = torch.randn(2, 48, device="cuda", dtype=dt)
+    with pytest.raises(ValueError, match="one shape"):
+        TA.attention_delta(x, x)
 
 
 @pytest.mark.cuda

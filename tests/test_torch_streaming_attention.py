@@ -98,7 +98,7 @@ def test_plain_versions_match_pallas_kernels(sq, sk, causal, dtype):
 
     o, lse = (torch.from_numpy(np.array(_np(o_j))).to(tq.dtype),
               torch.from_numpy(np.array(_np(lse_j))))
-    delta = TA._delta(o, tdo)
+    delta = TA.attention_delta_reference(o, tdo)
     dk, dv = TA.flash_attention_backward_dkv_reference(
         tq, tk, tv, tdo, lse, delta, causal=causal, block_q=64)
     dq = TA.flash_attention_backward_dq_reference(
@@ -120,7 +120,7 @@ def test_sq_above_sk_causal_follows_the_mask():
     o_j, _ = JA._flash_forward(jq, jk, jv, 1.0, True, 64, 64, interpret=True)
     o, lse = TA.flash_attention_forward_reference(tq, tk, tv, causal=True,
                                                   block_k=64)
-    delta = TA._delta(o, tdo)
+    delta = TA.attention_delta_reference(o, tdo)
     grads = (TA.flash_attention_backward_dq_reference(
         tq, tk, tv, tdo, lse, delta, causal=True, block_k=64),
         *TA.flash_attention_backward_dkv_reference(
@@ -153,7 +153,7 @@ def test_logits_past_the_cap_are_exact():
     o_j, lse_j, g_j = _pallas(jq, jk, jv, jdo, True)
     o, lse = TA.flash_attention_forward_reference(tq, tk, tv, causal=True,
                                                   block_k=64)
-    delta = TA._delta(o, tdo)
+    delta = TA.attention_delta_reference(o, tdo)
     grads = (TA.flash_attention_backward_dq_reference(
         tq, tk, tv, tdo, lse, delta, causal=True, block_k=64),
         *TA.flash_attention_backward_dkv_reference(
@@ -253,7 +253,7 @@ def test_long_sequence_takes_the_streaming_path_by_shape():
     (out * torch.from_numpy(w)).sum().backward()
     plain = TA.TRAINING_PLAIN
     assert sorted(calls) == sorted(f.__name__ for f in (
-        plain.forward, plain.backward_dkv, plain.backward_dq))
+        plain.forward, plain.backward_dkv, plain.backward_dq, plain.delta))
     np.testing.assert_allclose(_np(out), _np(out_j), **F32)
     for a, b in zip(t, g_j):
         np.testing.assert_allclose(_np(a.grad), _np(b), rtol=1e-5, atol=1e-4)
@@ -268,7 +268,7 @@ def test_f64_yardsticks_match_the_plain_versions(causal):
     q, k, v, do = (torch.from_numpy(x) for x in _qkvd(128, 192, 64, seed=7))
     o, lse = TA.flash_attention_forward_reference(q, k, v, causal=causal,
                                                   block_k=64)
-    delta = TA._delta(o, do)
+    delta = TA.attention_delta_reference(o, do)
     plain = (o, lse, TA.flash_attention_backward_dq_reference(
         q, k, v, do, lse, delta, causal=causal, block_k=64),
         *TA.flash_attention_backward_dkv_reference(
@@ -303,7 +303,7 @@ def test_bf16_rule_rejects_a_skipped_kv_tile(monkeypatch, name):
     def run():
         o, lse = TA.flash_attention_forward_reference(q, k, v, causal=True,
                                                       block_k=64)
-        delta = TA._delta(ro, do)
+        delta = TA.attention_delta_reference(ro, do)
         dk, dv = TA.flash_attention_backward_dkv_reference(
             q, k, v, do, rlse, delta, causal=True, block_q=64)
         dq = TA.flash_attention_backward_dq_reference(
@@ -342,7 +342,7 @@ def test_wrappers_take_plain_versions_on_cpu_and_refuse_other_devices():
     ro, rlse = TA.flash_attention_forward_reference(q, k, v, causal=True,
                                                     block_k=192)
     assert torch.equal(o, ro) and torch.equal(lse, rlse)
-    delta = TA._delta(o, do)
+    delta = TA.attention_delta_reference(o, do)
     args = (q, k, v, do, lse, delta)
     assert all(torch.equal(a, b) for a, b in zip(
         TA.flash_attention_backward_dkv(*args, causal=True),
@@ -352,6 +352,7 @@ def test_wrappers_take_plain_versions_on_cpu_and_refuse_other_devices():
         TA.flash_attention_backward_dq(*args, causal=True),
         TA.flash_attention_backward_dq_reference(*args, causal=True,
                                                  block_k=192))
+    assert torch.equal(TA.attention_delta(o, do), delta)
     assert kernels.launch_counts() == {}
     for fn in (TA.flash_attention_forward, TA.flash_attention_backward_dkv,
                TA.flash_attention_backward_dq):
@@ -365,6 +366,29 @@ def test_wrappers_take_plain_versions_on_cpu_and_refuse_other_devices():
                   (TA.flash_attention_backward_dq, (m, m, m, m, r, r))):
         with pytest.raises(ValueError, match="no kernel"):
             fn(*a, causal=True)
+    with pytest.raises(ValueError, match="no kernel"):
+        TA.attention_delta(m, m)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_attention_delta_matches_jax_rowsum(dtype):
+    """The delta both backwards take (``attention_delta`` on CPU
+    tensors: its plain version) against the JAX package's own
+    expression in ``_whole_backward`` and ``_flash_backward``, sum of
+    o * do in f32 over the head dim: within 1e-5 relative."""
+    rng = np.random.default_rng(11)
+    o, do = (rng.standard_normal((2, 3, 48, 64)).astype(np.float32)
+             for _ in range(2))
+    jdt = jnp.float32 if dtype is np.float32 else jnp.bfloat16
+    jo, jdo = jnp.asarray(o, jdt), jnp.asarray(do, jdt)
+    want = jnp.sum(jo.astype(jnp.float32) * jdo.astype(jnp.float32),
+                   axis=-1)
+    tdt = torch.float32 if dtype is np.float32 else torch.bfloat16
+    got = TA.attention_delta(torch.from_numpy(o).to(tdt),
+                             torch.from_numpy(do).to(tdt))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
 
 
 PTXAS_LOG = """\
@@ -373,19 +397,40 @@ ptxas info    : Function properties for _ZN51_GLOBAL__N__1927b273_18_flash_atten
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 168 registers, used 1 barriers
 ptxas info    : Compile time = 351.984 ms
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115scratch_kernelIfLi64EEEvPKT_Pfi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_115scratch_kernelIfLi64EEEvPKT_Pfi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 20 registers, used 0 barriers
 ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__1927b273_18_flash_attention_cu_4b62497613flash_dkv_mmaILi16EEEvPK13__nv_bfloat16S3_S3_S3_PKfS5_PS1_S6_iiii' for 'sm_90a'
 ptxas info    : Function properties for _ZN51_GLOBAL__N__1927b273_18_flash_attention_cu_4b62497613flash_dkv_mmaILi16EEEvPK13__nv_bfloat16S3_S3_S3_PKfS5_PS1_S6_iiii
     16 bytes stack frame, 12 bytes spill stores, 12 bytes spill loads
 ptxas info    : Used 96 registers, used 1 barriers, 388 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__5e7c2a1b_15_paged_decode_cu_9f3d2c4119paged_decode_kernelI13__nv_bfloat16EEvPKT_S4_S4_PKiS6_PS2_fiiiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__5e7c2a1b_15_paged_decode_cu_9f3d2c4119paged_decode_kernelI13__nv_bfloat16EEvPKT_S4_S4_PKiS6_PS2_fiiiiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 55 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__0c1d2e3f_18_attention_delta_cu_7a6b5c4d22attention_delta_kernelI13__nv_bfloat16Li64EEEvPKT_S4_Pfi' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__0c1d2e3f_18_attention_delta_cu_7a6b5c4d22attention_delta_kernelI13__nv_bfloat16Li64EEEvPKT_S4_Pfi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 16 registers, used 0 barriers
 """
 
 
 def test_ptxas_report_is_read_per_kernel_instance():
     """``kernels.parse_ptxas`` on the report nvcc -Xptxas -v prints on
-    the card (two instances of flash_attention.cu): kernel name, head
-    dim, registers at launch, stack and spill bytes."""
+    the card (two instances of flash_attention.cu, a helper kernel
+    between them, which is left out and whose lines go to no other
+    entry, the paged-decode kernel, named by its element type, and the
+    attention delta kernel, by its element type and head dim): kernel
+    name, head dim, registers at launch, stack and spill bytes."""
     assert kernels.parse_ptxas(PTXAS_LOG) == [
         {"kernel": "flash_dkv_wgmma", "d": 128, "stack_bytes": 0,
          "spill_stores": 0, "spill_loads": 0, "registers": 168},
         {"kernel": "flash_dkv_mma", "d": 16, "stack_bytes": 16,
-         "spill_stores": 12, "spill_loads": 12, "registers": 96}]
+         "spill_stores": 12, "spill_loads": 12, "registers": 96},
+        {"kernel": "paged_decode_kernel", "d": None, "dtype": "bfloat16",
+         "stack_bytes": 0, "spill_stores": 0, "spill_loads": 0,
+         "registers": 55},
+        {"kernel": "attention_delta_kernel", "d": 64, "dtype": "bfloat16",
+         "stack_bytes": 0, "spill_stores": 0, "spill_loads": 0,
+         "registers": 16}]
