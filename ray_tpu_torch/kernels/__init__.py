@@ -105,10 +105,13 @@ def _log_path(lib_path: str) -> str:
 
 _ENTRY = re.compile(r"Compiling entry function '([^']*)'")
 # a kernel's name, then its template arguments in its mangled name:
-# element type (paged decode, attention delta) and head dim (attention)
+# element type (paged decode, attention delta) and head dim (attention,
+# attention delta) or query heads per kv head, then head dim (paged
+# decode)
 _NAME = re.compile(r"((?:flash_(?:fwd|dkv|dq)|whole_(?:fwd|bwd))_[a-z0-9]+"
-                   r"|paged_decode_kernel|attention_delta_kernel)"
-                   r"(?:I(13__nv_bfloat16|f)?(?:Li(\d+)E)?)?")
+                   r"|paged_decode_(?:split|combine|kernel)"
+                   r"|attention_delta_kernel)"
+                   r"(?:I(13__nv_bfloat16|f)?(?:Li(\d+)E)?(?:Li(\d+)E)?)?")
 _SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                     r"(\d+) bytes spill loads")
 _REGS = re.compile(r"Used (\d+) registers")
@@ -124,8 +127,14 @@ def parse_ptxas(log: str) -> List[dict]:
         m = _ENTRY.search(line)
         if m:
             n = _NAME.search(m.group(1))
-            out.append({"kernel": n and n.group(1),
-                        "d": int(n.group(3)) if n and n.group(3) else None})
+            arg = int(n.group(3)) if n and n.group(3) else None
+            if n and n.group(1).startswith("paged_decode"):
+                out.append({"kernel": n.group(1),
+                            "d": int(n.group(4)) if n.group(4) else None})
+                if arg is not None:
+                    out[-1]["g"] = arg
+            else:
+                out.append({"kernel": n and n.group(1), "d": arg})
             if n and n.group(2):
                 out[-1]["dtype"] = ("bfloat16" if n.group(2) != "f"
                                     else "float32")

@@ -5,8 +5,8 @@
 Builds every source in ``csrc/`` (``nvcc``, so on a machine with the
 CUDA toolkit) and prints one JSON line per kernel instance: registers
 per thread at launch, stack and spill bytes (``-Xptxas -v``), and for
-the attention kernels the dynamic shared memory per CTA that their
-launch sets.
+the attention and paged-decode kernels the dynamic shared memory per
+CTA that their launch sets.
 """
 
 import json
@@ -19,6 +19,8 @@ def main():
     for name in kernels.sources():
         rows = (attention.attention_resource_usage(name)
                 if name in ("flash_attention", "whole_attention")
+                else attention.paged_resource_usage()
+                if name == "paged_decode"
                 else kernels.resource_usage(name))
         for r in rows:
             print(json.dumps({"source": name + ".cu", **r}))

@@ -1,8 +1,9 @@
-// The attention backward bodies for Hopper (TMA + wgmma, bf16, d = 64
-// and 128) and what they share with the streaming forward: one source
-// for the streaming backward (flash_attention.cu: flash_dkv_wgmma,
-// flash_dq_wgmma) and the whole-kv backward (whole_attention.cu:
-// whole_bwd_wgmma), which differ only in the logit cap (kCap).
+// The attention bodies for Hopper (TMA + wgmma, bf16, d = 64 and 128),
+// one source for each pass of both training paths, which differ only
+// in the logit cap (kCap): the forward (flash_attention.cu:
+// flash_fwd_wgmma; whole_attention.cu: whole_fwd_wgmma), the dk, dv
+// pass and the dq pass (flash_dkv_wgmma, flash_dq_wgmma;
+// whole_bwd_wgmma, which runs both).
 //
 // A CTA is three warpgroups: two consumers (threads 0-255; warpgroup w
 // owns 64 rows of the CTA's 128-row tile) and a producer (256-383)
@@ -421,6 +422,341 @@ __device__ __forceinline__ void dq_wgmma(
   store_rows<D>(dq + ((size_t)bh * Sq + wrow0) * D, acc, nq, r0, g, qd);
 }
 
+// ----------------------------------------------------------------- forward
+//
+// One body for the streaming forward (flash_attention.cu:
+// flash_fwd_wgmma) and the whole-kv forward (whole_attention.cu:
+// whole_fwd_wgmma), which differ in the softmax (kCap):
+//   streaming  a running max m and sum l per row; acc is rescaled by
+//              alpha = exp(m_old - m) at every tile; lse = m + log l;
+//   whole-kv   the static shift with the cap, e = exp(min(s, 50) - 25):
+//              no max and no rescale, so the tiles of a row only add
+//              (tile i's p . V does not wait on tile i+1's softmax);
+//              lse = log l + 25.
+// Both: 128 q rows per CTA (consumer warpgroup w owns rows 64w..),
+// kv tiles of kFwdKeys = 128 keys through the TMA ring (s is one
+// m64n128 wgmma chain per warpgroup; 64 keys were slower), l summed
+// from the unrounded p (or e), p rounded to bf16 as the A operand of
+// acc += p . V with V read MN-major, o = acc / max(l, 1e-30) rounded.
+// A CTA walks the work items (q tile, head) that `item(j, qt, bh)`
+// yields for j = 0, 1, ... until it returns false; its ring position
+// carries over from one item to the next.
+
+constexpr int kFwdKeys = 2 * kTile;
+constexpr float kCapShift = 25.f;   // whole-kv: e = exp(min(s, 50) - 25)
+
+// Byte offsets: the CTA's 128 q rows, then K and V rings of kStages
+// tiles of kN rows, then the barriers (q_full[kQBars], full, empty).
+template <int D, int kQBars = 1>
+struct FwdSmem {
+  static constexpr int kN = kFwdKeys;
+  static constexpr int kC = D / 64;
+  static constexpr int kQBlock = 2 * kTile * kRowBytes;
+  static constexpr int kKvBlock = kN * kRowBytes;
+  static constexpr int kQ = 0;
+  static constexpr int kK = kC * kQBlock;
+  static constexpr int kV = kK + kStages * kC * kKvBlock;
+  static constexpr int kBars = kV + kStages * kC * kKvBlock;
+  static constexpr int kUsed = kBars + (kQBars + 2 * kStages) * 8;
+  static constexpr size_t kBytes =
+      (size_t)kUsed + 1024 > kMinSmem ? (size_t)kUsed + 1024 : kMinSmem;
+  static_assert(kK % 1024 == 0 && kV % 1024 == 0 && kKvBlock % 1024 == 0,
+                "swizzled tiles start on 1024-byte boundaries");
+};
+
+// The whole-kv forward's layout: a second q barrier (q_empty: the
+// consumers are done with an item's Q, so the next item's may load).
+template <int D>
+using WholeFwdSmem = FwdSmem<D, 2>;
+
+// One kv tile's softmax step for the warpgroup's rows (thread rows
+// row + 0, row + 8): masks s where `edge`, updates the running max m
+// and sum l, returns alpha = exp(m_old - m) and p = exp(s - m) as bf16
+// A fragments (l sums p unrounded).
+template <int kN>
+__device__ __forceinline__ void softmax_step(float (&s)[kN / 2],
+                                             uint32_t (&p)[kN / 16][4],
+                                             float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], bool edge,
+                                             int row, int key0, int Sk,
+                                             int causal, int qd) {
+  if (edge) {
+#pragma unroll
+    for (int n = 0; n < kN / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = key0 + frag_col(n, qd, e);
+        // rows past Sq are never stored: mask by key alone there
+        if (key >= Sk || (causal && key > row + (e >> 1) * 8))
+          s[4 * n + e] = kNegInf;
+      }
+  }
+  // a row's columns are spread over the 4 lanes of a quad
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = m[h];
+#pragma unroll
+    for (int n = 0; n < kN / 8; ++n)
+      mx = fmaxf(mx, fmaxf(s[4 * n + 2 * h], s[4 * n + 2 * h + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    alpha[h] = expf(m[h] - mx);
+    m[h] = mx;
+  }
+  float part[2] = {};
+#pragma unroll
+  for (int n = 0; n < kN / 8; ++n) {
+    float e[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) e[i] = expf(s[4 * n + i] - m[i >> 1]);
+    part[0] += e[0] + e[1];
+    part[1] += e[2] + e[3];
+    to_frag(p, n, e[0], e[1], e[2], e[3]);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + part[h];
+}
+
+// The whole-kv step of one kv tile for the warpgroup's rows: masks s
+// where `edge` (-1e30, so e is exactly 0), returns e = exp(min(s, 50)
+// - 25) as bf16 A fragments and adds it, unrounded, to l.
+template <int kN>
+__device__ __forceinline__ void capped_step(float (&s)[kN / 2],
+                                            uint32_t (&p)[kN / 16][4],
+                                            float (&l)[2], bool edge,
+                                            int row, int key0, int Sk,
+                                            int causal, int qd) {
+  if (edge) {
+#pragma unroll
+    for (int n = 0; n < kN / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = key0 + frag_col(n, qd, e);
+        if (key >= Sk || (causal && key > row + (e >> 1) * 8))
+          s[4 * n + e] = kNegInf;
+      }
+  }
+  float part[2] = {};
+#pragma unroll
+  for (int n = 0; n < kN / 8; ++n) {
+    float e[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) e[i] = expf(cap(s[4 * n + i]) - kCapShift);
+    part[0] += e[0] + e[1];
+    part[1] += e[2] + e[3];
+    to_frag(p, n, e[0], e[1], e[2], e[3]);
+  }
+  l[0] += part[0];
+  l[1] += part[1];
+}
+
+// The forward over the work items of `item` (above). The producer
+// warpgroup's first thread loads each item's Q once (after the
+// consumers released the previous one: q_empty, whole-kv only) and
+// streams its K and V tiles up to the diagonal through the ring.
+template <int D, bool kCap, typename Item>
+__device__ __forceinline__ void fwd_wgmma(
+    uint8_t* sm, const CUtensorMap* tm_q, const CUtensorMap* tm_k,
+    const CUtensorMap* tm_v, bf16* __restrict__ o, float* __restrict__ lse,
+    Item item, int Sq, int Sk, int causal) {
+  constexpr int kN = kFwdKeys;
+  using L = FwdSmem<D, kCap ? 2 : 1>;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + L::kBars);
+  uint64_t* q_empty = q_full + 1;   // whole-kv only
+  uint64_t* full = q_full + (kCap ? 2 : 1);
+  uint64_t* empty = full + kStages;
+
+  const int nkt = cdiv(Sk, kN);
+  if (threadIdx.x == 0) {
+    bar_init(q_full, 1);
+    if constexpr (kCap) bar_init(q_empty, kConsumers);
+    for (int s = 0; s < kStages; ++s) {
+      bar_init(&full[s], 1);
+      bar_init(&empty[s], kConsumers);
+    }
+    bar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {  // producer
+    regs_dec<24>();
+    if (threadIdx.x == 256) {
+      int it = 0;   // ring position
+      int qt, bh;
+      for (int j = 0; item(j, qt, bh); ++j) {
+        const int row0 = qt * 2 * kTile;
+        const int last_row = min(row0 + 2 * kTile, Sq) - 1;
+        const int n_kv = causal ? min(last_row / kN + 1, nkt) : nkt;
+        if constexpr (kCap)
+          if (j > 0) bar_wait(q_empty, (j - 1) & 1);
+        bar_expect_tx(q_full, L::kC * L::kQBlock);
+        load_tile<D>(sm + L::kQ, L::kQBlock, tm_q, q_full, row0, bh);
+        for (int i = 0; i < n_kv; ++i, ++it) {
+          const int s = it % kStages;
+          bar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+          bar_expect_tx(&full[s], 2 * L::kC * L::kKvBlock);
+          const int st = s * L::kC * L::kKvBlock;
+          load_tile<D>(sm + L::kK + st, L::kKvBlock, tm_k, &full[s], i * kN,
+                       bh);
+          load_tile<D>(sm + L::kV + st, L::kKvBlock, tm_v, &full[s], i * kN,
+                       bh);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers
+  regs_inc<240>();
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane >> 2, qd = lane & 3;
+  const int r0 = warp * 16;
+  const uint32_t q_addr = smem_u32(sm + L::kQ) + wg * kTile * kRowBytes;
+  const uint32_t k_base = smem_u32(sm + L::kK);
+  const uint32_t v_base = smem_u32(sm + L::kV);
+  int it = 0;   // ring position of the item's first tile
+  int qt, bh;
+  for (int j = 0; item(j, qt, bh); ++j) {
+    const int row0 = qt * 2 * kTile;
+    const int last_row = min(row0 + 2 * kTile, Sq) - 1;
+    const int n_kv = causal ? min(last_row / kN + 1, nkt) : nkt;
+    const int wrow0 = row0 + wg * kTile;      // the warpgroup's first row
+    const int nq = min(kTile, Sq - wrow0);    // <= 0: no row to compute
+    // the tiles the warpgroup computes are a prefix of the item's:
+    // causal skips those whose first key is past the warpgroup's last
+    // row. Whole-kv: a warpgroup with no row (past Sq) still computes
+    // tile 0, on TMA's zero rows and stored nowhere, so that no wgmma
+    // sits under a condition that varies from item to item (C7518)
+    const int n_live = nq <= 0 ? (kCap ? 1 : 0)
+                       : causal ? min(n_kv, (wrow0 + kTile - 1) / kN + 1)
+                                : n_kv;
+    const int row = wrow0 + r0 + g;           // the thread's first row
+    float acc[D / 2] = {};
+    float m[2] = {kNegInf, kNegInf}, l[2] = {};
+    uint32_t pf[kN / 16][4];   // p of a tile, as A fragments
+
+    auto wait_full = [&](int i) {
+      bar_wait(&full[(it + i) % kStages], ((it + i) / kStages) & 1);
+    };
+    auto release = [&](int i) { bar_arrive(&empty[(it + i) % kStages]); };
+    // issues s = Q . K^T of tile i (not waited for)
+    auto issue_s = [&](float (&sc)[kN / 2], int i) {
+      wgmma_fence();
+      mma_scores<D, kN>(sc, q_addr, L::kQBlock,
+                        k_base + ((it + i) % kStages) * L::kC * L::kKvBlock,
+                        L::kKvBlock);
+      wgmma_commit();
+    };
+    // issues acc += p . V of tile i, p from pf (not waited for)
+    auto issue_pv = [&](int i) {
+      wgmma_fence();
+      mma_pm_rs<D, kN>(acc, pf,
+                       v_base + ((it + i) % kStages) * L::kC * L::kKvBlock,
+                       L::kKvBlock);
+      wgmma_commit();
+    };
+    auto wait_pv = [&] {
+      wgmma_wait<0>();
+      fence_regs(pf);
+      fence_regs(acc);
+    };
+    // whether tile i needs a mask: the causal diagonal or keys past Sk
+    auto edge_of = [&](int i) {
+      const int key0 = i * kN;
+      return (causal && key0 + kN - 1 > wrow0) || key0 + kN > Sk;
+    };
+
+    if constexpr (kCap) {
+      // the capped step of tile i on its waited-for scores
+      auto step = [&](float (&sc)[kN / 2], int i) {
+        fence_regs(sc);
+        capped_step<kN>(sc, pf, l, edge_of(i), row, i * kN, Sk, causal, qd);
+      };
+      // every consumer waits for every item's Q, so that the parity it
+      // waits on is never a phase behind
+      bar_wait(q_full, j & 1);
+      for (int i = 0; i < n_live; ++i) {
+        wait_full(i);
+        float sc[kN / 2];
+        issue_s(sc, i);
+        wgmma_wait<0>();
+        step(sc, i);
+        issue_pv(i);
+        wait_pv();
+        release(i);
+      }
+      bar_arrive(q_empty);   // done with the item's Q
+    } else {
+      // the softmax step of tile i on its waited-for scores
+      auto softmax = [&](float (&sc)[kN / 2], uint32_t (&p)[kN / 16][4],
+                         float (&alpha)[2], int i) {
+        fence_regs(sc);
+        softmax_step<kN>(sc, p, m, l, alpha, edge_of(i), row, i * kN, Sk,
+                         causal, qd);
+      };
+      // Each tile's products are waited for in turn (issuing tile i's s
+      // before tile i-1's p . V was slower on the card). Tile 0 is
+      // peeled: acc is 0, so its rescale is skipped.
+      if (n_live > 0) {
+        bar_wait(q_full, 0);
+        wait_full(0);
+        {
+          float sc[kN / 2], alpha[2];
+          issue_s(sc, 0);
+          wgmma_wait<0>();
+          softmax(sc, pf, alpha, 0);
+        }
+        issue_pv(0);
+        wait_pv();
+        release(0);
+        for (int i = 1; i < n_live; ++i) {
+          wait_full(i);
+          float sc[kN / 2], alpha[2];
+          issue_s(sc, i);
+          wgmma_wait<0>();
+          softmax(sc, pf, alpha, i);
+#pragma unroll
+          for (int jj = 0; jj < D / 8; ++jj) {
+            acc[4 * jj] *= alpha[0];
+            acc[4 * jj + 1] *= alpha[0];
+            acc[4 * jj + 2] *= alpha[1];
+            acc[4 * jj + 3] *= alpha[1];
+          }
+          issue_pv(i);
+          wait_pv();
+          release(i);
+        }
+      }
+    }
+    for (int i = n_live; i < n_kv; ++i) {  // tiles the warpgroup skips
+      wait_full(i);
+      release(i);
+    }
+    it += n_kv;
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+      l[h] = l[h] < 1e-30f ? 1e-30f : l[h];  // NaN stays NaN
+    }
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj) {
+      acc[4 * jj] /= l[0];
+      acc[4 * jj + 1] /= l[0];
+      acc[4 * jj + 2] /= l[1];
+      acc[4 * jj + 3] /= l[1];
+    }
+    store_rows<D>(o + ((size_t)bh * Sq + wrow0) * D, acc, nq, r0, g, qd);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (qd == 0 && r0 + g + h * 8 < nq)
+        lse[(size_t)bh * Sq + row + h * 8] =
+            kCap ? logf(l[h]) + kCapShift : m[h] + logf(l[h]);
+  }
+}
+
 // ---------------------------------------------------------------- host side
 
 // Sets the kernel's dynamic shared memory, then launches it; returns
@@ -434,28 +770,6 @@ int launch(Kernel kernel, int grid, int threads, size_t smem,
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<grid, threads, smem, stream>>>(args...);
   return static_cast<int>(cudaGetLastError());
-}
-
-// cuTensorMapEncodeTiled, looked up with cudaGetDriverEntryPoint so
-// that the library needs no -lcuda.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-inline EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault,
-                                &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      return static_cast<EncodeTiled>(nullptr);
-    return reinterpret_cast<EncodeTiled>(f);
-  }();
-  return fn;
 }
 
 // A bf16 [BH, S, D] slab as a 3-D tensor map: boxes of `rows` x 64

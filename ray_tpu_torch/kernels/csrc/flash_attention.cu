@@ -50,9 +50,10 @@
 // CTAs run in. Ragged sequences (a multiple of 16, not of the tile)
 // read zeros past the slab and mask those rows and keys.
 //
-// bf16 at d = 64 and 128 (the training path; flash_fwd_wgmma here, the
-// backward bodies in attention_wgmma.cuh, shared with the whole-kv
-// backward): built for Hopper (hopper.cuh). A CTA has a producer
+// bf16 at d = 64 and 128 (the training path; flash_fwd_wgmma,
+// flash_dkv_wgmma and flash_dq_wgmma here run the bodies of
+// attention_wgmma.cuh, shared with the whole-kv kernels): built for
+// Hopper (hopper.cuh). A CTA has a producer
 // warpgroup, whose one thread issues TMA loads, and two consumer
 // warpgroups of 64 rows each, so a CTA owns 128 query rows (forward,
 // dq) or 128 keys (dkv), and the other side is read half as often as
@@ -712,82 +713,10 @@ flash_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
                      blockIdx.x % BH, Sq, Sk, causal);
 }
 
-// The forward at d = 64, 128: kv tiles of 128 keys, so that s is one
-// m64n128 wgmma chain per warpgroup.
-constexpr int kFwdKeys = 2 * kTile;
-
-// Byte offsets: the CTA's 128 q rows, then K and V rings of kStages
-// tiles of kN rows, then the barriers.
-template <int D>
-struct FwdSmem {
-  static constexpr int kN = kFwdKeys;
-  static constexpr int kC = D / 64;
-  static constexpr int kQBlock = 2 * kTile * kRowBytes;
-  static constexpr int kKvBlock = kN * kRowBytes;
-  static constexpr int kQ = 0;
-  static constexpr int kK = kC * kQBlock;
-  static constexpr int kV = kK + kStages * kC * kKvBlock;
-  static constexpr int kBars = kV + kStages * kC * kKvBlock;
-  static constexpr int kUsed = kBars + (1 + 2 * kStages) * 8;
-  static constexpr size_t kBytes =
-      (size_t)kUsed + 1024 > kMinSmem ? (size_t)kUsed + 1024 : kMinSmem;
-  static_assert(kK % 1024 == 0 && kV % 1024 == 0 && kKvBlock % 1024 == 0,
-                "swizzled tiles start on 1024-byte boundaries");
-};
-
-// One kv tile's softmax step for the warpgroup's rows (thread rows
-// row + 0, row + 8): masks s where `edge`, updates the running max m
-// and sum l, returns alpha = exp(m_old - m) and p = exp(s - m) as bf16
-// A fragments (l sums p unrounded).
-template <int kN>
-__device__ __forceinline__ void softmax_step(float (&s)[kN / 2],
-                                             uint32_t (&p)[kN / 16][4],
-                                             float (&m)[2], float (&l)[2],
-                                             float (&alpha)[2], bool edge,
-                                             int row, int key0, int Sk,
-                                             int causal, int qd) {
-  if (edge) {
-#pragma unroll
-    for (int n = 0; n < kN / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = key0 + frag_col(n, qd, e);
-        // rows past Sq are never stored: mask by key alone there
-        if (key >= Sk || (causal && key > row + (e >> 1) * 8))
-          s[4 * n + e] = kNegInf;
-      }
-  }
-  // a row's columns are spread over the 4 lanes of a quad
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    float mx = m[h];
-#pragma unroll
-    for (int n = 0; n < kN / 8; ++n)
-      mx = fmaxf(mx, fmaxf(s[4 * n + 2 * h], s[4 * n + 2 * h + 1]));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    alpha[h] = expf(m[h] - mx);
-    m[h] = mx;
-  }
-  float part[2] = {};
-#pragma unroll
-  for (int n = 0; n < kN / 8; ++n) {
-    float e[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) e[i] = expf(s[4 * n + i] - m[i >> 1]);
-    part[0] += e[0] + e[1];
-    part[1] += e[2] + e[3];
-    to_frag(p, n, e[0], e[1], e[2], e[3]);
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + part[h];
-}
-
-// One CTA per (b*h, 128-row q tile): the producer warpgroup loads Q
-// once and streams K and V tiles up to the diagonal through the ring;
-// consumer warpgroup w owns rows 64w..64w+63, s = Q . K^T and acc +=
-// p . V are wgmma (V read MN-major), the running max and sum stay in
-// registers.
+// One CTA per (b*h, 128-row q tile): attention_wgmma.cuh's forward
+// body without the cap (a running max and sum per row). The CTAs go
+// head by head (a head's q tiles adjacent, so the CTAs running together
+// share its K and V in L2), the longest rows first.
 template <int D>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
@@ -795,161 +724,15 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_v,
                 bf16* __restrict__ o, float* __restrict__ lse, int BH,
                 int Sq, int Sk, int causal) {
-  constexpr int kN = kFwdKeys;
-  using L = FwdSmem<D>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
-  uint8_t* sm = align_1k(smem_raw);
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + L::kBars);
-  uint64_t* full = q_full + 1;
-  uint64_t* empty = full + kStages;
-
-  const int nqt = cdiv(Sq, 2 * kTile), nkt = cdiv(Sk, kN);
-  // head by head (a head's q tiles adjacent, so the CTAs running
-  // together share its K and V in L2), the longest rows first
-  const int qt = nqt - 1 - (int)(blockIdx.x % nqt);
-  const int bh = blockIdx.x / nqt;
-  const int row0 = qt * 2 * kTile;
-  const int last_row = min(row0 + 2 * kTile, Sq) - 1;
-  const int n_kv = causal ? min(last_row / kN + 1, nkt) : nkt;
-  if (threadIdx.x == 0) {
-    bar_init(q_full, 1);
-    for (int s = 0; s < kStages; ++s) {
-      bar_init(&full[s], 1);
-      bar_init(&empty[s], kConsumers);
-    }
-    bar_fence_init();
-  }
-  __syncthreads();
-
-  const int wg = threadIdx.x / 128;
-  if (wg == 2) {  // producer
-    regs_dec<24>();
-    if (threadIdx.x == 256) {
-      bar_expect_tx(q_full, L::kC * L::kQBlock);
-      load_tile<D>(sm + L::kQ, L::kQBlock, &tm_q, q_full, row0, bh);
-      for (int i = 0; i < n_kv; ++i) {
-        const int s = i % kStages;
-        bar_wait(&empty[s], ((i / kStages) & 1) ^ 1);
-        bar_expect_tx(&full[s], 2 * L::kC * L::kKvBlock);
-        const int st = s * L::kC * L::kKvBlock;
-        load_tile<D>(sm + L::kK + st, L::kKvBlock, &tm_k, &full[s], i * kN,
-                     bh);
-        load_tile<D>(sm + L::kV + st, L::kKvBlock, &tm_v, &full[s], i * kN,
-                     bh);
-      }
-    }
-    return;
-  }
-
-  // consumers
-  regs_inc<240>();
-  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
-  const int g = lane >> 2, qd = lane & 3;
-  const int r0 = warp * 16;
-  const int wrow0 = row0 + wg * kTile;      // the warpgroup's first row
-  const int nq = min(kTile, Sq - wrow0);    // <= 0: no row to compute
-  // the tiles the warpgroup computes are a prefix of the CTA's: causal
-  // skips those whose first key is past the warpgroup's last row
-  const int n_live = nq <= 0 ? 0
-                     : causal ? min(n_kv, (wrow0 + kTile - 1) / kN + 1)
-                              : n_kv;
-  const uint32_t q_addr = smem_u32(sm + L::kQ) + wg * kTile * kRowBytes;
-  const uint32_t k_base = smem_u32(sm + L::kK);
-  const uint32_t v_base = smem_u32(sm + L::kV);
-  const int row = wrow0 + r0 + g;           // the thread's first row
-  float acc[D / 2] = {};
-  float m[2] = {kNegInf, kNegInf}, l[2] = {};
-  uint32_t pf[kN / 16][4];   // p of the tile, as A fragments
-
-  auto wait_full = [&](int i) {
-    bar_wait(&full[i % kStages], (i / kStages) & 1);
+  const int nqt = cdiv(Sq, 2 * kTile);
+  auto item = [&](int j, int& qt, int& bh) {
+    qt = nqt - 1 - (int)(blockIdx.x % nqt);
+    bh = blockIdx.x / nqt;
+    return j == 0;
   };
-  auto release = [&](int i) { bar_arrive(&empty[i % kStages]); };
-  // issues s = Q . K^T of tile i (not waited for)
-  auto issue_s = [&](float (&sc)[kN / 2], int i) {
-    wgmma_fence();
-    mma_scores<D, kN>(sc, q_addr, L::kQBlock,
-                      k_base + (i % kStages) * L::kC * L::kKvBlock,
-                      L::kKvBlock);
-    wgmma_commit();
-  };
-  // issues acc += p . V of tile i, p from pf (not waited for)
-  auto issue_pv = [&](int i) {
-    wgmma_fence();
-    mma_pm_rs<D, kN>(acc, pf, v_base + (i % kStages) * L::kC * L::kKvBlock,
-                     L::kKvBlock);
-    wgmma_commit();
-  };
-  auto wait_pv = [&] {
-    wgmma_wait<0>();
-    fence_regs(pf);
-    fence_regs(acc);
-  };
-  // the softmax step of tile i on its waited-for scores
-  auto softmax = [&](float (&sc)[kN / 2], uint32_t (&p)[kN / 16][4],
-                     float (&alpha)[2], int i) {
-    fence_regs(sc);
-    const int key0 = i * kN;
-    const bool edge = (causal && key0 + kN - 1 > wrow0) || key0 + kN > Sk;
-    softmax_step<kN>(sc, p, m, l, alpha, edge, row, key0, Sk, causal, qd);
-  };
-
-  // Each tile's products are waited for in turn (issuing tile i's s
-  // before tile i-1's p . v was slower on the card). Tile 0 is peeled:
-  // acc is 0, so its rescale is skipped.
-  if (n_live > 0) {
-    bar_wait(q_full, 0);
-    wait_full(0);
-    {
-      float sc[kN / 2], alpha[2];
-      issue_s(sc, 0);
-      wgmma_wait<0>();
-      softmax(sc, pf, alpha, 0);
-    }
-    issue_pv(0);
-    wait_pv();
-    release(0);
-    for (int i = 1; i < n_live; ++i) {
-      wait_full(i);
-      float sc[kN / 2], alpha[2];
-      issue_s(sc, i);
-      wgmma_wait<0>();
-      softmax(sc, pf, alpha, i);
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        acc[4 * j] *= alpha[0];
-        acc[4 * j + 1] *= alpha[0];
-        acc[4 * j + 2] *= alpha[1];
-        acc[4 * j + 3] *= alpha[1];
-      }
-      issue_pv(i);
-      wait_pv();
-      release(i);
-    }
-  }
-  for (int i = n_live; i < n_kv; ++i) {  // tiles the warpgroup skips
-    wait_full(i);
-    release(i);
-  }
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-    l[h] = l[h] < 1e-30f ? 1e-30f : l[h];  // NaN stays NaN
-  }
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    acc[4 * j] /= l[0];
-    acc[4 * j + 1] /= l[0];
-    acc[4 * j + 2] /= l[1];
-    acc[4 * j + 3] /= l[1];
-  }
-  store_rows<D>(o + ((size_t)bh * Sq + wrow0) * D, acc, nq, r0, g, qd);
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-    if (qd == 0 && r0 + g + h * 8 < nq)
-      lse[(size_t)bh * Sq + row + h * 8] = m[h] + logf(l[h]);
+  fwd_wgmma<D, false>(align_1k(smem_raw), &tm_q, &tm_k, &tm_v, o, lse, item,
+                      Sq, Sk, causal);
 }
 
 // ----------------------------------------------------------------- launch

@@ -1,6 +1,7 @@
-// Hopper (sm_90a) primitives for the attention kernels, as inline PTX:
-// TMA tile loads behind mbarriers, warpgroup matrix products (wgmma)
-// on shared-memory descriptors, and setmaxnreg. No CUTLASS/CuTe: the
+// Hopper (sm_90a) primitives for the attention and paged-decode
+// kernels, as inline PTX: TMA tile loads behind mbarriers, warpgroup
+// matrix products (wgmma) on shared-memory descriptors, and setmaxnreg;
+// on the host, the CUDA driver's tensor-map encoder. No CUTLASS/CuTe: the
 // build stays at seconds.
 //
 // Shared-memory tiles are what TMA writes with CU_TENSOR_MAP_SWIZZLE_
@@ -276,6 +277,30 @@ __device__ __forceinline__ void regs_dec() {
 template <int R>
 __device__ __forceinline__ void regs_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// ---------------------------------------------------------------- host side
+
+// cuTensorMapEncodeTiled, looked up with cudaGetDriverEntryPoint so
+// that the library needs no -lcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault,
+                                &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+    return reinterpret_cast<EncodeTiled>(f);
+  }();
+  return fn;
 }
 
 }  // namespace rtt

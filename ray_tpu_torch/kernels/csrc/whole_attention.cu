@@ -45,6 +45,21 @@
 //   * CTAs with the most tiles are launched first, so the long causal
 //     rows do not trail at the end of the grid.
 //
+// The forward in bf16 at d = 64 and 128 (the training path;
+// whole_fwd_wgmma) runs attention_wgmma.cuh's forward body, the
+// streaming forward's, with the cap in place of the running max: 128
+// q rows per item (two consumer warpgroups), kv tiles of 128 keys
+// through a 2-stage TMA ring, s and p . V as wgmma (V read MN-major),
+// e = exp(min(s, 50) - 25) packed to bf16 in the same pass that sums
+// l, no max and no rescale of acc. The grid is persistent: one CTA
+// per SM walks the (q tile, head) items, longest first, and loads the
+// next item's Q and K, V while this one's rows are stored. At GPT-2's
+// shape a causal item has 1-8 kv tiles, so a CTA's start and end were
+// a large share of its life: a CTA per item was slower on the card, and
+// so were issuing tile i+1's s before tile i's p . V (which the missing
+// rescale allows) and writing e back into s before a separate pack
+// pass.
+//
 // The backward in bf16 at d = 64 and 128 (the training path;
 // whole_bwd_wgmma) runs attention_wgmma.cuh's bodies, the streaming
 // backward's (flash_attention.cu), with the cap: 128-key and 128-row
@@ -68,8 +83,6 @@
 namespace {
 
 using namespace rtt;
-
-constexpr float kCapShift = 25.f;
 
 template <int D>
 constexpr size_t fwd_smem_floats() {
@@ -606,18 +619,66 @@ constexpr size_t bwd_wgmma_smem_bytes() {
                                                 : DqSmem<D>::kBytes;
 }
 
-// bf16 on the tensor cores, f32 on the CUDA cores.
+// bf16 at d = 64, 128: attention_wgmma.cuh's forward body with the
+// cap, on a persistent grid: one CTA per SM walks the (q tile, head)
+// items, longest first across heads, dealt out in a snake (CTA c takes
+// item c of even rounds and gridDim - 1 - c of odd ones) so that the
+// CTAs' shares of tiles even out; the next item's Q and K, V load
+// while this one's rows are stored.
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+whole_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v,
+                bf16* __restrict__ o, float* __restrict__ lse, int BH, int S,
+                int causal) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const int nqt = cdiv(S, 2 * kTile), n_items = nqt * BH;
+  auto item = [&](int j, int& qt, int& bh) {
+    const int c = blockIdx.x, n = gridDim.x;
+    const int w = j * n + ((j & 1) ? n - 1 - c : c);
+    qt = nqt - 1 - w / BH;
+    bh = w % BH;
+    return w < n_items;
+  };
+  fwd_wgmma<D, true>(align_1k(smem_raw), &tm_q, &tm_k, &tm_v, o, lse, item,
+                     S, S, causal);
+}
+
+// bf16 at d = 64, 128: the TMA + wgmma body (128-row items, one CTA
+// per SM); d = 16, 32: the mma.sync body (64-row CTAs). f32: CUDA
+// cores.
 template <int D>
 int launch_fwd(int bf16_in, const void* q, const void* k, const void* v,
                void* o, void* lse, int BH, int S, int causal,
                cudaStream_t stream) {
   const int grid = BH * (S / kTile);
-  if (bf16_in)
-    return launch(whole_fwd_mma<D>, grid, kMmaThreads, fwd_mma_smem_bytes<D>(),
-                  stream, static_cast<const bf16*>(q),
-                  static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-                  static_cast<bf16*>(o), static_cast<float*>(lse), BH, S,
-                  causal);
+  if (bf16_in) {
+    if constexpr (D >= 64) {
+      CUtensorMap tq, tk, tv;
+      if (encode_tiled() == nullptr ||
+          !tile_map(&tq, q, BH, S, D, 2 * kTile) ||
+          !tile_map(&tk, k, BH, S, D, kFwdKeys) ||
+          !tile_map(&tv, v, BH, S, D, kFwdKeys))
+        return static_cast<int>(cudaErrorInvalidValue);
+      int dev = 0, n_sm = 0;
+      if (cudaGetDevice(&dev) != cudaSuccess ||
+          cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
+                                 dev) != cudaSuccess)
+        return static_cast<int>(cudaGetLastError());
+      const int n_items = BH * cdiv(S, 2 * kTile);
+      return launch(whole_fwd_wgmma<D>, n_items < n_sm ? n_items : n_sm,
+                    kWgThreads, WholeFwdSmem<D>::kBytes, stream, tq, tk, tv,
+                    static_cast<bf16*>(o), static_cast<float*>(lse), BH, S,
+                    causal);
+    } else {
+      return launch(whole_fwd_mma<D>, grid, kMmaThreads,
+                    fwd_mma_smem_bytes<D>(), stream,
+                    static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                    static_cast<const bf16*>(v), static_cast<bf16*>(o),
+                    static_cast<float*>(lse), BH, S, causal);
+    }
+  }
   return launch(whole_fwd_kernel<D>, grid, kThreads,
                 fwd_smem_floats<D>() * sizeof(float), stream,
                 static_cast<const float*>(q), static_cast<const float*>(k),
@@ -671,11 +732,10 @@ size_t smem_bytes(int pass, int bf16_in) {
   if (!bf16_in)
     return (pass == 0 ? fwd_smem_floats<D>() : bwd_smem_floats<D>()) *
            sizeof(float);
-  if (pass == 0) return fwd_mma_smem_bytes<D>();
   if constexpr (D >= 64)
-    return bwd_wgmma_smem_bytes<D>();
+    return pass == 0 ? WholeFwdSmem<D>::kBytes : bwd_wgmma_smem_bytes<D>();
   else
-    return bwd_mma_smem_bytes<D>();
+    return pass == 0 ? fwd_mma_smem_bytes<D>() : bwd_mma_smem_bytes<D>();
 }
 
 #define RTT_HEAD_DIMS(X) X(16) X(32) X(64) X(128)

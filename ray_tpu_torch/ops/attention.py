@@ -46,6 +46,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -53,10 +54,14 @@ import torch
 from ray_tpu_torch import kernels
 
 _NEG_INF = -1e30
-_KERNEL_THREADS = 128      # kThreads in paged_decode.cu
-_KERNEL_MAX_ACC = 8        # kMaxAcc in paged_decode.cu
-_KERNEL_SMEM_MAX = 48 * 1024
-_KERNEL_TILE_TOKENS = 64   # tokens per tile the kernel aims for
+# paged_decode.cu: a tile holds _PAGED_TILE_BYTES of K (and of V); a
+# split is _PAGED_SPLIT_TILES tiles; a CTA's warps merge their partials
+# in the _PAGED_SMEM bytes of its ring
+_PAGED_TILE_BYTES = 8192   # kTileBytes
+_PAGED_SMEM = 4 * _PAGED_TILE_BYTES     # kSmemBytes: 2 stages of K, V
+_PAGED_WARPS = 4           # kWarps
+_PAGED_MAX_G = 8           # kMaxG
+_PAGED_SPLIT_TILES = 4
 
 
 def attention_reference(q, k, v, *, causal: bool = False,
@@ -863,24 +868,59 @@ def paged_attention_reference(q, k_pages, v_pages, block_tables, lengths,
     return out[:, :, 0, :]
 
 
-def _kernel_smem(tile_pages: int, bs: int, D: int, G: int, elt: int) -> int:
-    """Shared-memory bytes of one CTA (layout in paged_decode.cu): K and
-    V tiles, f32 q, scores and the per-head m, l, alpha."""
-    tile = tile_pages * bs
-    return 2 * tile * D * elt + 4 * (G * D + G * tile + 3 * G)
+def paged_attention_f64(q, k_pages, v_pages, block_tables, lengths, *,
+                        sm_scale: Optional[float] = None):
+    """The paged-decode kernel's function in f64 with one rounding
+    point, q * sm_scale rounded to q's dtype (p and the output are not
+    rounded): the yardstick that a bf16 kernel and its plain version
+    are both measured against. Rows with ``lengths == 0`` are zeros, as
+    the kernel writes them. q: [B, H, D]; returns [B, H, D] f64."""
+    B, H, D = q.shape
+    if sm_scale is None:
+        sm_scale = D ** -0.5
+    qs = (q.float() * sm_scale).to(q.dtype).double()
+    k = paged_gather(k_pages, block_tables).double()       # [B,S,Hkv,D]
+    v = paged_gather(v_pages, block_tables).double()
+    G = H // k.shape[2]
+    k = _repeat_kv(k.transpose(1, 2), G)                    # [B,H,S,D]
+    v = _repeat_kv(v.transpose(1, 2), G)
+    s = torch.einsum("bhd,bhkd->bhk", qs, k)
+    pos = torch.arange(k.shape[2], device=q.device)
+    s = s.masked_fill(pos[None, None, :] >= lengths[:, None, None],
+                      float("-inf"))
+    p = torch.softmax(s, dim=-1).nan_to_num(0.0)
+    return torch.einsum("bhk,bhkd->bhd", p, v)
 
 
-def _kernel_tile_pages(bs: int, D: int, G: int, elt: int) -> int:
-    """Pages per shared-memory tile: about _KERNEL_TILE_TOKENS tokens,
-    fewer where the tile would pass 48 KB."""
-    pages = max(1, _KERNEL_TILE_TOKENS // bs)
-    while pages > 1 and _kernel_smem(pages, bs, D, G, elt) > _KERNEL_SMEM_MAX:
-        pages //= 2
-    if _kernel_smem(pages, bs, D, G, elt) > _KERNEL_SMEM_MAX:
-        raise ValueError(f"one page (bs={bs}, D={D}, G={G}) does not fit "
-                         f"the kernel's {_KERNEL_SMEM_MAX} bytes of shared "
-                         "memory")
-    return pages
+class PagedSplitPlan(NamedTuple):
+    """How the paged-decode kernel splits each (sequence, kv head)'s
+    pages across CTAs: split i takes pages [i * split_pages, (i + 1) *
+    split_pages) of the block table, in tiles of ``tile_tokens`` tokens
+    that TMA loads in boxes of ``box_rows`` tokens (a box never crosses
+    a page); ``workspace`` is the shape of the f32 partials (m, l,
+    acc[D]) per split; ``smem_bytes`` the dynamic shared memory of a
+    split CTA (its ring and barriers, then its page numbers)."""
+    tile_tokens: int
+    split_pages: int
+    n_splits: int
+    box_rows: int
+    workspace: tuple
+    smem_bytes: int
+
+
+def paged_split_plan(B: int, H: int, D: int, bs: int, NB: int,
+                     elt: int) -> PagedSplitPlan:
+    """The split layout of ``paged_attention_decode``'s kernel, from the
+    shapes alone (never the lengths, which live on the device): a tile
+    is _PAGED_TILE_BYTES of K rows, about _PAGED_SPLIT_TILES tiles make
+    a split (at least one page)."""
+    tile_tokens = _PAGED_TILE_BYTES // (D * elt)
+    split_pages = max(1, _PAGED_SPLIT_TILES * tile_tokens // bs)
+    n_splits = -(-NB // split_pages)
+    return PagedSplitPlan(tile_tokens, split_pages, n_splits,
+                          math.gcd(bs, tile_tokens),
+                          (B, H, n_splits, D + 2),
+                          _PAGED_SMEM + 16 + 4 * split_pages)
 
 
 def _check_kernel_args(q, k_pages, v_pages, block_tables, lengths):
@@ -912,14 +952,26 @@ def _check_kernel_args(q, k_pages, v_pages, block_tables, lengths):
     if H % Hkv:
         raise ValueError(f"paged_attention_decode: H={H} is not a multiple "
                          f"of Hkv={Hkv}")
-    elt = q.element_size()
-    if (D * elt) % 16 or D * elt > 512:
-        raise ValueError(f"paged_attention_decode: a row of D={D} must be "
-                         "a multiple of 16 bytes and at most 512 bytes")
-    if (H // Hkv) * D > _KERNEL_THREADS * _KERNEL_MAX_ACC:
-        raise ValueError("paged_attention_decode: G * D = "
-                         f"{(H // Hkv) * D} exceeds "
-                         f"{_KERNEL_THREADS * _KERNEL_MAX_ACC}")
+    elt, G = q.element_size(), H // Hkv
+    if D not in (16, 32, 64, 128) and not (D == 256 and elt == 2):
+        raise ValueError(f"paged_attention_decode: head dim D={D} is not "
+                         "one the kernel takes (16, 32, 64, 128; 256 in "
+                         "bfloat16)")
+    if G > _PAGED_MAX_G or _PAGED_WARPS * G * (D + 2) * 4 > _PAGED_SMEM:
+        raise ValueError(f"paged_attention_decode: G={G} query heads per "
+                         f"kv head at D={D} exceed the kernel's "
+                         f"{_PAGED_MAX_G} (or its {_PAGED_SMEM} bytes of "
+                         "shared memory for the warps' partials)")
+    NB = block_tables.shape[1]
+    plan = paged_split_plan(B, H, D, bs, max(NB, 1), elt)
+    if bs > 256 or (plan.box_rows * D * elt) % 128:
+        raise ValueError(f"paged_attention_decode: pages of bs={bs} tokens "
+                         f"at D={D}: a TMA box of {plan.box_rows} rows must "
+                         "be 128-byte aligned and at most 256 rows")
+    if plan.n_splits * 4 > 48 * 1024:
+        raise ValueError(f"paged_attention_decode: NB={NB} blocks make "
+                         f"{plan.n_splits} splits, more than the merge "
+                         "kernel's 12288")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_attention_decode: inputs must be contiguous")
     if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
@@ -932,10 +984,23 @@ def _paged_lib():
     """The paged-decode library, with its C signature set once."""
     lib = kernels.load("paged_decode")
     lib.rtt_paged_decode.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_float]
-        + [ctypes.c_int] * 7 + [ctypes.c_size_t, ctypes.c_void_p])
+        [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_float]
+        + [ctypes.c_int] * 10 + [ctypes.c_void_p])
     lib.rtt_paged_decode.restype = ctypes.c_int
+    lib.rtt_paged_decode_smem_bytes.argtypes = [ctypes.c_int]
+    lib.rtt_paged_decode_smem_bytes.restype = ctypes.c_int
     return lib
+
+
+def paged_resource_usage():
+    """ptxas's report on each paged-decode kernel instance
+    (``kernels.resource_usage``) with ``smem_bytes``, the dynamic shared
+    memory per CTA that a launch at the serving shape sets (bf16, D 64,
+    bs 16: 16 pages per split). Builds the library: needs ``nvcc``."""
+    smem = _paged_lib().rtt_paged_decode_smem_bytes(
+        paged_split_plan(1, 1, 64, 16, 64, 2).split_pages)
+    return [{**r, "smem_bytes": smem if r["kernel"].endswith("split") else 0}
+            for r in kernels.resource_usage("paged_decode")]
 
 
 def paged_attention_decode(q, k_pages, v_pages, block_tables, lengths, *,
@@ -943,12 +1008,14 @@ def paged_attention_decode(q, k_pages, v_pages, block_tables, lengths, *,
     """Paged-attention decode: q [B, H, D] against block-table-addressed
     pages, without gathering the cache. Returns [B, H, D] in q's dtype.
 
-    CUDA tensors go to the hand-written sm_90a kernel (one CTA per
-    sequence and kv head; counted in ``kernels.launch_counts()`` as
-    ``paged_attention_decode``). CPU tensors go to the plain version,
-    ``paged_attention_reference``. Anything the kernel does not take
-    raises; nothing falls back. Rows with ``lengths == 0`` are batch
-    padding: the kernel writes zeros there.
+    CUDA tensors go to the hand-written sm_90a kernels (each sequence
+    and kv head's pages split across CTAs by ``paged_split_plan``, then
+    one pass that merges the splits; the call is counted once in
+    ``kernels.launch_counts()`` as ``paged_attention_decode``). CPU
+    tensors go to the plain version, ``paged_attention_reference``.
+    Anything the kernel does not take raises; nothing falls back. Rows
+    with ``lengths == 0`` are batch padding: the kernel writes zeros
+    there.
     """
     if q.device.type == "cpu":
         return paged_attention_reference(q, k_pages, v_pages, block_tables,
@@ -965,18 +1032,19 @@ def paged_attention_decode(q, k_pages, v_pages, block_tables, lengths, *,
     if sm_scale is None:
         sm_scale = D ** -0.5
     out = torch.empty_like(q)
-    if B == 0:
-        return out
-    tile_pages = _kernel_tile_pages(bs, D, G, elt)
+    if B == 0 or NB == 0:
+        return out.zero_()
+    plan = paged_split_plan(B, H, D, bs, NB, elt)
+    ws = torch.empty(plan.workspace, dtype=torch.float32, device=q.device)
     lib = _paged_lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.rtt_paged_decode(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            1 if q.dtype == torch.bfloat16 else 0, float(sm_scale),
-            B, Hkv, G, D, bs, NB, tile_pages,
-            _kernel_smem(tile_pages, bs, D, G, elt), stream)
+            ws.data_ptr(), 1 if q.dtype == torch.bfloat16 else 0,
+            float(sm_scale), B, Hkv, G, D, bs, NB, k_pages.shape[0],
+            plan.split_pages, plan.n_splits, plan.box_rows, stream)
     kernels.check(lib, err, "paged_attention_decode")
     kernels.count_launch("paged_attention_decode")
     return out

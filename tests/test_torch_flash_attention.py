@@ -28,13 +28,22 @@ BF16 = dict(rtol=2e-2, atol=2e-2)
 
 
 @pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Keep PyTorch to 2 intra-op threads while this file runs: the
-    suite runs in parallel workers beside timing-sensitive tests."""
-    old = torch.get_num_threads()
+def _pinned_settings():
+    """Keep PyTorch to 2 intra-op threads while this file runs (the
+    suite runs in parallel workers beside timing-sensitive tests), and
+    pin what the F32 tolerance assumes, full-f32 matrix products on both
+    sides: torch's float32 matmul precision and JAX's default matmul
+    precision "highest", whatever another file in the same worker left
+    behind. Restores all three afterwards."""
+    old = (torch.get_num_threads(), torch.get_float32_matmul_precision(),
+           jax.config.jax_default_matmul_precision)
     torch.set_num_threads(2)
+    torch.set_float32_matmul_precision("highest")
+    jax.config.update("jax_default_matmul_precision", "highest")
     yield
-    torch.set_num_threads(old)
+    torch.set_num_threads(old[0])
+    torch.set_float32_matmul_precision(old[1])
+    jax.config.update("jax_default_matmul_precision", old[2])
 
 
 def _inputs(shape, seed=0, scale=1.0, n=3):
@@ -45,6 +54,32 @@ def _inputs(shape, seed=0, scale=1.0, n=3):
 def _np(x):
     return np.asarray(x.detach().float() if isinstance(x, torch.Tensor)
                       else jnp.asarray(x, jnp.float32))
+
+
+def _settings():
+    """The global settings an f32 comparison depends on."""
+    s = {"torch float32 matmul precision":
+         torch.get_float32_matmul_precision(),
+         "torch threads": torch.get_num_threads(),
+         "jax_default_matmul_precision":
+         jax.config.jax_default_matmul_precision}
+    mkldnn = getattr(torch.backends.mkldnn, "matmul", None)
+    if mkldnn is not None:
+        s["torch mkldnn matmul fp32_precision"] = mkldnn.fp32_precision
+    return s
+
+
+def _assert_o_close(o_t, o_j, o_64, tol):
+    """assert_allclose(o_t, o_j); on a failure the message also holds
+    each side against the f64 function and the settings above."""
+    try:
+        np.testing.assert_allclose(_np(o_t), _np(o_j), **tol)
+    except AssertionError as err:
+        ref = o_64.numpy()
+        raise AssertionError(
+            f"{err}\nmax |port o - f64| {np.abs(_np(o_t) - ref).max():.3e}, "
+            f"max |jax o - f64| {np.abs(_np(o_j) - ref).max():.3e}; "
+            f"settings {_settings()}") from None
 
 
 @pytest.mark.parametrize("s,d,causal,dtype", [
@@ -64,7 +99,9 @@ def test_whole_forward_and_lse_match_jax(s, d, causal, dtype):
     o_t, lse_t = TA.whole_attention_forward((tq * scale).to(td), tk, tv,
                                             causal=causal)
     assert o_t.dtype == td and lse_t.dtype == torch.float32
-    np.testing.assert_allclose(_np(o_t), _np(o_j), **tol)
+    o_64, _ = TA.whole_attention_forward_f64((tq * scale).to(td), tk, tv,
+                                             causal=causal)
+    _assert_o_close(o_t, o_j, o_64, tol)
     np.testing.assert_allclose(_np(lse_t), _np(lse_j), **F32)
     # and the public op, dispatch included
     out_j = JA.flash_attention(jq, jk, jv, causal=causal, force_pallas=True,

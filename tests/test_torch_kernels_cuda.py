@@ -28,13 +28,18 @@ def _chip_smoke():
     return mod
 
 # (B, H, Hkv, D, bs, NB, lengths): the serving shape (GPT-2 small,
-# ragged), a GQA shape, the JAX serving test's tiny shape, and a shape
-# with a batch-padding row (length 0)
+# ragged), a GQA shape, the JAX serving test's tiny shape, a shape
+# with a batch-padding row (length 0), one long sequence beside a
+# short one (chip_smoke.py's case d), and lengths on and one past the
+# kernel's split boundaries (case e: splits of 128 tokens in f32, 256
+# in bf16) with a length-0 row and a full table
 SHAPES = [
     (16, 12, 12, 64, 16, 64, list(np.linspace(1, 1024, 16).astype(int))),
     (4, 32, 8, 128, 16, 8, [1, 17, 128, 77]),
     (3, 8, 2, 16, 8, 4, [5, 17, 30]),
     (4, 8, 2, 32, 4, 6, [0, 9, 24, 13]),
+    (2, 32, 8, 128, 16, 256, [4096, 1]),
+    (8, 12, 12, 64, 16, 64, [0, 1, 127, 128, 129, 256, 257, 1024]),
 ]
 
 
@@ -53,11 +58,15 @@ def _inputs(B, H, Hkv, D, bs, NB, lengths, dtype, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", SHAPES, ids=["serve", "gqa", "tiny",
-                                               "padding-row"])
+                                               "padding-row",
+                                               "long-small-batch",
+                                               "split-edges"])
 def test_paged_decode_kernel_matches_plain_version(shape, dtype):
     """f32 within 1e-4; bf16 within 2e-2 on unit-normal inputs, since
-    p is rounded to bf16 against the running max of its tile rather
-    than the final max (about one bf16 ulp)."""
+    p is rounded to bf16 against a running max rather than the final
+    max (about one bf16 ulp), and by chip_smoke.py's ratio rule against
+    the function in f64. Length-0 rows (batch padding) are zeros. One
+    launch counted for the split and merge kernels."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -65,13 +74,22 @@ def test_paged_decode_kernel_matches_plain_version(shape, dtype):
     kernels.reset_launch_counts()
     out = TA.paged_attention_decode(*args)
     torch.cuda.synchronize()
-    assert kernels.launch_counts()["paged_attention_decode"] == 1
+    assert kernels.launch_counts() == {"paged_attention_decode": 1}
     ref = TA.paged_attention_reference(*args)
-    live = args[4] > 0            # length-0 rows are padding: any finite
-    assert bool(torch.isfinite(out).all())
+    live = args[4] > 0
+    assert bool(torch.isfinite(out).all()) and not out[~live].any()
     tol = 1e-4 if dtype == "float32" else 2e-2
     torch.testing.assert_close(out[live].float(), ref[live].float(),
                                rtol=tol, atol=tol)
+    if dtype == "bfloat16":
+        ratio = TA.error_ratios(out[live], ref[live],
+                                TA.paged_attention_f64(*args)[live])
+        limit = _chip_smoke().BF16_RATIO
+        assert ratio[0] <= limit[0] and ratio[1] <= limit[1], ratio
+    plan = TA.paged_split_plan(*shape[:2], shape[3], shape[4], shape[5],
+                               out.element_size())
+    assert (TA._paged_lib().rtt_paged_decode_smem_bytes(plan.split_pages)
+            == plan.smem_bytes)
 
 
 @pytest.mark.cuda

@@ -135,13 +135,107 @@ def test_kernel_argument_checks(case):
 
 
 def test_kernel_tile_fits_shared_memory():
-    # the serving shape: 4 pages of 16 tokens per tile
-    assert TA._kernel_tile_pages(16, 64, 1, 2) == 4
-    # f32 at D=128 halves the tile to stay within 48 KB
-    pages = TA._kernel_tile_pages(16, 128, 4, 4)
-    assert TA._kernel_smem(pages, 16, 128, 4, 4) <= 48 * 1024
-    with pytest.raises(ValueError):
-        TA._kernel_tile_pages(256, 128, 4, 4)
+    """The split plan at the serving shape (B 16, H 12, D 64, bs 16,
+    NB 64, bf16): tiles of 64 tokens (8 KB of K) loaded a page (16
+    rows) per TMA box, splits of 16 pages, 4 splits; the ring of two K
+    and V tiles and the split's page numbers stay within 48 KB at every
+    head dim; a box is cut to a divisor of both the page and the tile;
+    G past the kernel's limit and pages the boxes cannot take are
+    refused."""
+    plan = TA.paged_split_plan(16, 12, 64, 16, 64, 2)
+    assert plan == (64, 16, 4, 16, (16, 12, 4, 66), 32 * 1024 + 16 + 4 * 16)
+    for D, elt in ((16, 4), (64, 4), (128, 2), (128, 4), (256, 2)):
+        p = TA.paged_split_plan(2, 8, D, 16, 256, elt)
+        assert p.tile_tokens * D * elt == 8192
+        assert p.smem_bytes <= 48 * 1024
+        assert p.n_splits * p.split_pages >= 256
+        assert (p.n_splits - 1) * p.split_pages < 256
+    # a page larger than a split: one page per split, boxes of a tile
+    assert TA.paged_split_plan(1, 1, 128, 256, 3, 4)[1:4] == (1, 3, 16)
+    assert TA.paged_split_plan(1, 1, 64, 24, 8, 2).box_rows == 8
+    a = _torch(_inputs(2, 18, 2, 16, 8, 4, [5, 17]))
+    with pytest.raises(ValueError, match="G=9"):
+        TA._check_kernel_args(a["q"], a["k_pages"], a["v_pages"],
+                              a["block_tables"], a["lengths"])
+    a = _torch(_inputs(2, 2, 2, 16, 3, 4, [5, 7]))   # boxes of 48 bytes
+    with pytest.raises(ValueError, match="128-byte"):
+        TA._check_kernel_args(a["q"], a["k_pages"], a["v_pages"],
+                              a["block_tables"], a["lengths"])
+
+
+_NEG = torch.tensor(-1e30)
+
+
+def _split_then_combine(q, k_pages, v_pages, block_tables, lengths,
+                        plan, sm_scale=None):
+    """A plain model of the kernel's split-KV decode on ``plan``: each
+    split's partial (m, l, acc) over its pages (empty past the length:
+    m = -1e30, l = 0, acc = 0; p rounded to the input dtype for acc, l
+    from the unrounded p), then the merge in split order. q [B, H, D]
+    -> [B, H, D]."""
+    B, H, D = q.shape
+    _, bs, Hkv, _ = k_pages.shape
+    G = H // Hkv
+    scale = D ** -0.5 if sm_scale is None else sm_scale
+    qs = (q.float() * scale).to(q.dtype).float()
+    out = torch.zeros(B, H, D, dtype=q.dtype)
+    span = plan.split_pages * bs
+    for b in range(B):
+        n = int(lengths[b])
+        k = TA.paged_gather(k_pages, block_tables[b:b + 1])[0].float()
+        v = TA.paged_gather(v_pages, block_tables[b:b + 1])[0].float()
+        for h in range(H):
+            parts = []
+            for i in range(plan.n_splits):
+                lo, hi = i * span, min((i + 1) * span, n)
+                if lo >= hi:
+                    parts.append((_NEG, torch.tensor(0.0), torch.zeros(D)))
+                    continue
+                s = k[lo:hi, h // G] @ qs[b, h]
+                m = s.max()
+                p = torch.exp(s - m)
+                acc = p.to(q.dtype).float() @ v[lo:hi, h // G]
+                parts.append((m, p.sum(), acc))
+            M = max(float(m) for m, _, _ in parts)
+            l = sum(lp * torch.exp(torch.as_tensor(m) - M)
+                    for m, lp, _ in parts)
+            acc = sum(a * torch.exp(torch.as_tensor(m) - M)
+                      for m, _, a in parts)
+            out[b, h] = (acc / torch.clamp(torch.as_tensor(l), min=1e-30)
+                         ).to(q.dtype)
+    return out
+
+
+# (B, H, Hkv, D, bs, NB, lengths) at f32, D 64: tiles of 32 tokens,
+# splits of 16 pages of 8 tokens (128 tokens). Lengths 0 and 1, on a
+# split boundary (128) and one past it, a full table (NB * bs), and
+# a partial page
+SPLIT_SHAPES = [
+    (6, 4, 2, 64, 8, 20, [0, 1, 128, 129, 160, 77]),
+    (3, 2, 2, 64, 8, 40, [256, 257, 319]),
+]
+
+
+@pytest.mark.parametrize("shape", SPLIT_SHAPES)
+def test_split_then_combine_matches_jax(shape):
+    """The kernel's split plan, modelled in plain torch (split, then
+    merge), against the JAX package's Pallas paged-decode kernel in
+    interpret mode, in f32 within 1e-5. Length-0 rows are batch
+    padding: the split model (and the kernel) gives zeros there, the
+    JAX kernel the mean of v over the table (every logit -1e30), so
+    they are held apart."""
+    B, H, Hkv, D, bs, NB, lengths = shape
+    a = _inputs(*shape)
+    j, t = _jax(a), _torch(a)
+    args = ("q", "k_pages", "v_pages", "block_tables", "lengths")
+    plan = TA.paged_split_plan(B, H, D, bs, NB, 4)
+    assert plan.split_pages == 16 and plan.n_splits == -(-NB // 16)
+    got = _split_then_combine(*(t[k] for k in args), plan)
+    want = JA.paged_attention_decode(*(j[k] for k in args), interpret=True)
+    live = np.asarray(lengths) > 0
+    np.testing.assert_allclose(got.numpy()[live], np.asarray(want)[live],
+                               **TOL)
+    assert not got[torch.from_numpy(~live)].any()
 
 
 def test_cuda_without_cuda_raises():
@@ -151,3 +245,20 @@ def test_cuda_without_cuda_raises():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("shape", SPLIT_SHAPES[:1] + SHAPES)
+def test_paged_f64_yardstick_matches_jax(shape):
+    """``paged_attention_f64``, the function the card checks hold a bf16
+    kernel to, against the JAX package's reference in f32 within 1e-5
+    on rows of length > 0, and zeros on length-0 rows."""
+    a = _inputs(*shape)
+    j, t = _jax(a), _torch(a)
+    args = ("q", "k_pages", "v_pages", "block_tables", "lengths")
+    got = TA.paged_attention_f64(*(t[k] for k in args))
+    assert got.dtype == torch.float64
+    want = JA.paged_attention_reference(*(j[k] for k in args))
+    live = a["lengths"] > 0
+    np.testing.assert_allclose(got.numpy()[live], np.asarray(want)[live],
+                               **TOL)
+    assert not got[torch.from_numpy(~live)].any()

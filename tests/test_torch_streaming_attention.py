@@ -405,10 +405,14 @@ ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__1927b273_18_flash_att
 ptxas info    : Function properties for _ZN51_GLOBAL__N__1927b273_18_flash_attention_cu_4b62497613flash_dkv_mmaILi16EEEvPK13__nv_bfloat16S3_S3_S3_PKfS5_PS1_S6_iiii
     16 bytes stack frame, 12 bytes spill stores, 12 bytes spill loads
 ptxas info    : Used 96 registers, used 1 barriers, 388 bytes cmem[0]
-ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__5e7c2a1b_15_paged_decode_cu_9f3d2c4119paged_decode_kernelI13__nv_bfloat16EEvPKT_S4_S4_PKiS6_PS2_fiiiiii' for 'sm_90a'
-ptxas info    : Function properties for _ZN51_GLOBAL__N__5e7c2a1b_15_paged_decode_cu_9f3d2c4119paged_decode_kernelI13__nv_bfloat16EEvPKT_S4_S4_PKiS6_PS2_fiiiiii
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__5e7c2a1b_15_paged_decode_cu_9f3d2c4118paged_decode_splitI13__nv_bfloat16Li4ELi128EEEv14CUtensorMap_stS1_PKT_PKiS6_Pffiiiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__5e7c2a1b_15_paged_decode_cu_9f3d2c4118paged_decode_splitI13__nv_bfloat16Li4ELi128EEEv14CUtensorMap_stS1_PKT_PKiS6_Pffiiiiii
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 55 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__5e7c2a1b_15_paged_decode_cu_9f3d2c4120paged_decode_combineIfEEvPKfPT_iii' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__5e7c2a1b_15_paged_decode_cu_9f3d2c4120paged_decode_combineIfEEvPKfPT_iii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 24 registers, used 0 barriers
 ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__0c1d2e3f_18_attention_delta_cu_7a6b5c4d22attention_delta_kernelI13__nv_bfloat16Li64EEEvPKT_S4_Pfi' for 'sm_90a'
 ptxas info    : Function properties for _ZN51_GLOBAL__N__0c1d2e3f_18_attention_delta_cu_7a6b5c4d22attention_delta_kernelI13__nv_bfloat16Li64EEEvPKT_S4_Pfi
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
@@ -420,17 +424,22 @@ def test_ptxas_report_is_read_per_kernel_instance():
     """``kernels.parse_ptxas`` on the report nvcc -Xptxas -v prints on
     the card (two instances of flash_attention.cu, a helper kernel
     between them, which is left out and whose lines go to no other
-    entry, the paged-decode kernel, named by its element type, and the
-    attention delta kernel, by its element type and head dim): kernel
-    name, head dim, registers at launch, stack and spill bytes."""
+    entry, the paged-decode split kernel, named by its element type,
+    query heads per kv head and head dim, and its combine kernel, by its
+    element type, and the attention delta kernel, by its element type
+    and head dim): kernel name, head dim, registers at launch, stack and
+    spill bytes."""
     assert kernels.parse_ptxas(PTXAS_LOG) == [
         {"kernel": "flash_dkv_wgmma", "d": 128, "stack_bytes": 0,
          "spill_stores": 0, "spill_loads": 0, "registers": 168},
         {"kernel": "flash_dkv_mma", "d": 16, "stack_bytes": 16,
          "spill_stores": 12, "spill_loads": 12, "registers": 96},
-        {"kernel": "paged_decode_kernel", "d": None, "dtype": "bfloat16",
+        {"kernel": "paged_decode_split", "d": 128, "g": 4,
+         "dtype": "bfloat16", "stack_bytes": 0, "spill_stores": 0,
+         "spill_loads": 0, "registers": 55},
+        {"kernel": "paged_decode_combine", "d": None, "dtype": "float32",
          "stack_bytes": 0, "spill_stores": 0, "spill_loads": 0,
-         "registers": 55},
+         "registers": 24},
         {"kernel": "attention_delta_kernel", "d": 64, "dtype": "bfloat16",
          "stack_bytes": 0, "spill_stores": 0, "spill_loads": 0,
          "registers": 16}]
