@@ -42,13 +42,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
 5. numerics — the same GPT-2 cast to f32: one batched decode step
               through the kernel against the same step with the plain
               version passed explicitly, and against the full forward.
-6. train    — make_causal_lm_trainer(GPT2Config.small()) on the card,
-              batch 16 x 1024 of seeded tokens: warm-up steps, then
-              timed windows with the launch counts zeroed before and
-              read after (each whole-kv kernel and the delta pass
-              exactly n_layer times a step); the loss is finite and falls on the repeated
-              batch. Prints bench.py's gpt2_* keys and peak memory,
-              then one profiled step's device time by kernel group.
+6. train    — ray_tpu_torch.bench.gpt2_loop: make_causal_lm_trainer(
+              GPT2Config.small()) on the card, batch 16 x 1024 of
+              seeded tokens: warm-up steps, then timed windows with the
+              launch counts zeroed before and read after (each whole-kv
+              kernel and the delta pass exactly n_layer times a step);
+              the loss is finite and falls on the repeated batch.
+              Prints bench.py's gpt2_* keys and peak memory, then one
+              profiled step's device time by kernel group.
 7. train numerics — GPT-2 at full width, 2 layers, TF32 off: one
               trainer step through the kernels against one through
               their plain versions (passed explicitly), in f32 (loss,
@@ -71,7 +72,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
               (llama_parity, the rules of train_parity).
 10. entry   — ray_tpu_torch.entry.entry() on the card: logits
               (4, 512, 50257), finite, one forward kernel per layer.
-11. summary — nvidia-smi's card line, the kernels line, then the
+11. resnet  — (a) one step of a narrow ResNet (bottleneck, one block
+              per stage, 8 filters, 32 x 32, batch 4, f32, TF32 off)
+              on the card against the same step on the CPU: loss,
+              logits, params and batch stats (resnet_parity), every
+              conv input channels_last; (b) ResNet-50 at its published
+              widths, batch 256 x 224 x 224, bf16 compute, through
+              ray_tpu_torch.bench.resnet_loop: a finite loss, no launch
+              of the port's kernels; prints bench.py's keys (step time,
+              img/s, FLOPs and their source, mfu), peak memory and the
+              card; (c) one profiled step by kernel group
+              (RESNET_PROFILE_GROUPS) and its idle share.
+12. summary — nvidia-smi's card line, the kernels line, then the
               device line, last.
 
 Exits non-zero without printing a result when CUDA is absent or when
@@ -102,6 +114,30 @@ PROFILE_GROUPS = (
     ("attention_delta", ("attention_delta",)),
     ("matmul_f32", ("sgemm", "f32f32_f32f32")),
     ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "cublas", "sm90_")))
+# the ResNet step's groups, in the same way: batch norm (PyTorch's
+# channels_last kernels, forward and backward), cuDNN's forward and
+# backward convs, cuDNN's other conv kernels (1x1 convs it runs as bf16
+# GEMMs through cuBLASLt or CUTLASS, either direction, and its input
+# padding), max-pool and the head's mean, the optimizer's foreach
+# kernels, the f32 head (the step's only f32 product), then elementwise
+# ops (ReLU and its backward, the residual adds, pads, casts, fills)
+RESNET_PROFILE_GROUPS = (
+    ("batch_norm", ("batch_norm",)),
+    ("conv_fwd", ("fprop",)),
+    ("conv_bwd", ("dgrad", "wgrad")),
+    ("conv_gemm", ("nvjet", "gemm_bf16", "nhwcaddpadding")),
+    ("pooling", ("max_pool", "meanops")),
+    ("optimizer", ("multi_tensor_apply",)),
+    ("head_f32", ("f32f32",)),
+    ("elementwise_relu", ("elementwise", "memset")))
+# the narrow ResNet step on the card against the same step on the CPU
+# (resnet_parity, f32, TF32 off): the loss within RESNET_LOSS_REL
+# relative; logits, params and batch stats within RESNET_TOL of each
+# tensor's scale (1 + max |cpu|): cuDNN's and oneDNN's convs and the
+# two batch-norm reductions sum in other orders. Measured on an H100
+# (PERF.md): loss equal, worst tensor 5.8e-7.
+RESNET_LOSS_REL = 1e-5
+RESNET_TOL = 1e-5
 # whole-kv kernels against their plain versions: f32 within F32_TOL of
 # each output's scale; bf16 within BF16_RATIO = (max, rms) times the
 # plain version's own error against the f64 yardstick (hold_outputs). In
@@ -445,12 +481,13 @@ def sdpa_backward_ms(q, k, v, do, causal, flush):
     return device, host
 
 
-def profile_step(step) -> dict:
-    """Device time of one training step by kernel group
-    (PROFILE_GROUPS, first match by kernel name; the rest is
-    elementwise, reductions, copies and the optimizer), from the kernel
-    events of torch.profiler, with the ten largest kernels by name.
-    Informational; the step runs after the launch counts were read."""
+def profile_step(step, groups=PROFILE_GROUPS) -> dict:
+    """Device time of one training step by kernel group (``groups``,
+    first match by kernel name; the rest is "other": for
+    PROFILE_GROUPS, elementwise, reductions, copies and the optimizer),
+    from the kernel events of torch.profiler, with the ten largest
+    kernels by name. Informational; the step runs after the launch
+    counts were read."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -461,8 +498,8 @@ def profile_step(step) -> dict:
         step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    groups = {g: 0.0 for g, _ in PROFILE_GROUPS}
-    groups["other"] = 0.0
+    by_group = {g: 0.0 for g, _ in groups}
+    by_group["other"] = 0.0
     by_name = {}
     for ev in prof.events():
         # kernels, copies and sets; not the ranges that user annotations
@@ -472,15 +509,16 @@ def profile_step(step) -> dict:
             continue
         ms = ev.device_time_total / 1e3
         low = ev.name.lower()
-        group = next((g for g, words in PROFILE_GROUPS
+        group = next((g for g, words in groups
                       if any(w in low for w in words)), "other")
-        groups[group] += ms
+        by_group[group] += ms
         tot, n = by_name.get(ev.name, (0.0, 0))
         by_name[ev.name] = (tot + ms, n + 1)
-    busy = sum(groups.values())
+    busy = sum(by_group.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     return {"wall_ms_profiled": wall_ms, "device_busy_ms": busy,
-            "device_idle_share": 1 - busy / wall_ms, "by_group_ms": groups,
+            "device_idle_share": 1 - busy / wall_ms,
+            "by_group_ms": by_group,
             "top_kernels": [{"ms": ms, "calls": n, "name": name[:90]}
                             for name, (ms, n) in top]}
 
@@ -661,6 +699,73 @@ def llama_parity(cfg, ids):
     hold_step("llama_numerics", runs, {
         "n_layers": cfg.n_layers, "batch": int(ids.shape[0]),
         "seq": int(ids.shape[1])})
+
+
+def resnet_parity() -> dict:
+    """One trainer step of a narrow ResNet (bottleneck blocks, one per
+    stage, 8 filters, 10 classes, f32) on a batch of 4 seeded 32 x 32
+    images, on the card and on the CPU from the same seeded params (TF32
+    off, as phase 1 sets): the loss within RESNET_LOSS_REL relative; the
+    step's logits, and the params and batch stats after it, within
+    RESNET_TOL of each tensor's scale. Every conv and max-pool input on
+    the card is channels_last (no hidden layout copy). Returns the
+    measured gaps; fails outside the tolerances."""
+    import torch
+    import torch.nn.functional as F
+    from ray_tpu_torch.models import resnet
+    from ray_tpu_torch.train import spmd
+    model = resnet.ResNet(stage_sizes=[1, 1, 1, 1],
+                          block_cls=resnet.BottleneckResNetBlock,
+                          num_classes=10, num_filters=8, dtype=torch.float32)
+    rng = np.random.default_rng(SEED)
+    batch = {"image": rng.standard_normal((4, 32, 32, 3), dtype=np.float32),
+             "label": rng.integers(0, 10, (4,), dtype=np.int32)}
+    layouts = []
+    conv2d, max_pool2d = F.conv2d, F.max_pool2d
+
+    def spy(fn):
+        def wrapped(x, *args, **kwargs):
+            if x.is_cuda:
+                layouts.append(x.is_contiguous(
+                    memory_format=torch.channels_last))
+            return fn(x, *args, **kwargs)
+        return wrapped
+
+    runs = {}
+    F.conv2d, F.max_pool2d = spy(conv2d), spy(max_pool2d)
+    try:
+        for dev in ("cpu", "cuda"):
+            tr = spmd.make_image_classifier_trainer(
+                model, input_shape=(1, 32, 32, 3), device=dev)
+            st = tr.init(SEED)
+            logits = []
+            st["model"].register_forward_hook(
+                lambda mod, args, out: logits.append(out.detach()))
+            st, m = tr.step(st, spmd.put_batch(tr, batch))
+            runs[dev] = {"loss": float(m["loss"]), "logits": logits[0],
+                         **st["model"].state_dict()}
+    finally:
+        F.conv2d, F.max_pool2d = conv2d, max_pool2d
+    cpu, card = runs["cpu"], runs["cuda"]
+    loss_rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    gaps = {k: float((card[k].cpu() - v).abs().max()) / (
+        1 + float(v.abs().max())) for k, v in cpu.items() if k != "loss"}
+    worst = max(gaps, key=gaps.get)
+    res = {"loss_cpu": cpu["loss"], "loss_cuda": card["loss"],
+           "loss_rel": loss_rel, "logits": gaps["logits"],
+           "worst_tensor": worst, "worst": gaps[worst],
+           "conv_pool_inputs": len(layouts),
+           "channels_last": sum(layouts),
+           "tol": {"loss_rel": RESNET_LOSS_REL, "tensors": RESNET_TOL}}
+    print("resnet_parity", json.dumps(res), flush=True)
+    require(layouts and all(layouts),
+            f"resnet: {len(layouts) - sum(layouts)} of {len(layouts)} conv "
+            "or pool inputs on the card are not channels_last")
+    require(loss_rel <= RESNET_LOSS_REL,
+            f"resnet: card loss {card['loss']} vs cpu {cpu['loss']}")
+    require(gaps[worst] <= RESNET_TOL,
+            f"resnet: {worst} off by {gaps[worst]} of its scale")
+    return res
 
 
 def ragged(rng, B, lo, hi):
@@ -899,43 +1004,14 @@ def main() -> int:
     del m32, caches, via_kernel, via_plain
     torch.cuda.empty_cache()
 
-    # 6. train GPT-2 small through the port's trainer
-    from ray_tpu_torch.train import spmd
+    # 6. train GPT-2 small through the port's trainer: the bench's
+    # gpt2_loop (launch counts zeroed after its warm-up, read after its
+    # timed windows), then one profiled step
+    from ray_tpu_torch import bench
     cfg = gpt2.GPT2Config.small()
-    batch, seq, warmup, windows, per_window = 16, 1024, 2, 3, 4
-    t0 = time.time()
-    trainer = spmd.make_causal_lm_trainer(cfg)      # device: cuda
-    state = trainer.init(SEED)
-    init_s = time.time() - t0
-    tokens = np.random.default_rng(SEED).integers(
-        0, cfg.vocab_size, (batch, seq), dtype=np.int32)
-    resident = spmd.put_batch(trainer, {"input_ids": tokens,
-                                        "labels": tokens})
-    torch.cuda.reset_peak_memory_stats()
-    losses, norms = [], []
-    for _ in range(warmup):
-        state, m = trainer.step(state, resident)
-        losses.append(float(m["loss"]))
-        norms.append(float(m["grad_norm"]))
-    kernels.reset_launch_counts()
-    host_ms, dev_ms = [], []
-    for _ in range(windows):
-        torch.cuda.synchronize()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        e0.record()
-        metrics = [trainer.step(state, resident)[1]
-                   for _ in range(per_window)]
-        e1.record()
-        torch.cuda.synchronize()
-        host_ms.append((time.perf_counter() - t0) * 1e3 / per_window)
-        dev_ms.append(e0.elapsed_time(e1) / per_window)
-        losses += [float(m["loss"]) for m in metrics]
-        norms += [float(m["grad_norm"]) for m in metrics]
-    train_counts = kernels.launch_counts()
-    n_steps = windows * per_window
-    peak = torch.cuda.max_memory_allocated()
+    g = bench.gpt2_loop(profile=profile_step)
+    losses, norms = g["gpt2_losses"], g["gpt2_grad_norms"]
+    train_counts, n_steps = g["gpt2_launches"], g["gpt2_steps_timed"]
     require(all(math.isfinite(x) for x in losses + norms),
             f"non-finite loss or grad norm: {losses} {norms}")
     require(losses[-1] < losses[0], f"loss did not fall: {losses}")
@@ -947,25 +1023,17 @@ def main() -> int:
                 f"{n_steps} steps of {cfg.n_layer} layers")
     require(set(train_counts) == set(whole_names),
             f"unexpected kernels on the training path: {train_counts}")
-    best = min(host_ms)
-    print("train", json.dumps({
-        "model": "gpt2-small", "gpt2_batch_per_chip": batch,
-        "gpt2_seq_len": seq, "gpt2_step_time_ms": best,
-        "gpt2_tokens_per_sec_per_chip": batch * seq / best * 1e3,
-        "host_ms_per_step_by_window": host_ms,
-        "device_ms_per_step_by_window": dev_ms, "init_s": init_s,
-        "losses": losses, "grad_norms": norms,
-        "launches": train_counts, "steps_counted": n_steps,
-        "max_memory_allocated_bytes": peak, "device": name,
-        "nvidia_smi": card}), flush=True)
-    print("train_profile", json.dumps(profile_step(
-        lambda: trainer.step(state, resident))), flush=True)
-    del trainer, state, resident, metrics, m
+    profile = g.pop("gpt2_profile")
+    print("train", json.dumps({"model": "gpt2-small", **g, "device": name,
+                               "nvidia_smi": card}), flush=True)
+    print("train_profile", json.dumps(profile), flush=True)
     torch.cuda.empty_cache()
 
     # 7. one training step through the kernels against one through
     # their plain versions, in f32 and in bf16 compute
-    train_parity(dataclasses.replace(cfg, n_layer=2), tokens[:4])
+    tokens = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (4, 1024), dtype=np.int32)
+    train_parity(dataclasses.replace(cfg, n_layer=2), tokens)
     torch.cuda.empty_cache()
 
     # 8. train a Llama-2-7B-wide decoder at 2 x 4096 through the loop
@@ -1050,7 +1118,25 @@ def main() -> int:
                                "launches": entry_counts}), flush=True)
     del fn, args, logits
 
-    # 11. summary
+    # 11. ResNet: (a) the narrow step on the card against the CPU; (b)
+    # ResNet-50 at 256 x 224 x 224 bf16 through the bench's
+    # resnet_loop, which launches none of the port's kernels; (c) one
+    # profiled step, by kernel group
+    resnet_parity()
+    r = bench.resnet_loop(profile=lambda step: profile_step(
+        step, RESNET_PROFILE_GROUPS))
+    require(all(math.isfinite(x) for x in r["losses"]),
+            f"resnet: non-finite loss: {r['losses']}")
+    require(r["launches"] == {}, f"resnet: the path launched {r['launches']}")
+    profile = r.pop("profile")
+    print("resnet_train", json.dumps({"model": "resnet50", **r,
+                                      "device": name, "nvidia_smi": card}),
+          flush=True)
+    print("resnet_profile", json.dumps(profile), flush=True)
+    del r
+    torch.cuda.empty_cache()
+
+    # 12. summary
     def kernel_entry(case, kname, source, line, launches):
         return {"name": kname, "route": "cuda",
                 "source": f"ray_tpu_torch/kernels/csrc/{source}",

@@ -1,0 +1,245 @@
+"""Training throughput of the port on one card: the raw-control half of
+the JAX package's headline bench (``bench.py:bench_loop``, ``gpt2_loop``).
+
+    python -m ray_tpu_torch.bench      # on cuda; prints one JSON line
+
+``resnet_loop``: ResNet-50 at its published widths (1,000 classes, bf16
+compute, f32 params), batch 256 at 224 x 224, SGD-Nesterov through
+``make_image_classifier_trainer``; ``gpt2_loop``: GPT-2 small at batch
+16 x 1024 through ``make_causal_lm_trainer``. Each times steps on one
+resident batch (no input cost: the compute ceiling), as windows of
+steps closed by a host read of the loss, and reports the best window.
+The framework path of the JAX bench (``DataParallelTrainer``, the
+session, the Dataset feed) needs the runtime, which the port does not
+have yet (ROADMAP.md Queue A, A1 and A6).
+
+FLOPs per step come from ``torch.utils.flop_counter.FlopCounterMode``
+over one step (convolutions and matrix products, forward and backward;
+not the hand-written attention kernels, as XLA's ``cost_analysis``
+counts no Pallas call); ``mfu`` divides them by the step time and the
+card's dense bf16 peak, for the cards in ``_PEAK_BF16`` only.
+"""
+
+from __future__ import annotations
+
+import itertools
+import json
+import time
+
+import numpy as np
+import torch
+
+from ray_tpu_torch import kernels
+from ray_tpu_torch.device import resolve_device
+
+METRIC = "resnet50_images_per_sec_per_chip"
+UNIT = "images/s/chip"
+FLOPS_SOURCE = ("torch.utils.flop_counter.FlopCounterMode over one step "
+                "(convolutions and matrix products, forward and backward)")
+
+# dense bf16 peak by device name (lower case): NVIDIA's H100 SXM data sheet
+_PEAK_BF16 = [("h100 80gb hbm3", 989e12)]
+
+
+def _peak_flops(device_kind: str):
+    kind = device_kind.lower()
+    for key, peak in _PEAK_BF16:
+        if key in kind:
+            return peak
+    return None
+
+
+def _device_kind(dev: torch.device) -> str:
+    if dev.type == "cuda":
+        return torch.cuda.get_device_name(dev)
+    return "cpu"
+
+
+def _timed_run(step, warmup: int, windows: int, per_window: int,
+               profile=None) -> dict:
+    """``step()`` -> metrics dict of scalar tensors. Runs: one step
+    timed alone (eager PyTorch compiles nothing; the allocator's growth
+    and the libraries' first calls fall there), one under FlopCounterMode,
+    ``warmup`` steps, then ``windows`` windows of ``per_window`` steps,
+    each closed by a host read of the loss, with the kernels' launch
+    counts zeroed before the windows and read after them. ``profile``:
+    a function called with ``step`` after the windows; its result is
+    kept under ``profile``."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    history = []
+    t0 = time.perf_counter()
+    history.append(step())
+    float(history[-1]["loss"])
+    first_s = time.perf_counter() - t0
+    with FlopCounterMode(display=False) as counter:
+        history.append(step())
+    flops = float(counter.get_total_flops())
+    for _ in range(warmup):
+        history.append(step())
+    float(history[-1]["loss"])
+    kernels.reset_launch_counts()
+    window_s = []
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        for _ in range(per_window):
+            history.append(step())
+        float(history[-1]["loss"])
+        window_s.append((time.perf_counter() - t0) / per_window)
+    out = {"first_s": first_s, "flops": flops, "best_s": min(window_s),
+           "ms_by_window": [s * 1e3 for s in window_s],
+           "launches": kernels.launch_counts(),
+           "steps_timed": windows * per_window,
+           "metrics": {k: [float(m[k]) for m in history]
+                       for k in history[0]}}
+    if profile is not None:
+        out["profile"] = profile(step)
+    return out
+
+
+def resnet_loop(device="cuda", make_feed=None, profile=None) -> dict:
+    """ResNet-50 training throughput, ``bench.py:bench_loop``'s keys.
+
+    On ``cuda``: batch 256 at 224 x 224, bf16, 3 warm-up steps, best of
+    8 windows of 10 steps. On ``cpu``: batch 8 at 32 x 32, f32, 1
+    warm-up step, 1 window of 3. One resident batch of standard-normal
+    f32 NHWC images and labels in [0, 1000) from
+    ``np.random.default_rng(0)``. ``make_feed(trainer, batch_size)``:
+    an endless iterator of device batches in place of the resident one
+    (the framework path's feed; no caller in the port yet). ``profile``:
+    see ``_timed_run``."""
+    from ray_tpu_torch.models.resnet import create_resnet
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+    from ray_tpu_torch.train.spmd import (make_image_classifier_trainer,
+                                          put_batch)
+
+    dev = resolve_device(device)
+    n_dev = 1
+    if dev.type == "cuda":
+        batch, image_size, dtype = 256 * n_dev, 224, torch.bfloat16
+        windows, per_window, warmup = 8, 10, 3
+    else:
+        batch, image_size, dtype = 8 * n_dev, 32, torch.float32
+        windows, per_window, warmup = 1, 3, 1
+
+    model = create_resnet("resnet50", num_classes=1000, dtype=dtype)
+    trainer = make_image_classifier_trainer(
+        model, spec=MeshSpec(dp=n_dev),
+        input_shape=(1, image_size, image_size, 3), device=dev)
+    state = trainer.init(0)
+    if make_feed is None:
+        rng = np.random.default_rng(0)
+        images = rng.standard_normal((batch, image_size, image_size, 3),
+                                     dtype=np.float32)
+        labels = rng.integers(0, 1000, (batch,), dtype=np.int32)
+        feed = itertools.repeat(put_batch(trainer, {"image": images,
+                                                    "label": labels}))
+    else:
+        feed = make_feed(trainer, batch)
+
+    def step():
+        return trainer.step(state, next(feed))[1]
+
+    # cuDNN's heuristics, not torch.backends.cudnn.benchmark: on an H100
+    # the autotuned step was no faster and its first step took seconds
+    # longer (PERF.md)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    run = _timed_run(step, warmup, windows, per_window, profile)
+    best = run["best_s"]
+    kind = _device_kind(dev)
+    out = {
+        "platform": dev.type, "device_kind": kind, "n_chips": n_dev,
+        "batch_per_chip": batch // n_dev,
+        "step_time_ms": best * 1e3, "compile_s": run["first_s"],
+        "img_per_sec": batch / best,
+        "img_per_sec_per_chip": batch / best / n_dev,
+        "flops_per_step": run["flops"], "flops_source": FLOPS_SOURCE,
+        "ms_by_window": run["ms_by_window"],
+        "steps_timed": run["steps_timed"], "launches": run["launches"],
+        "losses": run["metrics"]["loss"],
+    }
+    if dev.type == "cuda":
+        out["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated(
+            dev)
+    peak = _peak_flops(kind)
+    if peak:
+        out["mfu"] = run["flops"] / best / peak
+        out["peak_bf16_flops_per_chip"] = peak
+    if "profile" in run:
+        out["profile"] = run["profile"]
+    return out
+
+
+def gpt2_loop(device="cuda", profile=None) -> dict:
+    """GPT-2 small train-step throughput, ``bench.py:gpt2_loop``'s keys.
+
+    On ``cuda``: GPT-2 small (flash attention, bf16), batch 16 x 1024,
+    2 warm-up steps, best of 6 windows of 5 steps. On ``cpu``: a tiny
+    GPT-2 (2 layers, 64 wide, plain attention, f32), batch 2 x 32, 1
+    warm-up step, 1 window of 2. Seeded tokens, repeated. ``profile``:
+    see ``_timed_run``."""
+    from ray_tpu_torch.models.gpt2 import GPT2Config
+    from ray_tpu_torch.train.spmd import make_causal_lm_trainer, put_batch
+
+    dev = resolve_device(device)
+    n_dev = 1
+    if dev.type == "cuda":
+        cfg = GPT2Config(vocab_size=50257, n_positions=1024, n_embd=768,
+                         n_layer=12, n_head=12, attention_backend="flash",
+                         dtype=torch.bfloat16)
+        batch, seq = 16 * n_dev, 1024
+        windows, per_window, warmup = 6, 5, 2
+    else:
+        cfg = GPT2Config(vocab_size=256, n_positions=64, n_embd=64,
+                         n_layer=2, n_head=4, attention_backend="reference",
+                         dtype=torch.float32)
+        batch, seq = 2 * n_dev, 32
+        windows, per_window, warmup = 1, 2, 1
+
+    trainer = make_causal_lm_trainer(cfg, device=dev)
+    state = trainer.init(0)
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, seq), dtype=np.int32)
+    resident = put_batch(trainer, {"input_ids": tokens, "labels": tokens})
+
+    def step():
+        return trainer.step(state, resident)[1]
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    run = _timed_run(step, warmup, windows, per_window, profile)
+    best = run["best_s"]
+    out = {
+        "gpt2_batch_per_chip": batch // n_dev, "gpt2_seq_len": seq,
+        "gpt2_step_time_ms": best * 1e3, "gpt2_compile_s": run["first_s"],
+        "gpt2_tokens_per_sec_per_chip": batch * seq / best / n_dev,
+        "gpt2_flops_per_step": run["flops"],
+        "gpt2_ms_by_window": run["ms_by_window"],
+        "gpt2_steps_timed": run["steps_timed"],
+        "gpt2_launches": run["launches"],
+        "gpt2_losses": run["metrics"]["loss"],
+        "gpt2_grad_norms": run["metrics"]["grad_norm"],
+    }
+    if dev.type == "cuda":
+        out["gpt2_max_memory_allocated_bytes"] = (
+            torch.cuda.max_memory_allocated(dev))
+    peak = _peak_flops(_device_kind(dev))
+    if peak:
+        out["gpt2_mfu"] = run["flops"] / best / peak
+    if "profile" in run:
+        out["gpt2_profile"] = run["profile"]
+    return out
+
+
+def main(device="cuda"):
+    res = resnet_loop(device)
+    res.update(gpt2_loop(device))
+    line = {"metric": METRIC, "value": res["img_per_sec_per_chip"],
+            "unit": UNIT, **res}
+    print(json.dumps(line), flush=True)
+    return line
+
+
+if __name__ == "__main__":
+    main()

@@ -245,14 +245,17 @@ def test_entry_shapes_on_cpu():
     assert out.dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("what", ["trainer", "entry"])
+@pytest.mark.parametrize("what", ["trainer", "entry", "image_trainer"])
 def test_default_device_is_cuda(what):
     if torch.cuda.is_available():
         pytest.skip("this checks the refusal on a machine without CUDA")
     from ray_tpu_torch.entry import entry
+    from ray_tpu_torch.models.resnet import create_resnet
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         if what == "trainer":
             TS.make_causal_lm_trainer(TG.GPT2Config.tiny())
+        elif what == "image_trainer":
+            TS.make_image_classifier_trainer(create_resnet("resnet18", 10))
         else:
             entry()
 
