@@ -83,8 +83,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
               img/s, FLOPs and their source, mfu), peak memory and the
               card; (c) one profiled step by kernel group
               (RESNET_PROFILE_GROUPS) and its idle share.
-12. summary — nvidia-smi's card line, the kernels line, then the
-              device line, last.
+12. mesh    — a NCCL process group of one rank, formed in this process
+              (file store): the mesh route of both trainers (a torch
+              DeviceMesh over the group; params and grads through the
+              collectives; ResNet's batch norm over the global batch).
+              (c) first: a narrow f32 step of each trainer (GPT-2 at
+              full width, 2 layers, 4 x 1024; the narrow ResNet of
+              phase 11a) on the route without a group, then on the mesh
+              route: GPT-2's loss and grad_norm within MESH_REL
+              relative and its params within 1e-6 where the step's
+              |grad| passes PARAM_MASK; the ResNet by phase 11a's
+              rule (RESNET_LOSS_REL, RESNET_TOL) on logits, params and
+              batch stats. (a) bench.gpt2_loop on the mesh route (GPT-2
+              small, 16 x 1024 bf16): each whole-kv kernel and the delta
+              pass exactly n_layer times a step, collectives counted;
+              step time and tokens/s beside phase 6's; one profiled
+              step. A 2-layer GPT-2 at full width, 2 x 4096,
+              exact=True: one step launches each streaming kernel and
+              the delta pass once per layer, no whole-kv kernel. (b) bench.resnet_loop on the mesh route
+              (ResNet-50, 256 x 224 x 224 bf16): one batch-norm
+              all_gather per norm layer a step (the global statistics),
+              no kernel of the port; step time and img/s beside phase
+              11's; one profiled step by RESNET_PROFILE_GROUPS. The group
+              is destroyed at the end.
+13. summary — nvidia-smi's card line, the kernels line (each kernel's
+              launches by the path that counted them: phases 4, 6, 8
+              and 12), then the device line, last.
 
 Exits non-zero without printing a result when CUDA is absent or when
 the repository's package is not beside this script.
@@ -95,6 +119,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -151,6 +176,9 @@ F32_TOL = 1e-5
 BF16_RATIO = (3.0, 1.25)
 BF16_STEP_REL = 5e-4
 PARAM_MASK = 1e-6
+# phase 12c: GPT-2's f32 step on the mesh route (world size 1) against
+# the route without a group: loss and grad_norm within MESH_REL relative
+MESH_REL = 1e-6
 
 
 def require(cond: bool, msg: str):
@@ -701,25 +729,66 @@ def llama_parity(cfg, ids):
         "seq": int(ids.shape[1])})
 
 
-def resnet_parity() -> dict:
+NARROW_RESNET = dict(stage_sizes=[1, 1, 1, 1], num_classes=10,
+                     num_filters=8)
+
+
+def resnet_narrow_step(dev) -> dict:
     """One trainer step of a narrow ResNet (bottleneck blocks, one per
     stage, 8 filters, 10 classes, f32) on a batch of 4 seeded 32 x 32
-    images, on the card and on the CPU from the same seeded params (TF32
-    off, as phase 1 sets): the loss within RESNET_LOSS_REL relative; the
-    step's logits, and the params and batch stats after it, within
-    RESNET_TOL of each tensor's scale. Every conv and max-pool input on
-    the card is channels_last (no hidden layout copy). Returns the
-    measured gaps; fails outside the tolerances."""
+    images from the seeded init, on ``dev`` (the route the process
+    group picks): the loss, the step's logits and the state_dict after
+    it."""
     import torch
-    import torch.nn.functional as F
     from ray_tpu_torch.models import resnet
     from ray_tpu_torch.train import spmd
-    model = resnet.ResNet(stage_sizes=[1, 1, 1, 1],
-                          block_cls=resnet.BottleneckResNetBlock,
-                          num_classes=10, num_filters=8, dtype=torch.float32)
+    model = resnet.ResNet(block_cls=resnet.BottleneckResNetBlock,
+                          dtype=torch.float32, **NARROW_RESNET)
     rng = np.random.default_rng(SEED)
     batch = {"image": rng.standard_normal((4, 32, 32, 3), dtype=np.float32),
              "label": rng.integers(0, 10, (4,), dtype=np.int32)}
+    tr = spmd.make_image_classifier_trainer(
+        model, input_shape=(1, 32, 32, 3), device=dev)
+    st = tr.init(SEED)
+    logits = []
+    st["model"].register_forward_hook(
+        lambda mod, args, out: logits.append(out.detach()))
+    st, m = tr.step(st, spmd.put_batch(tr, batch))
+    return {"loss": float(m["loss"]), "logits": logits[0],
+            **st["model"].state_dict()}
+
+
+def resnet_gaps(got, want) -> dict:
+    """phase 11a's measure of one narrow ResNet step against another:
+    the loss's relative gap; each tensor's max gap over (1 + its max
+    |want|); the worst tensor."""
+    gaps = {k: float((got[k].cpu() - v.cpu()).abs().max()) / (
+        1 + float(v.abs().max())) for k, v in want.items() if k != "loss"}
+    worst = max(gaps, key=gaps.get)
+    return {"loss_rel": abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+            "logits": gaps["logits"], "worst_tensor": worst,
+            "worst": gaps[worst],
+            "tol": {"loss_rel": RESNET_LOSS_REL, "tensors": RESNET_TOL}}
+
+
+def hold_resnet(tag, gaps):
+    require(gaps["loss_rel"] <= RESNET_LOSS_REL,
+            f"{tag}: loss off by {gaps['loss_rel']} relative")
+    require(gaps["worst"] <= RESNET_TOL,
+            f"{tag}: {gaps['worst_tensor']} off by {gaps['worst']} of its "
+            "scale")
+
+
+def resnet_parity() -> dict:
+    """The narrow ResNet step (``resnet_narrow_step``) on the card and
+    on the CPU from the same seeded params (TF32 off, as phase 1 sets):
+    the loss within RESNET_LOSS_REL relative; the step's logits, and the
+    params and batch stats after it, within RESNET_TOL of each tensor's
+    scale. Every conv and max-pool input on the card is channels_last
+    (no hidden layout copy). Returns the measured gaps; fails outside
+    the tolerances."""
+    import torch
+    import torch.nn.functional as F
     layouts = []
     conv2d, max_pool2d = F.conv2d, F.max_pool2d
 
@@ -731,41 +800,178 @@ def resnet_parity() -> dict:
             return fn(x, *args, **kwargs)
         return wrapped
 
-    runs = {}
     F.conv2d, F.max_pool2d = spy(conv2d), spy(max_pool2d)
     try:
-        for dev in ("cpu", "cuda"):
-            tr = spmd.make_image_classifier_trainer(
-                model, input_shape=(1, 32, 32, 3), device=dev)
-            st = tr.init(SEED)
-            logits = []
-            st["model"].register_forward_hook(
-                lambda mod, args, out: logits.append(out.detach()))
-            st, m = tr.step(st, spmd.put_batch(tr, batch))
-            runs[dev] = {"loss": float(m["loss"]), "logits": logits[0],
-                         **st["model"].state_dict()}
+        cpu, card = resnet_narrow_step("cpu"), resnet_narrow_step("cuda")
     finally:
         F.conv2d, F.max_pool2d = conv2d, max_pool2d
-    cpu, card = runs["cpu"], runs["cuda"]
-    loss_rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
-    gaps = {k: float((card[k].cpu() - v).abs().max()) / (
-        1 + float(v.abs().max())) for k, v in cpu.items() if k != "loss"}
-    worst = max(gaps, key=gaps.get)
     res = {"loss_cpu": cpu["loss"], "loss_cuda": card["loss"],
-           "loss_rel": loss_rel, "logits": gaps["logits"],
-           "worst_tensor": worst, "worst": gaps[worst],
+           **resnet_gaps(card, cpu),
            "conv_pool_inputs": len(layouts),
-           "channels_last": sum(layouts),
-           "tol": {"loss_rel": RESNET_LOSS_REL, "tensors": RESNET_TOL}}
+           "channels_last": sum(layouts)}
     print("resnet_parity", json.dumps(res), flush=True)
     require(layouts and all(layouts),
             f"resnet: {len(layouts) - sum(layouts)} of {len(layouts)} conv "
             "or pool inputs on the card are not channels_last")
-    require(loss_rel <= RESNET_LOSS_REL,
-            f"resnet: card loss {card['loss']} vs cpu {cpu['loss']}")
-    require(gaps[worst] <= RESNET_TOL,
-            f"resnet: {worst} off by {gaps[worst]} of its scale")
+    hold_resnet("resnet", res)
     return res
+
+
+def hold_mesh_step(tag, mesh, plain):
+    """phase 12c for GPT-2: ``one_step`` on the mesh route against the
+    same step without a group (f32, kernels on both): loss and
+    grad_norm within MESH_REL relative, params within 1e-6 where the
+    step's |grad| passes PARAM_MASK (hold_step's rule: AdamW's first
+    step turns the last bits of a grad near eps into up to lr); the
+    share left out is printed."""
+    rel = {k: abs(mesh[k] - plain[k]) / abs(plain[k])
+           for k in ("loss", "grad_norm")}
+    held = {n: g.abs() > PARAM_MASK for n, g in plain["grads"].items()}
+    diff = {n: (mesh["params"][n] - p).abs()
+            for n, p in plain["params"].items()}
+    p_err = max(float(d[held[n]].max()) if held[n].any() else 0.0
+                for n, d in diff.items())
+    n_held = sum(int(m.sum()) for m in held.values())
+    n_all = sum(m.numel() for m in held.values())
+    res = {**rel, "params_max_abs_err": p_err,
+           "params_left_out_share": 1 - n_held / n_all,
+           "launches": {"mesh": mesh["launches"], "plain": plain["launches"]},
+           "tol": {"loss": MESH_REL, "grad_norm": MESH_REL,
+                   "params_max_abs_err": 1e-6}}
+    print(tag, json.dumps(res), flush=True)
+    require(rel["loss"] <= MESH_REL and rel["grad_norm"] <= MESH_REL,
+            f"{tag}: loss / grad_norm off by {rel}")
+    require(p_err <= 1e-6, f"{tag}: params off by {p_err}")
+    require(mesh["launches"] == plain["launches"],
+            f"{tag}: the routes launched {res['launches']}")
+    return res
+
+
+def mesh_phase(cfg, tokens, phase6, phase11, name, card):
+    """Phase 12 (module docstring): (c) the narrow steps without a
+    group, the group, (c) again on the mesh route, (a) GPT-2 small and
+    the exact=True line, (b) ResNet-50; the group is destroyed however
+    the phase ends. Returns the kernels' launch counts of (a)'s timed
+    steps ("gpt2_train") and of the exact step ("gpt2_exact")."""
+    import tempfile
+    import shutil
+    import torch
+    import torch.distributed as dist
+    from ray_tpu_torch import bench, kernels
+    from ray_tpu_torch.ops import attention as A
+    from ray_tpu_torch.parallel import collectives
+    from ray_tpu_torch.train import spmd
+
+    narrow = dataclasses.replace(cfg, n_layer=2, dtype=torch.float32)
+    plain = {"gpt2": one_step(narrow, A.TRAINING_KERNELS, tokens),
+             "resnet": resnet_narrow_step("cuda")}
+    store = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    collectives.initialize_distributed(
+        "file://" + os.path.join(store, "store"), 1, 0,
+        local_device_ids=[0], backend="nccl")
+    try:
+        # (c) the mesh route against the route without a group
+        collectives.reset_call_counts()
+        mesh_gpt2 = one_step(narrow, A.TRAINING_KERNELS, tokens)
+        require(collectives.call_counts().get("all_reduce", 0) > 0,
+                "the mesh route's GPT-2 step ran no collective")
+        hold_mesh_step("mesh_gpt2_numerics", mesh_gpt2, plain["gpt2"])
+        del mesh_gpt2, plain["gpt2"]
+        collectives.reset_call_counts()
+        mesh_resnet = resnet_narrow_step("cuda")
+        n_bn = 1 + 4 * 3 + 4        # the narrow net's batch norms
+        bn_calls = collectives.call_counts().get("all_gather", 0)
+        gaps = resnet_gaps(mesh_resnet, plain["resnet"])
+        print("mesh_resnet_numerics", json.dumps(
+            {**gaps, "bn_all_gathers": bn_calls}), flush=True)
+        require(bn_calls == n_bn, f"mesh resnet step: {bn_calls} batch-norm "
+                 f"all_gathers, want {n_bn}")
+        hold_resnet("mesh_resnet_numerics", gaps)
+        del mesh_resnet, plain
+
+        # (a) GPT-2 small through the bench on the mesh route
+        g = bench.gpt2_loop(profile=profile_step)
+        counts, n_steps = g["gpt2_launches"], g["gpt2_steps_timed"]
+        require(all(math.isfinite(x) for x in g["gpt2_losses"]),
+                f"mesh gpt2: non-finite loss {g['gpt2_losses']}")
+        want = {k: cfg.n_layer * n_steps for k in
+                ("whole_attention_forward", "whole_attention_backward",
+                 "attention_delta")}
+        require(counts == want, f"mesh gpt2: launched {counts}, want {want}")
+        out = {"gpt2_train": counts}
+        calls = g["gpt2_collective_calls"]
+        require(calls.get("all_reduce", 0) > 0,
+                f"mesh gpt2: collectives {calls}")
+        print("mesh_train", json.dumps({
+            "model": "gpt2-small", "world_size": dist.get_world_size(),
+            "backend": dist.get_backend(),
+            "step_time_ms": g["gpt2_step_time_ms"],
+            "tokens_per_sec": g["gpt2_tokens_per_sec_per_chip"],
+            "phase6_step_time_ms": phase6["gpt2_step_time_ms"],
+            "phase6_tokens_per_sec": phase6["gpt2_tokens_per_sec_per_chip"],
+            "ms_by_window": g["gpt2_ms_by_window"],
+            "launches": counts, "steps_timed": n_steps,
+            "collective_calls": calls,
+            "max_memory_allocated_bytes":
+                g["gpt2_max_memory_allocated_bytes"],
+            "losses": g["gpt2_losses"], "device": name,
+            "nvidia_smi": card}), flush=True)
+        print("mesh_train_profile", json.dumps(g["gpt2_profile"]),
+              flush=True)
+        del g
+        torch.cuda.empty_cache()
+
+        # the streaming route of GPT-2 training: exact=True at 2 x 4096
+        xcfg = dataclasses.replace(cfg, n_layer=2, n_positions=4096)
+        tr = spmd.make_causal_lm_trainer(xcfg, exact=True)
+        st = tr.init(SEED)
+        ids = np.random.default_rng(SEED).integers(
+            0, xcfg.vocab_size, (2, 4096), dtype=np.int32)
+        batch = spmd.put_batch(tr, {"input_ids": ids, "labels": ids})
+        kernels.reset_launch_counts()
+        st, m = tr.step(st, batch)
+        loss = float(m["loss"])
+        counts = kernels.launch_counts()
+        want = {k: xcfg.n_layer for k in
+                ("flash_attention_forward", "flash_attention_backward_dkv",
+                 "flash_attention_backward_dq", "attention_delta")}
+        print("mesh_exact", json.dumps({"n_layer": xcfg.n_layer, "batch": 2,
+                                        "seq": 4096, "loss": loss,
+                                        "launches": counts}), flush=True)
+        require(math.isfinite(loss), f"exact step: loss {loss}")
+        require(counts == want, f"exact step launched {counts}, want {want}")
+        out["gpt2_exact"] = counts
+        del tr, st, batch
+        torch.cuda.empty_cache()
+
+        # (b) ResNet-50 through the bench on the mesh route
+        r = bench.resnet_loop(profile=lambda step: profile_step(
+            step, RESNET_PROFILE_GROUPS))
+        require(all(math.isfinite(x) for x in r["losses"]),
+                f"mesh resnet: non-finite loss {r['losses']}")
+        require(r["launches"] == {}, f"mesh resnet launched {r['launches']}")
+        n_bn = 1 + 16 * 3 + 4       # ResNet-50's batch norms
+        gathers = r["collective_calls"].get("all_gather", 0)
+        require(gathers == n_bn * r["steps_timed"],
+                f"mesh resnet: {gathers} all_gathers in {r['steps_timed']} "
+                f"steps of {n_bn} batch norms")
+        print("mesh_resnet_train", json.dumps({
+            "model": "resnet50", "world_size": dist.get_world_size(),
+            "backend": dist.get_backend(),
+            "step_time_ms": r["step_time_ms"],
+            "img_per_sec": r["img_per_sec"],
+            "phase11_step_time_ms": phase11["step_time_ms"],
+            "phase11_img_per_sec": phase11["img_per_sec"],
+            "ms_by_window": r["ms_by_window"],
+            "collective_calls": r["collective_calls"],
+            "steps_timed": r["steps_timed"],
+            "max_memory_allocated_bytes": r["max_memory_allocated_bytes"],
+            "device": name, "nvidia_smi": card}), flush=True)
+        print("mesh_resnet_profile", json.dumps(r["profile"]), flush=True)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    return out
 
 
 def ragged(rng, B, lo, hi):
@@ -1133,33 +1339,49 @@ def main() -> int:
                                       "device": name, "nvidia_smi": card}),
           flush=True)
     print("resnet_profile", json.dumps(profile), flush=True)
+    phase11 = {k: r[k] for k in ("step_time_ms", "img_per_sec")}
     del r
     torch.cuda.empty_cache()
 
-    # 12. summary
-    def kernel_entry(case, kname, source, line, launches):
+    # 12. mesh: the same trainers on a NCCL process group of one rank
+    mesh_counts = mesh_phase(cfg, tokens, g, phase11, name, card)
+    torch.cuda.empty_cache()
+
+    # 13. summary
+    def kernel_entry(case, kname, source, line, by_path):
+        """``by_path``: {path: launches of ``kname`` in its counted
+        run}; ``launches`` is their sum."""
         return {"name": kname, "route": "cuda",
                 "source": f"ray_tpu_torch/kernels/csrc/{source}",
                 "replaces": f"ray_tpu/ops/attention.py:{line}",
-                "launches": launches, "case": case.get("case"),
+                "launches": sum(by_path.values()),
+                "launches_by_path": by_path, "case": case.get("case"),
                 "max_abs_err": case["max_abs_err"], "ms": case["ms"],
                 "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
                 "bound_by": case["bound_by"],
                 "library_ms": case["library_ms"],
                 "library_covers": case.get("library_covers", [])}
 
+    def by_path(kname, *paths):
+        return {path: counts[kname] for path, counts in paths
+                if kname in counts}
+
+    gpt2_paths = (("gpt2_train", train_counts),
+                  ("mesh_gpt2_train", mesh_counts["gpt2_train"]))
+    streaming_paths = (("llama_train", llama_counts),
+                       ("mesh_gpt2_exact", mesh_counts["gpt2_exact"]))
     main_whole = whole["a: train shape", "bfloat16"]
     main_flash = flash["a: llama train shape", "bfloat16"]
     summary = {"kernels": [
         kernel_entry({**main_case, "library_ms": None},
                      "paged_attention_decode", "paged_decode.cu", 803,
-                     launches),
+                     {"serve": launches}),
         *(kernel_entry(main_whole[kname], kname, "whole_attention.cu", line,
-                       train_counts[kname])
+                       by_path(kname, *gpt2_paths))
           for kname, line in (("whole_attention_forward", 86),
                               ("whole_attention_backward", 110))),
         *(kernel_entry(main_flash[kname], kname, "flash_attention.cu", line,
-                       llama_counts[kname])
+                       by_path(kname, *streaming_paths))
           for kname, line in zip(streaming_names, (303, 410, 469))),
         # the delta pass of both backwards: in the JAX package a jnp.sum
         # in _whole_backward (:262) and _flash_backward (:528) that XLA
@@ -1167,11 +1389,8 @@ def main() -> int:
         # launched by both training paths
         {**kernel_entry(main_whole["attention_delta"], "attention_delta",
                         "attention_delta.cu", 262,
-                        train_counts["attention_delta"]
-                        + llama_counts["attention_delta"]),
-         "launches_by_path": {
-             "gpt2_train": train_counts["attention_delta"],
-             "llama_train": llama_counts["attention_delta"]},
+                        by_path("attention_delta", *gpt2_paths,
+                                *streaming_paths)),
          "replaces_note": "jnp.sum in _whole_backward (:262) and "
                           "_flash_backward (:528): XLA, no Pallas kernel"}]}
     print(card)                  # nvidia-smi's name, power.limit line

@@ -5,17 +5,21 @@ the same system with PyTorch on an NVIDIA H100, with every TPU kernel
 on a ported path rewritten by hand for Hopper (``kernels/csrc``). It
 imports nothing of ``ray_tpu`` and nothing of JAX.
 
-Ported so far, each on one device:
+Ported so far:
 
   - LLM serving of GPT-2 (``serve.llm``), with single-token decode
     attention in a CUDA kernel;
   - GPT-2 training (``train.spmd.make_causal_lm_trainer``) through the
-    whole-kv attention kernels;
+    whole-kv attention kernels (the streaming ones with ``exact=True``);
   - Llama training at 4,096 tokens (``models.llama``) through the
     streaming attention kernels;
   - ResNet image-classifier training (``models.resnet``,
     ``train.spmd.make_image_classifier_trainer``; cuDNN convolutions)
-    and its throughput bench (``python -m ray_tpu_torch.bench``).
+    and its throughput bench (``python -m ray_tpu_torch.bench``);
+  - the mesh (``parallel.mesh``, ``parallel.collectives``): both
+    trainers on dp x fsdp x tp over a process group (NCCL on the card,
+    gloo on the CPU), and the multi-rank dry run
+    (``parallel.dryrun``).
 
 ROADMAP.md lists the slices to come.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

@@ -2,6 +2,7 @@
 the JAX package's headline bench (``bench.py:bench_loop``, ``gpt2_loop``).
 
     python -m ray_tpu_torch.bench      # on cuda; prints one JSON line
+    torchrun --nproc_per_node=N -m ray_tpu_torch.bench   # N cards, dp=N
 
 ``resnet_loop``: ResNet-50 at its published widths (1,000 classes, bf16
 compute, f32 params), batch 256 at 224 x 224, SGD-Nesterov through
@@ -12,6 +13,12 @@ steps closed by a host read of the loss, and reports the best window.
 The framework path of the JAX bench (``DataParallelTrainer``, the
 session, the Dataset feed) needs the runtime, which the port does not
 have yet (ROADMAP.md Queue A, A1 and A6).
+
+The number of chips is the process group's world size where one exists
+(the JAX bench's ``jax.device_count()``), else 1: the trainers run on
+``MeshSpec(dp=n)`` with the per-chip batch fixed, so the global batch
+grows with n. Under torchrun ``main`` forms the group (NCCL, one card
+per rank) and rank 0 prints the line.
 
 FLOPs per step come from ``torch.utils.flop_counter.FlopCounterMode``
 over one step (convolutions and matrix products, forward and backward;
@@ -24,6 +31,7 @@ from __future__ import annotations
 
 import itertools
 import json
+import os
 import time
 
 import numpy as np
@@ -31,6 +39,7 @@ import torch
 
 from ray_tpu_torch import kernels
 from ray_tpu_torch.device import resolve_device
+from ray_tpu_torch.parallel import collectives
 
 METRIC = "resnet50_images_per_sec_per_chip"
 UNIT = "images/s/chip"
@@ -55,6 +64,13 @@ def _device_kind(dev: torch.device) -> str:
     return "cpu"
 
 
+def _n_chips() -> int:
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
 def _timed_run(step, warmup: int, windows: int, per_window: int,
                profile=None) -> dict:
     """``step()`` -> metrics dict of scalar tensors. Runs: one step
@@ -62,7 +78,8 @@ def _timed_run(step, warmup: int, windows: int, per_window: int,
     and the libraries' first calls fall there), one under FlopCounterMode,
     ``warmup`` steps, then ``windows`` windows of ``per_window`` steps,
     each closed by a host read of the loss, with the kernels' launch
-    counts zeroed before the windows and read after them. ``profile``:
+    counts and the collectives' call counts zeroed before the windows
+    and read after them. ``profile``:
     a function called with ``step`` after the windows; its result is
     kept under ``profile``."""
     from torch.utils.flop_counter import FlopCounterMode
@@ -79,6 +96,7 @@ def _timed_run(step, warmup: int, windows: int, per_window: int,
         history.append(step())
     float(history[-1]["loss"])
     kernels.reset_launch_counts()
+    collectives.reset_call_counts()
     window_s = []
     for _ in range(windows):
         t0 = time.perf_counter()
@@ -89,6 +107,7 @@ def _timed_run(step, warmup: int, windows: int, per_window: int,
     out = {"first_s": first_s, "flops": flops, "best_s": min(window_s),
            "ms_by_window": [s * 1e3 for s in window_s],
            "launches": kernels.launch_counts(),
+           "collective_calls": collectives.call_counts(),
            "steps_timed": windows * per_window,
            "metrics": {k: [float(m[k]) for m in history]
                        for k in history[0]}}
@@ -114,7 +133,7 @@ def resnet_loop(device="cuda", make_feed=None, profile=None) -> dict:
                                           put_batch)
 
     dev = resolve_device(device)
-    n_dev = 1
+    n_dev = _n_chips()
     if dev.type == "cuda":
         batch, image_size, dtype = 256 * n_dev, 224, torch.bfloat16
         windows, per_window, warmup = 8, 10, 3
@@ -157,6 +176,7 @@ def resnet_loop(device="cuda", make_feed=None, profile=None) -> dict:
         "flops_per_step": run["flops"], "flops_source": FLOPS_SOURCE,
         "ms_by_window": run["ms_by_window"],
         "steps_timed": run["steps_timed"], "launches": run["launches"],
+        "collective_calls": run["collective_calls"],
         "losses": run["metrics"]["loss"],
     }
     if dev.type == "cuda":
@@ -180,10 +200,11 @@ def gpt2_loop(device="cuda", profile=None) -> dict:
     warm-up step, 1 window of 2. Seeded tokens, repeated. ``profile``:
     see ``_timed_run``."""
     from ray_tpu_torch.models.gpt2 import GPT2Config
+    from ray_tpu_torch.parallel.mesh import MeshSpec
     from ray_tpu_torch.train.spmd import make_causal_lm_trainer, put_batch
 
     dev = resolve_device(device)
-    n_dev = 1
+    n_dev = _n_chips()
     if dev.type == "cuda":
         cfg = GPT2Config(vocab_size=50257, n_positions=1024, n_embd=768,
                          n_layer=12, n_head=12, attention_backend="flash",
@@ -197,7 +218,8 @@ def gpt2_loop(device="cuda", profile=None) -> dict:
         batch, seq = 2 * n_dev, 32
         windows, per_window, warmup = 1, 2, 1
 
-    trainer = make_causal_lm_trainer(cfg, device=dev)
+    trainer = make_causal_lm_trainer(cfg, spec=MeshSpec(dp=n_dev),
+                                     device=dev)
     state = trainer.init(0)
     tokens = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (batch, seq), dtype=np.int32)
@@ -211,6 +233,7 @@ def gpt2_loop(device="cuda", profile=None) -> dict:
     run = _timed_run(step, warmup, windows, per_window, profile)
     best = run["best_s"]
     out = {
+        "gpt2_n_chips": n_dev,
         "gpt2_batch_per_chip": batch // n_dev, "gpt2_seq_len": seq,
         "gpt2_step_time_ms": best * 1e3, "gpt2_compile_s": run["first_s"],
         "gpt2_tokens_per_sec_per_chip": batch * seq / best / n_dev,
@@ -218,6 +241,7 @@ def gpt2_loop(device="cuda", profile=None) -> dict:
         "gpt2_ms_by_window": run["ms_by_window"],
         "gpt2_steps_timed": run["steps_timed"],
         "gpt2_launches": run["launches"],
+        "gpt2_collective_calls": run["collective_calls"],
         "gpt2_losses": run["metrics"]["loss"],
         "gpt2_grad_norms": run["metrics"]["grad_norm"],
     }
@@ -233,11 +257,21 @@ def gpt2_loop(device="cuda", profile=None) -> dict:
 
 
 def main(device="cuda"):
+    """Both loops and one JSON line. Under torchrun (``WORLD_SIZE`` in
+    the environment) the process group is formed here first, NCCL with
+    card ``LOCAL_RANK``, and only rank 0 prints."""
+    import torch.distributed as dist
+    if "WORLD_SIZE" in os.environ and not dist.is_initialized():
+        collectives.initialize_distributed(
+            local_device_ids=[int(os.environ.get("LOCAL_RANK", 0))])
     res = resnet_loop(device)
     res.update(gpt2_loop(device))
     line = {"metric": METRIC, "value": res["img_per_sec_per_chip"],
             "unit": UNIT, **res}
-    print(json.dumps(line), flush=True)
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print(json.dumps(line), flush=True)
+    if dist.is_initialized():
+        dist.destroy_process_group()
     return line
 
 

@@ -19,10 +19,18 @@ Counterpart of ``ray_tpu/models/gpt2.py`` with the same numerics:
     rng).
 
 ``attention_backend="flash"`` runs ``ops.attention.flash_attention``
-(the whole-kv CUDA kernels at GPT-2's shapes), ``"reference"`` the
-plain attention. With ``kv_cache`` the forward is one incremental step
-over a contiguous cache (``init_kv_cache``) or one layer of a paged
-pool (the serve engine).
+(the whole-kv CUDA kernels at GPT-2's shapes; the streaming ones with
+``exact=True``), ``"reference"`` the plain attention. With ``kv_cache``
+the forward is one incremental step over a contiguous cache
+(``init_kv_cache``) or one layer of a paged pool (the serve engine).
+
+On a mesh with tp > 1 (``GPT2.set_mesh``) each tp rank computes its
+own heads of the attention, its own columns of the MLP and a partial
+sum of the tied head over its share of ``n_embd``; the embeddings and
+the LayerNorms run whole on every rank. Every param is used whole (the
+trainer gathers it), and each slice one rank works on passes through
+``collectives.psum_backward``, so that after the backward every rank
+holds the whole gradient of every param for its batch rows.
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ from ray_tpu_torch.ops.attention import (TRAINING_KERNELS, TrainingAttention,
                                          attention_reference,
                                          cached_attention, flash_attention,
                                          paged_attention_decode)
+from ray_tpu_torch.parallel import collectives as C
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,9 +91,14 @@ class Dense(nn.Linear):
         self.compute_dtype = dtype
 
     def forward(self, x):
-        dt = self.compute_dtype
-        bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), bias)
+        return dense(x, self.weight, self.bias, self.compute_dtype)
+
+
+def dense(x, weight, bias, dtype):
+    """``Dense.forward`` on given params (a tp rank's slices of them):
+    x, weight and bias cast to ``dtype``; ``bias`` may be None."""
+    return F.linear(x.to(dtype), weight.to(dtype),
+                    None if bias is None else bias.to(dtype))
 
 
 class Embed(nn.Embedding):
@@ -129,6 +143,8 @@ class CausalSelfAttention(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.impl = impl
+        self.exact = False
+        self.tp_mesh = None
         self.c_attn = Dense(cfg.n_embd, 3 * cfg.n_embd, cfg.dtype)
         self.c_proj = Dense(cfg.n_embd, cfg.n_embd, cfg.dtype)
 
@@ -137,8 +153,9 @@ class CausalSelfAttention(nn.Module):
         cfg = self.cfg
         B, S, E = x.shape
         H = cfg.n_head
-        q, k, v = self.c_attn(x).split(E, dim=-1)
         if kv_cache is not None:
+            q, k, v = self.c_attn(x).split(E, dim=-1)
+
             def tok(t):  # [B,S,E] -> [B,S,H,D]
                 return t.reshape(B, S, H, E // H)
             y, kv_cache = cached_attention(
@@ -146,33 +163,84 @@ class CausalSelfAttention(nn.Module):
                 paged_decode=paged_decode)
             y = self.c_proj(y.reshape(B, S, E))
             return dropout(y, cfg.dropout, generator), kv_cache
+        if self.tp_mesh is not None:
+            return dropout(self._forward_tp(x), cfg.dropout, generator)
+        q, k, v = self.c_attn(x).split(E, dim=-1)
+        y = self._attend(q, k, v, H)
+        return dropout(self.c_proj(y), cfg.dropout, generator)
 
-        def heads(t):  # [B,S,E] -> [B,H,S,D]
-            return t.reshape(B, S, H, E // H).transpose(1, 2)
-        if cfg.attention_backend == "flash":
+    def _attend(self, q, k, v, H):
+        """[B,S,H*D] q, k, v of ``H`` heads -> [B,S,H*D]."""
+        B, S, HD = q.shape
+
+        def heads(t):  # [B,S,H*D] -> [B,H,S,D]
+            return t.reshape(B, S, H, HD // H).transpose(1, 2)
+        backend = self.cfg.attention_backend
+        if backend == "flash":
             y = flash_attention(heads(q), heads(k), heads(v), causal=True,
-                                impl=self.impl)
-        elif cfg.attention_backend == "reference":
+                                exact=self.exact, impl=self.impl)
+        elif backend == "reference":
             y = attention_reference(heads(q), heads(k), heads(v),
                                     causal=True)
         else:
             raise NotImplementedError(
-                f"attention_backend={cfg.attention_backend!r} is not ported "
+                f"attention_backend={backend!r} is not ported "
                 "(ring attention: ROADMAP.md Queue A item 8)")
-        y = y.transpose(1, 2).reshape(B, S, E)
-        return dropout(self.c_proj(y), cfg.dropout, generator)
+        return y.transpose(1, 2).reshape(B, S, HD)
+
+    def _forward_tp(self, x):
+        """Tensor-parallel attention: this tp rank's n_head / tp heads.
+        ``c_attn``'s output is [q | k | v], each E wide and head-major,
+        so the rank's rows are the same head block of each of the three
+        (not a contiguous third of 3E, which would mix q with k); its
+        part of ``c_proj`` is the matching block of input columns, and
+        the partial outputs are summed over tp."""
+        mesh, dt = self.tp_mesh, self.cfg.dtype
+        E = x.shape[-1]
+        H = self.cfg.n_head
+        n, r = mesh.size("tp"), mesh.index("tp")
+        Hl = H // n
+        w = C.psum_backward(self.c_attn.weight, "tp", mesh)
+        b = C.psum_backward(self.c_attn.bias, "tp", mesh)
+        block = slice(r * Hl, (r + 1) * Hl)
+        w = w.view(3, H, E // H, E)[:, block].reshape(3 * E // n, E)
+        b = b.view(3, H, E // H)[:, block].reshape(3 * E // n)
+        q, k, v = dense(C.psum_backward(x, "tp", mesh), w, b, dt).split(
+            E // n, dim=-1)
+        y = self._attend(q, k, v, Hl)
+        wp = C.psum_backward(self.c_proj.weight, "tp", mesh)
+        part = dense(y, wp[:, r * E // n:(r + 1) * E // n], None, dt)
+        return C.psum_forward(part, "tp", mesh) + self.c_proj.bias.to(dt)
 
 
 class MLP(nn.Module):
     def __init__(self, cfg: GPT2Config):
         super().__init__()
         self.cfg = cfg
+        self.tp_mesh = None
         self.c_fc = Dense(cfg.n_embd, 4 * cfg.n_embd, cfg.dtype)
         self.c_proj = Dense(4 * cfg.n_embd, cfg.n_embd, cfg.dtype)
 
     def forward(self, x, generator=None):
+        if self.tp_mesh is not None:
+            return dropout(self._forward_tp(x), self.cfg.dropout, generator)
         h = F.gelu(self.c_fc(x), approximate="tanh")
         return dropout(self.c_proj(h), self.cfg.dropout, generator)
+
+    def _forward_tp(self, x):
+        """Tensor-parallel MLP: this tp rank's block of the 4E hidden
+        units, the partial outputs summed over tp."""
+        mesh, dt = self.tp_mesh, self.cfg.dtype
+        n, r = mesh.size("tp"), mesh.index("tp")
+        F4 = self.c_fc.out_features
+        cols = slice(r * F4 // n, (r + 1) * F4 // n)
+        w = C.psum_backward(self.c_fc.weight, "tp", mesh)[cols]
+        b = C.psum_backward(self.c_fc.bias, "tp", mesh)[cols]
+        h = F.gelu(dense(C.psum_backward(x, "tp", mesh), w, b, dt),
+                   approximate="tanh")
+        wp = C.psum_backward(self.c_proj.weight, "tp", mesh)[:, cols]
+        return (C.psum_forward(dense(h, wp, None, dt), "tp", mesh)
+                + self.c_proj.bias.to(dt))
 
 
 class Block(nn.Module):
@@ -203,6 +271,7 @@ class GPT2(nn.Module):
                  impl: TrainingAttention = TRAINING_KERNELS):
         super().__init__()
         self.cfg = cfg
+        self.tp_mesh = None
         self.wte = Embed(cfg.vocab_size, cfg.n_embd, cfg.dtype)
         self.wpe = Embed(cfg.n_positions, cfg.n_embd, cfg.dtype)
         for i in range(cfg.n_layer):
@@ -211,6 +280,29 @@ class GPT2(nn.Module):
 
     def blocks(self):
         return [getattr(self, f"h_{i}") for i in range(self.cfg.n_layer)]
+
+    def set_exact(self, exact: bool):
+        """``exact=True`` sends the flash backend's training attention
+        down the streaming path (the exact running-max softmax) whatever
+        the shape."""
+        for blk in self.blocks():
+            blk.attn.exact = exact
+        return self
+
+    def set_mesh(self, mesh):
+        """Split the attention heads, the MLP's hidden units and the tied
+        head's contraction over ``mesh``'s tp axis (nothing at tp = 1).
+        n_head, 4 n_embd and n_embd must divide by tp."""
+        tp = mesh.size("tp")
+        cfg = self.cfg
+        if tp > 1 and (cfg.n_head % tp or cfg.n_embd % tp):
+            raise ValueError(f"tp={tp} must divide n_head={cfg.n_head} and "
+                             f"n_embd={cfg.n_embd}")
+        on = mesh if tp > 1 else None
+        self.tp_mesh = on
+        for blk in self.blocks():
+            blk.attn.tp_mesh = blk.mlp.tp_mesh = on
+        return self
 
     def trunk(self, input_ids, positions=None, kv_cache=None,
               seq_lengths=None, valid=None,
@@ -241,8 +333,18 @@ class GPT2(nn.Module):
         return self.ln_f(x)
 
     def head(self, h):
-        """Weight-tied LM head in ``cfg.dtype`` (flax ``Embed.attend``)."""
-        return self.wte.attend(h)
+        """Weight-tied LM head in ``cfg.dtype`` (flax ``Embed.attend``).
+        Under tp each rank multiplies its block of n_embd and the partial
+        logits are summed over tp."""
+        mesh = self.tp_mesh
+        if mesh is None:
+            return self.wte.attend(h)
+        n, r = mesh.size("tp"), mesh.index("tp")
+        E, dt = self.cfg.n_embd, self.cfg.dtype
+        cols = slice(r * E // n, (r + 1) * E // n)
+        w = C.psum_backward(self.wte.weight, "tp", mesh)[:, cols]
+        part = C.psum_backward(h, "tp", mesh)[..., cols].to(dt) @ w.to(dt).T
+        return C.psum_forward(part, "tp", mesh)
 
     def forward(self, input_ids, positions=None, kv_cache=None,
                 seq_lengths=None, valid=None,
@@ -306,6 +408,14 @@ def causal_lm_loss(logits, labels, ignore_index: int = -100):
     no gradient; ``logits - max`` is taken in the logits' dtype, then
     exp and the sum run in f32; the gathered logit is cast to f32; the
     mean runs over labels != ``ignore_index``."""
+    total, count = causal_lm_loss_terms(logits, labels, ignore_index)
+    return total / count.clamp(min=1)
+
+
+def causal_lm_loss_terms(logits, labels, ignore_index: int = -100):
+    """``causal_lm_loss``'s sum over the counted tokens and their count
+    (f32): on a mesh each batch shard gives its two, and the loss is
+    the sum of the sums over the sum of the counts."""
     shift_logits = logits[:, :-1]
     shift_labels = labels[:, 1:].long()
     mask = shift_labels != ignore_index
@@ -314,8 +424,7 @@ def causal_lm_loss(logits, labels, ignore_index: int = -100):
     sumexp = torch.exp((shift_logits - m[..., None]).float()).sum(dim=-1)
     lse = m.float() + torch.log(sumexp)
     ll = torch.gather(shift_logits, -1, safe[..., None])[..., 0].float()
-    total = ((lse - ll) * mask).sum()
-    return total / mask.sum().clamp(min=1)
+    return ((lse - ll) * mask).sum(), mask.sum().float()
 
 
 def init_kv_cache(cfg: GPT2Config, batch_size: int, max_len: int,

@@ -27,10 +27,15 @@ Counterpart of ``ray_tpu/models/resnet.py`` with the same numerics:
     the whole network keeps (cuDNN's preferred one for bf16).
 
 Build a model with ``create_resnet`` (or ``ResNet50(...)``) and give it
-weights with ``init_weights(generator)`` or ``params_from_flax``. flax's
-``bn_axis_name`` (batch statistics across replicas, which no trainer of
-the JAX package sets) has no counterpart: the port trains on one device
-(ROADMAP.md Queue A item 4).
+weights with ``init_weights(generator)`` or ``params_from_flax``.
+
+On a mesh with a process group (``ResNet.set_mesh``) batch norm takes
+its statistics over the whole global batch, as the JAX trainer does
+under ``jit`` (its flax ``BatchNorm`` reduces over the batch-sharded
+array, so the mean is global; ``bn_axis_name`` plays no part): each
+rank's per-channel count, mean and variance are gathered over (dp,
+fsdp) and merged, and the backward's two per-channel sums are summed
+over the same ranks (``_GlobalBatchNorm``).
 """
 
 from __future__ import annotations
@@ -45,6 +50,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ray_tpu_torch.models.gpt2 import Dense, _truncated_normal
+from ray_tpu_torch.parallel import collectives as C
+from ray_tpu_torch.parallel.mesh import BATCH_AXES
 
 BN_MOMENTUM = 0.9
 BN_EPS = 1e-5
@@ -95,10 +102,97 @@ class Conv(nn.Module):
                         self.strides, pad)
 
 
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Training-mode batch norm over the global batch of a mesh's (dp,
+    fsdp) ranks: y, and the global mean and biased variance (f32, no
+    gradient). Forward: each rank's per-channel statistics and count are
+    gathered over the batch's ranks and merged (Chan's parallel
+    variance). Backward: the per-channel sums of dy and dy (x - mean)
+    are summed over the same ranks; the weight's and bias's grads stay
+    local (the trainer sums param grads over the batch).
+
+    On the card PyTorch's SyncBatchNorm kernels do every pass (the
+    statistics, the merge of the gathered means and 1 / sqrt(var + eps),
+    the normalisation and the backward's two): one kernel each, so the
+    host keeps ahead of the device. On the CPU, which has none of them,
+    the same arithmetic in plain ops, with the variance itself
+    gathered."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, running_mean, running_var, mesh):
+        C_ = x.shape[1]
+        count = torch.full((1,), x.numel() // C_, dtype=torch.float32,
+                           device=x.device)
+        if x.is_cuda:
+            mean, invstd = torch.batch_norm_stats(x, BN_EPS)
+            stats = C.all_gather(torch.cat([mean, invstd, count]),
+                                 BATCH_AXES, mesh, tiled=False)
+            counts = stats[:, -1]
+            # the running stats go in with momentum 0, which leaves them
+            # as they are (the caller moves them flax's way): given
+            # them, the op takes f32 counts; without, counts in x's dtype
+            # (bf16 would round a count)
+            mean, invstd = torch.batch_norm_gather_stats_with_counts(
+                x, stats[:, :C_], stats[:, C_:-1], running_mean,
+                running_var, 0.0, BN_EPS, counts)
+            y = torch.batch_norm_elemt(x, weight, bias, mean, invstd, BN_EPS)
+            var = invstd.square().reciprocal() - BN_EPS
+            counts = counts.to(torch.int32)
+        else:
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
+                                       correction=0)
+            stats = C.all_gather(torch.cat([mean, var, count]), BATCH_AXES,
+                                 mesh, tiled=False)
+            counts = stats[:, -1:]                          # [ranks, 1]
+            means, vars_ = stats[:, :C_], stats[:, C_:-1]   # [ranks, C]
+            n = counts.sum()
+            mean = (counts * means).sum(0) / n
+            var = ((counts * (vars_ + (means - mean).square())).sum(0)
+                   / n).clamp(min=0.0)
+            invstd = torch.rsqrt(var + BN_EPS)
+            y = ((x.float() - mean[:, None, None])
+                 * (invstd * weight)[:, None, None]
+                 + bias[:, None, None]).to(x.dtype)
+        ctx.save_for_backward(x, weight, mean, invstd, counts)
+        ctx.mesh = mesh
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _mean, _var):
+        x, weight, mean, invstd, counts = ctx.saved_tensors
+        fmt = (torch.channels_last
+               if x.is_contiguous(memory_format=torch.channels_last)
+               and not x.is_contiguous() else torch.contiguous_format)
+        dy = dy.contiguous(memory_format=fmt)
+        if dy.is_cuda:
+            sum_dy, sum_dy_xmu, g_w, g_b = torch.batch_norm_backward_reduce(
+                dy, x, mean, invstd, weight, True, True, True)
+        else:
+            dyf = dy.float()
+            xmu = x.float() - mean[:, None, None]
+            sum_dy = dyf.sum((0, 2, 3))
+            sum_dy_xmu = (dyf * xmu).sum((0, 2, 3))
+            g_w, g_b = sum_dy_xmu * invstd, sum_dy
+        sum_dy, sum_dy_xmu = C.psum(torch.cat([sum_dy, sum_dy_xmu]),
+                                    BATCH_AXES, ctx.mesh).chunk(2)
+        if dy.is_cuda:
+            dx = torch.batch_norm_backward_elemt(
+                dy, x, mean, invstd, weight, sum_dy, sum_dy_xmu, counts)
+        else:
+            n = counts.sum()
+            dx = ((dyf - (sum_dy / n)[:, None, None]
+                   - xmu * (invstd.square() * sum_dy_xmu / n)[:, None, None])
+                  * (invstd * weight)[:, None, None]).to(x.dtype)
+        return dx, g_w, g_b, None, None, None
+
+
 class BatchNorm(nn.Module):
     """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5, dtype=...)`` over
     the channel dim. ``zero_scale``: flax's ``scale_init=zeros_init()``
-    (the last norm of every block)."""
+    (the last norm of every block). ``batch_mesh`` (set by
+    ``ResNet.set_mesh``): take the training statistics over that mesh's
+    global batch."""
 
     def __init__(self, features: int, *, dtype, zero_scale: bool = False):
         super().__init__()
@@ -108,12 +202,19 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
         self.compute_dtype = dtype
         self.zero_scale = zero_scale
+        self.batch_mesh = None
 
     def forward(self, x):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0,
                                 BN_EPS).to(self.compute_dtype)
+        if self.batch_mesh is not None:
+            y, mean, var = _GlobalBatchNorm.apply(
+                x, self.weight, self.bias, self.running_mean,
+                self.running_var, self.batch_mesh)
+            self._update_running(mean, var)
+            return y.to(self.compute_dtype)
         # one call gives y and the batch's mean and 1 / sqrt(var + eps),
         # var biased, in f32; the running stats take var from those
         # (torch.var_mean would read the activation again: a slower step
@@ -122,11 +223,13 @@ class BatchNorm(nn.Module):
             x, self.weight, self.bias, None, None, True, 0.0, BN_EPS)
         with torch.no_grad():
             var = (invstd.square().reciprocal() - BN_EPS).clamp_(min=0.0)
-            self.running_mean.mul_(BN_MOMENTUM).add_(mean,
-                                                     alpha=1 - BN_MOMENTUM)
-            self.running_var.mul_(BN_MOMENTUM).add_(var,
-                                                    alpha=1 - BN_MOMENTUM)
+        self._update_running(mean, var)
         return y.to(self.compute_dtype)
+
+    @torch.no_grad()
+    def _update_running(self, mean, var):
+        self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)
+        self.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1 - BN_MOMENTUM)
 
 
 class ResNetBlock(nn.Module):
@@ -221,6 +324,17 @@ class ResNet(nn.Module):
     def blocks(self):
         return [getattr(self, f"{self.block_name}_{k}")
                 for k in range(self.n_blocks)]
+
+    def set_mesh(self, mesh):
+        """Batch norm over ``mesh``'s global batch where it has a process
+        group (at any size: the same route at world size 1); the
+        single-device route's batch norm without one. The convs are not
+        split over tp: tp shards their weights' storage only."""
+        on = mesh if mesh.device_mesh is not None else None
+        for mod in self.modules():
+            if isinstance(mod, BatchNorm):
+                mod.batch_mesh = on
+        return self
 
     def forward(self, images):
         x = images.permute(0, 3, 1, 2).to(self.dtype)
