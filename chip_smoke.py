@@ -30,7 +30,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
               in bf16 for the wgmma backward (d 64 and 128; 1040 and
               2064, not multiples of 64 or 128) and past the cap; with
               each attention case, the delta pass that both training
-              backwards run (attention_delta) on its o and do. In bf16 each kernel and its plain version are both held to
+              backwards run (attention_delta) on its o and do. Paged
+              decode also at Llama-2-7B serving's shape (B 16, H = Hkv =
+              32, D 128, NB 128 pages of 16, bf16), with its
+              registers and shared memory. In bf16 each kernel and its plain version are both held to
               the function in f64 (attention_case, hold_outputs).
               SDPA's backward is timed as device time (a CUDA graph's
               replays; sdpa_backward_ms).
@@ -42,6 +45,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
 5. numerics — the same GPT-2 cast to f32: one batched decode step
               through the kernel against the same step with the plain
               version passed explicitly, and against the full forward.
+5b. llama serve — Llama-2-7B at its published widths and depth (32
+              layers, dim 4096, 32 heads of d 128, ffn 11008, vocab
+              32000; random weights from a seed; bf16 weights, the f32
+              head) behind LLMServer: a warm-up request, then 16
+              concurrent streams of 64 greedy tokens (prompts 64-768),
+              max_seq_len 2048, 1,025 pages of 16 tokens. The
+              paged-decode kernel must take all 32 layers of every
+              decode step. Prints tokens/s, TTFT, ITL, decode steps,
+              launches, weight and pool bytes and peak memory; then
+              the 16 prompts prefilled as one batch (time, peak) and
+              decode steps of 16 rows (host time, one profiled by
+              kernel group, its idle share).
+5c. llama serve numerics — the same widths at 2 layers in f32, with 32
+              and with 8 kv heads: 8 ragged prompts (37-700 tokens)
+              through the adapter's paged prefill, then one decode step
+              through the kernel against the same step with the plain
+              version passed explicitly and against the full forward
+              (phase 5's tolerance); then speculative decoding with that
+              model as the target and a Llama draft of the same seed
+              (every proposal accepted) and of another (rejected): 4
+              prompts x 16 tokens, token-identical to spec_k = 0.
 6. train    — ray_tpu_torch.bench.gpt2_loop: make_causal_lm_trainer(
               GPT2Config.small()) on the card, batch 16 x 1024 of
               seeded tokens: warm-up steps, then timed windows with the
@@ -107,8 +131,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
               11's; one profiled step by RESNET_PROFILE_GROUPS. The group
               is destroyed at the end.
 13. summary — nvidia-smi's card line, the kernels line (each kernel's
-              launches by the path that counted them: phases 4, 6, 8
-              and 12), then the device line, last.
+              launches by the path that counted them: phases 4, 5b, 6,
+              8 and 12; paged decode's entry also carries its Llama
+              serve case), then the device line, last.
 
 Exits non-zero without printing a result when CUDA is absent or when
 the repository's package is not beside this script.
@@ -137,6 +162,12 @@ PROFILE_GROUPS = (
     ("whole_kv_attention", ("whole_fwd", "whole_bwd")),
     ("streaming_attention", ("flash_fwd", "flash_dkv", "flash_dq")),
     ("attention_delta", ("attention_delta",)),
+    ("matmul_f32", ("sgemm", "f32f32_f32f32")),
+    ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "cublas", "sm90_")))
+# a serving decode step's groups, in the same way: the paged-decode
+# kernel (split and merge), the f32 head's product, the bf16 products
+SERVE_PROFILE_GROUPS = (
+    ("paged_decode", ("paged_decode",)),
     ("matmul_f32", ("sgemm", "f32f32_f32f32")),
     ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "cublas", "sm90_")))
 # the ResNet step's groups, in the same way: batch norm (PyTorch's
@@ -974,6 +1005,256 @@ def mesh_phase(cfg, tokens, phase6, phase11, name, card):
     return out
 
 
+def serve_streams(server, prompts, new_tokens: int):
+    """One greedy stream of ``new_tokens`` per prompt, opened together
+    on ``server`` and drained in turn, with the launch counts and the
+    adapter's decode steps zeroed just before: (results [(tokens, last
+    chunk)], wall seconds, the paged-decode kernel's launches, decode
+    steps). Fails unless every stream ends with ``new_tokens`` tokens
+    in the vocab and finish_reason "length"."""
+    from ray_tpu_torch import kernels
+    kernels.reset_launch_counts()
+    server.adapter.decode_steps = 0
+    t0 = time.time()
+    sids = [server.__llm_open__({"tokens": p, "max_new_tokens": new_tokens})
+            ["stream_id"] for p in prompts]
+    results = []
+    for sid in sids:
+        toks, cursor = [], 0
+        while True:
+            chunk = server.__llm_next__(sid, cursor, max_wait_s=60.0)
+            toks += chunk["tokens"]
+            cursor = chunk["cursor"]
+            if chunk["done"]:
+                break
+        results.append((toks, chunk))
+    wall = time.time() - t0
+    launches = kernels.launch_counts().get("paged_attention_decode", 0)
+    steps = server.adapter.decode_steps
+    vocab = server.adapter.vocab_size
+    for toks, chunk in results:
+        require(not chunk.get("error"), f"stream failed: {chunk}")
+        require(len(toks) == new_tokens and chunk["finish_reason"] == "length",
+                f"stream ended with {len(toks)} tokens: {chunk}")
+        require(all(0 <= t < vocab for t in toks), "token range")
+    return results, wall, launches, steps
+
+
+class _Seq:
+    """What the adapter reads of an engine sequence."""
+
+    def __init__(self, seq_id, prompt):
+        self.seq_id, self.prompt, self.tokens = seq_id, prompt, []
+
+
+def llama_serve(name, card) -> dict:
+    """Phase 5b: Llama-2-7B at its published widths and depth (random
+    weights from SEED, bf16 compute, the f32 head) behind LLMServer on
+    the card: a warm-up request, then 16 concurrent streams of 64 greedy
+    tokens from seeded prompts of 64-768 tokens. The paged-decode kernel
+    must take every layer of every decode step. Then, outside the
+    engine, the same prompts prefilled as one batch and decode steps of
+    all 16 rows: their host time and one profiled step by
+    SERVE_PROFILE_GROUPS. Returns the printed measurements."""
+    import gc
+    import torch
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.serve.llm import LLMServer
+    cfg = llama.LlamaConfig.llama2_7b()
+    rng = np.random.RandomState(SEED + 2)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    server = LLMServer(
+        model="llama", model_config={"config": cfg, "seed": SEED},
+        engine_config={"max_running": 16, "max_seq_len": 2048,
+                       "block_size": 16, "num_blocks": 1025})
+    init_s = time.time() - t0
+    adapter = server.adapter
+    require(server.engine.config.max_seq_len == 2048
+            and adapter.nb_max == 128, "llama serve: max_seq_len or table")
+    weights = {str(p.dtype): 0 for p in adapter.model.parameters()}
+    for p in adapter.model.parameters():
+        weights[str(p.dtype)] += p.numel() * p.element_size()
+    try:
+        warm = server({"tokens": [1, 450, 4996], "max_new_tokens": 4})
+        require(warm["n_tokens"] == 4, f"llama warm-up request: {warm}")
+        prompts = [rng.randint(0, cfg.vocab_size, size=n).tolist()
+                   for n in rng.randint(64, 769, size=16)]
+        results, wall, launches, steps = serve_streams(server, prompts, 64)
+        m = server.engine.metrics()
+    finally:
+        server.engine.stop()
+    peak = torch.cuda.max_memory_allocated()
+    require(steps > 0 and launches == cfg.n_layers * steps,
+            f"llama serve: paged_attention_decode launched {launches} times "
+            f"over {steps} decode steps of {cfg.n_layers} layers")
+    # where a decode step's time goes, outside the engine (informational;
+    # after the counts were read): the same 16 prompts prefilled as one
+    # batch, then decode steps of all 16 rows, timed on the host clock
+    # (adapter.decode returns host logits: synchronised) and one profiled
+    seqs = [_Seq(f"p{i}", p) for i, p in enumerate(prompts)]
+    for sq in seqs:
+        adapter.cache.allocate(sq.seq_id, len(sq.prompt) + 8)
+        sq.tokens = [0]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    adapter.prefill(seqs)
+    prefill_s = time.perf_counter() - t0
+    prefill_peak = torch.cuda.max_memory_allocated()
+    adapter.decode(seqs)
+    step_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        adapter.decode(seqs)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    profile = profile_step(lambda: adapter.decode(seqs),
+                           SERVE_PROFILE_GROUPS)
+    ttft = sorted(c["ttft_s"] for _, c in results)
+    res = {"model": "llama-2-7b", "n_layers": cfg.n_layers, "dim": cfg.dim,
+           "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+           "streams": 16, "new_tokens": 64,
+           "prompt_tokens": [len(p) for p in prompts],
+           "wall_s": wall, "tokens_per_s": 16 * 64 / wall,
+           "ttft_p50_s": ttft[len(ttft) // 2], "ttft_p99_s": ttft[-1],
+           "itl_p50_s": m["itl_p50_s"], "itl_p99_s": m["itl_p99_s"],
+           "decode_steps": steps, "kernel_launches": launches,
+           "weight_bytes_by_dtype": weights,
+           "kv_pool_bytes": 2 * adapter.k_pages.numel()
+           * adapter.k_pages.element_size(),
+           "init_s": init_s, "max_memory_allocated_bytes": peak,
+           "prefill_16_rows_s": prefill_s,
+           "prefill_16_rows_max_memory_allocated_bytes": prefill_peak,
+           "decode_step_ms_16_rows": step_ms,
+           "device": name, "nvidia_smi": card}
+    print("llama_serve", json.dumps(res), flush=True)
+    print("llama_serve_profile", json.dumps(profile), flush=True)
+    del server, adapter, results
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def llama_serve_numerics(n_kv_heads: int):
+    """Phase 5c: Llama-2-7B's widths at 2 layers with ``n_kv_heads``
+    kv heads, f32, TF32 off (phase 1), on the card. 8 ragged prompts of
+    37-700 tokens go through the adapter's paged prefill (one padded
+    batch), then one batched decode step through ``adapter.decode`` (the
+    kernel: one launch a layer) is held within 1e-3 (phase 5's
+    tolerance) of the same step with the plain version passed
+    explicitly and of the full forward at the same positions. Then
+    speculative decoding with this model as the target: 4 prompts x 16
+    greedy tokens with ``make_draft("llama")`` of the same config and
+    seed (the target itself: every proposal accepted) and of another
+    seed (proposals rejected) must be token-identical to spec_k = 0."""
+    import gc
+    import torch
+    from ray_tpu_torch import kernels
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops import attention as A
+    from ray_tpu_torch.serve.llm import (LLMServer, PagedKVCache,
+                                         TorchModelAdapter)
+    cfg = dataclasses.replace(
+        llama.LlamaConfig.llama2_7b(), n_layers=2, n_kv_heads=n_kv_heads,
+        dtype=torch.float32, attention_backend="reference")
+    rng = np.random.RandomState(SEED + 3)
+    B, bs = 8, 16
+    adapter = TorchModelAdapter("llama", config=cfg, seed=SEED)  # cuda
+    adapter.bind_cache(PagedKVCache(
+        num_blocks=1 + B * cfg.max_seq_len // bs, block_size=bs))
+    n_prompt = ragged(rng, B, 37, 700)
+    ids = rng.randint(0, cfg.vocab_size, size=(B, max(n_prompt) + 1))
+    seqs = [_Seq(f"s{b}", ids[b, :n].tolist())
+            for b, n in enumerate(n_prompt)]
+    for sq in seqs:
+        adapter.cache.allocate(sq.seq_id, len(sq.prompt) + 1)
+    tables = np.zeros((B, adapter.nb_max), np.int32)
+    for b, sq in enumerate(seqs):
+        t = adapter.cache.block_table(sq.seq_id)
+        tables[b, :len(t)] = t
+    adapter.prefill(seqs)
+    for b, sq in enumerate(seqs):
+        sq.tokens = [int(ids[b, n_prompt[b]])]
+    kernels.reset_launch_counts()
+    via_kernel = adapter.decode(seqs)                       # [B, V] f32
+    require(kernels.launch_counts().get("paged_attention_decode")
+            == cfg.n_layers, f"llama f32 decode step (Hkv {n_kv_heads}) "
+            "missed the kernel")
+    dev = adapter.device
+    tab = torch.as_tensor(tables, device=dev)
+    caches = [{"k_pages": adapter.k_pages[l], "v_pages": adapter.v_pages[l],
+               "block_tables": tab} for l in range(cfg.n_layers)]
+    with torch.no_grad():
+        # the same step again (it rewrites the same K/V in the same
+        # slots) with the plain version of the kernel
+        h = adapter.model.trunk(
+            torch.as_tensor(ids[np.arange(B), n_prompt][:, None], device=dev),
+            kv_cache=caches,
+            seq_lengths=torch.as_tensor(n_prompt, dtype=torch.int32,
+                                        device=dev),
+            paged_decode=A.paged_attention_reference)
+        via_plain = adapter.model.head(h[:, 0]).cpu().numpy()
+        err_full = 0.0
+        for b, n in enumerate(n_prompt):
+            full = adapter.model(torch.as_tensor(ids[b:b + 1, :n + 1],
+                                                 device=dev))
+            err_full = max(err_full, float(np.abs(
+                via_kernel[b] - full[0, -1].cpu().numpy()).max()))
+    err_plain = float(np.abs(via_kernel - via_plain).max())
+    require(np.isfinite(via_kernel).all()
+            and via_kernel.shape == (B, cfg.vocab_size),
+            f"llama decode logits {via_kernel.shape} not finite")
+    require(err_plain <= 1e-3, f"llama kernel vs plain decode step "
+            f"(Hkv {n_kv_heads}): {err_plain}")
+    require(err_full <= 1e-3, f"llama decode step vs full forward "
+            f"(Hkv {n_kv_heads}): {err_full}")
+    del adapter, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    prompts = [rng.randint(0, cfg.vocab_size, size=n).tolist()
+               for n in ragged(rng, 4, 8, 200)]
+    spec = {}
+    for label, spec_k, draft_seed in (("plain", 0, None), ("self", 4, SEED),
+                                      ("other", 4, SEED + 1)):
+        engine = {"max_running": 4, "max_seq_len": 2048, "block_size": bs,
+                  "num_blocks": 1 + 4 * 16, "spec_k": spec_k}
+        if spec_k:
+            engine.update(draft_model="llama", draft_model_config={
+                "config": cfg, "seed": draft_seed})
+        server = LLMServer(model="llama",
+                           model_config={"config": cfg, "seed": SEED},
+                           engine_config=engine)
+        try:
+            results, _, _, _ = serve_streams(server, prompts, 16)
+            m = server.engine.metrics()
+        finally:
+            server.engine.stop()
+        spec[label] = {"tokens": [t for t, _ in results],
+                       "drafted": m["spec_draft_tokens_total"],
+                       "accepted": m["spec_accepted_tokens_total"]}
+        del server
+        gc.collect()
+        torch.cuda.empty_cache()
+    for label in ("self", "other"):
+        require(spec[label]["tokens"] == spec["plain"]["tokens"],
+                f"llama spec decode ({label} draft, Hkv {n_kv_heads}): "
+                "tokens differ from plain greedy")
+        require(spec[label]["drafted"] > 0,
+                f"llama spec decode ({label} draft): nothing drafted")
+    require(spec["self"]["accepted"] == spec["self"]["drafted"],
+            f"llama spec decode: the target's own weights as the draft had "
+            f"{spec['self']['drafted'] - spec['self']['accepted']} proposals "
+            "rejected")
+    print("llama_serve_numerics", json.dumps({
+        "dtype": "float32", "n_layers": cfg.n_layers,
+        "kv_heads": n_kv_heads, "batch": B, "prompt_tokens": n_prompt,
+        "max_abs_err_vs_plain": err_plain,
+        "max_abs_err_vs_full_forward": err_full, "tol": 1e-3,
+        "spec": {k: {"drafted": v["drafted"], "accepted": v["accepted"]}
+                 for k, v in spec.items()},
+        "spec_token_identical": True}), flush=True)
+
+
 def ragged(rng, B, lo, hi):
     lens = rng.randint(lo, hi + 1, size=B)
     lens[0], lens[-1] = lo, hi
@@ -1038,6 +1319,17 @@ def main() -> int:
     paged_case("e: split edges", 8, 12, 12, 64, 16, 64,
                [0, 1, span - 1, span, span + 1, 2 * span, 2 * span + 1,
                 64 * 16], "float32", 1e-4, flush)
+    # Llama-2-7B serving's shape (phase 5b): G = 1 at D 128 over a full
+    # 128-page table, lengths across all of it (its own generator: the
+    # phases after it draw what they drew before)
+    llama_case = paged_case(
+        "f: llama-2-7b serve shape", 16, 32, 32, 128, 16, 128,
+        ragged(np.random.RandomState(SEED + 1), 16, 1, 2048), "bfloat16",
+        2e-2, flush)
+    print("kernel_resources_llama_serve", json.dumps(
+        [r for r in A.paged_resource_usage(128, 16, 128, 2)
+         if r["dtype"] == "bfloat16" and (r["d"], r.get("g")) in
+         ((128, 1), (None, None))]), flush=True)
     # training attention (tolerances: see hold_outputs): whole-kv, then
     # streaming; case "a" of each is the shape its training path runs
     whole = {}
@@ -1117,31 +1409,9 @@ def main() -> int:
         require(warm["n_tokens"] == 4, f"warm-up request: {warm}")
         prompts = [rng.randint(0, cfg.vocab_size, size=n).tolist()
                    for n in rng.randint(64, 769, size=16)]
-        kernels.reset_launch_counts()
-        server.adapter.decode_steps = 0
-        t0 = time.time()
-        sids = [server.__llm_open__({"tokens": p, "max_new_tokens": 64})
-                ["stream_id"] for p in prompts]
-        results = []
-        for sid in sids:
-            toks, cursor = [], 0
-            while True:
-                chunk = server.__llm_next__(sid, cursor, max_wait_s=60.0)
-                toks += chunk["tokens"]
-                cursor = chunk["cursor"]
-                if chunk["done"]:
-                    break
-            results.append((toks, chunk))
-        wall = time.time() - t0
-        launches = kernels.launch_counts().get("paged_attention_decode", 0)
-        steps = server.adapter.decode_steps
+        results, wall, launches, steps = serve_streams(server, prompts, 64)
     finally:
         server.engine.stop()
-    for toks, chunk in results:
-        require(not chunk.get("error"), f"stream failed: {chunk}")
-        require(len(toks) == 64 and chunk["finish_reason"] == "length",
-                f"stream ended with {len(toks)} tokens: {chunk}")
-        require(all(0 <= t < cfg.vocab_size for t in toks), "token range")
     require(steps > 0 and launches == cfg.n_layer * steps,
             f"paged_attention_decode launched {launches} times over "
             f"{steps} decode steps of {cfg.n_layer} layers")
@@ -1209,6 +1479,12 @@ def main() -> int:
 
     del m32, caches, via_kernel, via_plain
     torch.cuda.empty_cache()
+
+    # 5b. serve Llama-2-7B at full width and depth; 5c. its decode step
+    # and speculative decoding in f32, at 32 and at 8 kv heads
+    llama_serve_res = llama_serve(name, card)
+    for n_kv_heads in (32, 8):
+        llama_serve_numerics(n_kv_heads)
 
     # 6. train GPT-2 small through the port's trainer: the bench's
     # gpt2_loop (launch counts zeroed after its warm-up, read after its
@@ -1373,9 +1649,13 @@ def main() -> int:
     main_whole = whole["a: train shape", "bfloat16"]
     main_flash = flash["a: llama train shape", "bfloat16"]
     summary = {"kernels": [
-        kernel_entry({**main_case, "library_ms": None},
-                     "paged_attention_decode", "paged_decode.cu", 803,
-                     {"serve": launches}),
+        {**kernel_entry({**main_case, "library_ms": None},
+                        "paged_attention_decode", "paged_decode.cu", 803,
+                        {"serve": launches,
+                         "llama_serve": llama_serve_res["kernel_launches"]}),
+         "llama_serve_case": {k: llama_case[k] for k in (
+             "case", "max_abs_err", "ms", "plain_ms", "bound_ms",
+             "bound_by")}},
         *(kernel_entry(main_whole[kname], kname, "whole_attention.cu", line,
                        by_path(kname, *gpt2_paths))
           for kname, line in (("whole_attention_forward", 86),

@@ -37,7 +37,8 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional
+import os
+from typing import Any, Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -470,3 +471,55 @@ def params_from_flax(tree: Dict[str, Any],
     if model is not None:
         model.load_state_dict(sd)
     return sd
+
+
+StateDict = Union[Mapping[str, torch.Tensor], str, "os.PathLike[str]"]
+
+
+def read_state_dict(state_dict: StateDict) -> Mapping[str, torch.Tensor]:
+    """A mapping as given, or the local file at a path, read onto the
+    CPU by ``torch.load(weights_only=True)`` (an HF ``pytorch_model.bin``).
+    Nothing is downloaded."""
+    if isinstance(state_dict, (str, os.PathLike)):
+        return torch.load(state_dict, map_location="cpu", weights_only=True)
+    return state_dict
+
+
+def load_hf_gpt2_params(state_dict: StateDict,
+                        config: Optional[GPT2Config] = None,
+                        model: Optional[GPT2] = None
+                        ) -> Dict[str, torch.Tensor]:
+    """An HF ``GPT2LMHeadModel`` state_dict (a mapping, or the path of a
+    local file that ``torch.load`` reads) -> this module's
+    ``state_dict`` in f32, for ``config.n_layer`` layers
+    (``GPT2Config()`` by default). HF's Conv1D weights are [in, out], a
+    flax kernel's layout, so each lands transposed in ``nn.Linear``; the
+    head is tied to ``wte`` on both sides. With ``model`` the weights are
+    also loaded into it. The counterpart of the JAX package's
+    ``load_hf_gpt2_params``, which takes a model name and loads it with
+    ``transformers``; this one reads local weights only."""
+    sd = read_state_dict(state_dict)
+    cfg = config or GPT2Config()
+
+    def t(key, transpose=False):
+        if key not in sd:
+            raise KeyError(f"load_hf_gpt2_params: the state_dict has no "
+                           f"{key!r} (n_layer={cfg.n_layer})")
+        a = sd[key].detach().to("cpu", torch.float32)
+        return (a.T if transpose else a).contiguous()
+
+    out = {"wte.weight": t("transformer.wte.weight"),
+           "wpe.weight": t("transformer.wpe.weight"),
+           "ln_f.weight": t("transformer.ln_f.weight"),
+           "ln_f.bias": t("transformer.ln_f.bias")}
+    for i in range(cfg.n_layer):
+        hf = f"transformer.h.{i}."
+        for ln in ("ln_1", "ln_2"):
+            out[f"h_{i}.{ln}.weight"] = t(hf + ln + ".weight")
+            out[f"h_{i}.{ln}.bias"] = t(hf + ln + ".bias")
+        for path in ("attn.c_attn", "attn.c_proj", "mlp.c_fc", "mlp.c_proj"):
+            out[f"h_{i}.{path}.weight"] = t(hf + path + ".weight", True)
+            out[f"h_{i}.{path}.bias"] = t(hf + path + ".bias")
+    if model is not None:
+        model.load_state_dict(out)
+    return out

@@ -21,8 +21,15 @@ numerics:
 the whole-kv kernels where ``_use_whole_kv`` holds (s <= 2048), the
 streaming kernels otherwise (Llama-2's 4096 tokens); ``"reference"``
 the plain attention; ``"ring"`` is not ported (ROADMAP.md Queue A item
-8). The incremental-decode branch (``kv_cache``), ``init_kv_cache`` and
-``import_hf_llama`` belong to the Llama-serving slice (Queue A item 7).
+8).
+
+With ``kv_cache`` the forward is one incremental step (the serving
+slice): the new tokens are rotated by their absolute positions, the
+un-replicated kv heads are written to a contiguous cache
+(``init_kv_cache``) or one layer of the serve engine's paged pool, and
+attention runs in ``ops.attention.cached_attention`` (single-token
+paged steps in the paged-decode kernel). ``import_hf_llama`` maps a
+local HF ``LlamaForCausalLM`` state_dict onto the modules.
 
 The training step is the JAX package's example loop
 (``examples/06_llama_finetune.py``): forward, ``causal_lm_loss``,
@@ -46,10 +53,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ray_tpu_torch.device import resolve_device
-from ray_tpu_torch.models.gpt2 import Dense, Embed, _truncated_normal
+from ray_tpu_torch.models.gpt2 import (Dense, Embed, StateDict,
+                                       _truncated_normal, read_state_dict)
 from ray_tpu_torch.ops.attention import (TRAINING_KERNELS, TrainingAttention,
                                          _repeat_kv, attention_reference,
-                                         flash_attention)
+                                         cached_attention, flash_attention,
+                                         paged_attention_decode)
 
 _BACKENDS = ("flash", "reference")
 
@@ -143,16 +152,26 @@ class LlamaAttention(nn.Module):
         self.wv = Dense(cfg.dim, cfg.n_kv_heads * hd, dt, bias=False)
         self.wo = Dense(cfg.n_heads * hd, cfg.dim, dt, bias=False)
 
-    def forward(self, x, freqs):
+    def forward(self, x, freqs, kv_cache=None, seq_lengths=None, valid=None,
+                positions=None, paged_decode=paged_attention_decode):
+        """Full attention, or with ``kv_cache`` one incremental step:
+        returns (out, kv_cache), the cache updated in place."""
         cfg = self.cfg
         B, S, _ = x.shape
         H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
         def heads(t, n):  # [B,S,n*hd] -> [B,n,S,hd]
             return t.reshape(B, S, n, hd).transpose(1, 2)
-        q = apply_rope(heads(self.wq(x), H), freqs)
-        k = apply_rope(heads(self.wk(x), Hkv), freqs)
+        q = apply_rope(heads(self.wq(x), H), freqs, positions)
+        k = apply_rope(heads(self.wk(x), Hkv), freqs, positions)
         v = heads(self.wv(x), Hkv)
+        if kv_cache is not None:
+            # the cache holds the Hkv heads; cached_attention broadcasts
+            # them over each query group
+            y, kv_cache = cached_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                kv_cache, seq_lengths, valid=valid, paged_decode=paged_decode)
+            return self.wo(y.reshape(B, S, H * hd)), kv_cache
         k, v = _repeat_kv(k, H // Hkv), _repeat_kv(v, H // Hkv)
         if cfg.attention_backend == "flash":
             y = flash_attention(q, k, v, causal=True, impl=self.impl)
@@ -183,7 +202,14 @@ class LlamaBlock(nn.Module):
         self.ffn_norm = RMSNorm(cfg.dim, cfg.norm_eps)
         self.feed_forward = LlamaMLP(cfg)
 
-    def forward(self, x, freqs):
+    def forward(self, x, freqs, kv_cache=None, seq_lengths=None, valid=None,
+                positions=None, paged_decode=paged_attention_decode):
+        if kv_cache is not None:
+            y, kv_cache = self.attention(
+                self.attention_norm(x), freqs, kv_cache, seq_lengths, valid,
+                positions, paged_decode)
+            x = x + y
+            return x + self.feed_forward(self.ffn_norm(x)), kv_cache
         x = x + self.attention(self.attention_norm(x), freqs)
         return x + self.feed_forward(self.ffn_norm(x))
 
@@ -216,11 +242,53 @@ class LlamaModel(nn.Module):
     def blocks(self):
         return [getattr(self, f"layers_{i}") for i in range(self.cfg.n_layers)]
 
-    def forward(self, input_ids):
+    def trunk(self, input_ids, kv_cache=None, seq_lengths=None, valid=None,
+              paged_decode=paged_attention_decode):
+        """Everything before ``head``: the last block's output, [B, S,
+        dim] in ``cfg.dtype``. With ``kv_cache`` (a list of per-layer
+        caches, updated in place) the S tokens are one incremental step
+        after ``seq_lengths`` cached tokens, each rotated by its absolute
+        position; ``valid`` marks real tokens when S is padded (padding
+        takes position 0, as in the JAX package)."""
         x = self.tok_embeddings(input_ids)
-        for block in self.blocks():
-            x = block(x, self.freqs)
-        return self.output(self.norm(x))
+        if kv_cache is None:
+            for block in self.blocks():
+                x = block(x, self.freqs)
+            return x
+        S = input_ids.shape[1]
+        positions = seq_lengths[:, None].long() + torch.arange(
+            S, device=input_ids.device)[None, :]
+        if valid is not None:
+            positions = torch.where(valid, positions, 0)
+        for i, block in enumerate(self.blocks()):
+            x, _ = block(x, self.freqs, kv_cache[i], seq_lengths, valid,
+                         positions, paged_decode)
+        return x
+
+    def head(self, h):
+        """The final RMSNorm and the f32 ``output`` Dense: f32 logits."""
+        return self.output(self.norm(h))
+
+    def forward(self, input_ids, kv_cache=None, seq_lengths=None, valid=None,
+                paged_decode=paged_attention_decode):
+        """Full forward (f32 logits [B, S, vocab]) or, with ``kv_cache``,
+        one incremental step returning ``(logits, kv_cache)``; prefill is
+        the ``seq_lengths == 0`` case."""
+        logits = self.head(self.trunk(input_ids, kv_cache, seq_lengths, valid,
+                                      paged_decode))
+        return (logits, kv_cache) if kv_cache is not None else logits
+
+    @torch.no_grad()
+    def to_compute_dtype(self):
+        """Store each Dense and the embedding in the dtype it computes
+        in (serving: half the memory at bf16, no per-call casts, the same
+        values): the blocks' Dense kernels and the embedding in
+        ``cfg.dtype``; the ``output`` head stays f32, as do the RMSNorm
+        weights. Not for training: optimizer updates need f32."""
+        for mod in self.modules():
+            if isinstance(mod, (Dense, Embed)):
+                mod.to(mod.compute_dtype)
+        return self
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator):
@@ -255,6 +323,18 @@ def make_llama(cfg: LlamaConfig, seed: int = 0, *,
         model = LlamaModel(cfg, impl=impl)
     model.to(dev)                   # the rope table is made on the host
     return model.init_weights(torch.Generator(dev).manual_seed(seed))
+
+
+def init_kv_cache(cfg: LlamaConfig, batch_size: int, max_len: int,
+                  device="cuda"):
+    """Per-layer contiguous KV caches for incremental decode ([B, S_max,
+    Hkv, D] token-major: the un-replicated kv heads), in ``cfg.dtype`` on
+    ``cuda`` unless the caller asks for ``cpu``."""
+    device = resolve_device(device)
+    shape = (batch_size, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return [{"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+            for _ in range(cfg.n_layers)]
 
 
 def causal_lm_loss(logits, input_ids):
@@ -314,3 +394,39 @@ def params_from_flax(tree: Dict[str, Any],
     if model is not None:
         model.load_state_dict(sd)
     return sd
+
+
+def import_hf_llama(state_dict: StateDict, cfg: LlamaConfig,
+                    model: Optional[LlamaModel] = None
+                    ) -> Dict[str, torch.Tensor]:
+    """An HF ``LlamaForCausalLM`` state_dict (a mapping, or the path of a
+    local file that ``torch.load`` reads) -> this module's
+    ``state_dict`` in f32, for ``cfg.n_layers`` layers. HF's Linear
+    weights are [out, in] like ``nn.Linear``'s and its rotary layout is
+    this module's rotate-half, so nothing is transposed or permuted.
+    With ``model`` the weights are also loaded into it. The counterpart
+    of the JAX package's ``import_hf_llama``, without ``transformers``."""
+    sd = read_state_dict(state_dict)
+
+    def t(key):
+        if key not in sd:
+            raise KeyError(f"import_hf_llama: the state_dict has no {key!r} "
+                           f"(cfg.n_layers={cfg.n_layers})")
+        return sd[key].detach().to("cpu", torch.float32).contiguous()
+
+    out = {"tok_embeddings.weight": t("model.embed_tokens.weight"),
+           "norm.weight": t("model.norm.weight"),
+           "output.weight": t("lm_head.weight")}
+    hf = {"attention_norm": "input_layernorm",
+          "ffn_norm": "post_attention_layernorm",
+          "attention.wq": "self_attn.q_proj", "attention.wk": "self_attn.k_proj",
+          "attention.wv": "self_attn.v_proj", "attention.wo": "self_attn.o_proj",
+          "feed_forward.w1": "mlp.gate_proj", "feed_forward.w3": "mlp.up_proj",
+          "feed_forward.w2": "mlp.down_proj"}
+    for i in range(cfg.n_layers):
+        for ours, theirs in hf.items():
+            out[f"layers_{i}.{ours}.weight"] = t(
+                f"model.layers.{i}.{theirs}.weight")
+    if model is not None:
+        model.load_state_dict(out)
+    return out

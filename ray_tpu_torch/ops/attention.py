@@ -992,13 +992,16 @@ def _paged_lib():
     return lib
 
 
-def paged_resource_usage():
+def paged_resource_usage(D: int = 64, bs: int = 16, NB: int = 64,
+                         elt: int = 2):
     """ptxas's report on each paged-decode kernel instance
     (``kernels.resource_usage``) with ``smem_bytes``, the dynamic shared
-    memory per CTA that a launch at the serving shape sets (bf16, D 64,
-    bs 16: 16 pages per split). Builds the library: needs ``nvcc``."""
+    memory per CTA that a launch at head dim ``D``, pages of ``bs``
+    tokens, ``NB`` pages a table and ``elt`` bytes an element sets (by
+    default GPT-2's serving shape in bf16: 16 pages per split). Builds
+    the library: needs ``nvcc``."""
     smem = _paged_lib().rtt_paged_decode_smem_bytes(
-        paged_split_plan(1, 1, 64, 16, 64, 2).split_pages)
+        paged_split_plan(1, 1, D, bs, NB, elt).split_pages)
     return [{**r, "smem_bytes": smem if r["kernel"].endswith("split") else 0}
             for r in kernels.resource_usage("paged_decode")]
 

@@ -1,11 +1,11 @@
 """ray_tpu_torch.serve.llm — LLM inference: continuous batching over a
-paged KV cache, with GPT-2 in PyTorch behind it.
+paged KV cache, with GPT-2 or Llama in PyTorch behind it.
 
   engine.LLMEngine               per-replica continuous-batching scheduler
   kv_cache.PagedKVCache          refcounted block allocator
   prefix_cache.RadixPrefixCache  shared-prompt radix KV cache
-  spec_decode                    toy draft + greedy speculative verify
-  model_runner                   ToyAdapter / TorchModelAdapter (gpt2)
+  spec_decode                    toy / torch drafts + greedy verify
+  model_runner                   ToyAdapter / TorchModelAdapter (gpt2, llama)
   deployment.LLMServer           the deployment callable
 
 Typical use::
@@ -25,12 +25,13 @@ from ray_tpu_torch.serve.llm.kv_cache import OutOfKVBlocksError, PagedKVCache
 from ray_tpu_torch.serve.llm.model_runner import (TorchModelAdapter,
                                                   ToyAdapter, make_adapter)
 from ray_tpu_torch.serve.llm.prefix_cache import RadixPrefixCache
-from ray_tpu_torch.serve.llm.spec_decode import (ToyDraft, greedy_verify,
-                                                 make_draft)
+from ray_tpu_torch.serve.llm.spec_decode import (TorchDraft, ToyDraft,
+                                                 greedy_verify, make_draft)
 
 __all__ = [
     "LLMServer", "LLMEngine", "EngineConfig", "SamplingParams",
     "PagedKVCache", "OutOfKVBlocksError", "ToyAdapter",
     "TorchModelAdapter", "make_adapter", "ByteTokenizer",
-    "RadixPrefixCache", "ToyDraft", "greedy_verify", "make_draft",
+    "RadixPrefixCache", "TorchDraft", "ToyDraft", "greedy_verify",
+    "make_draft",
 ]

@@ -55,10 +55,10 @@ class ByteTokenizer:
 
 class LLMServer:
     """Deployment callable: one engine per replica. ``model`` is
-    ``toy`` or ``gpt2``; ``model_config`` goes to the adapter (for
-    ``gpt2``: ``config``, ``params``, ``seed``, ``device``, which
-    defaults to ``cuda``). ``max_seq_len`` is capped at the model's
-    position count."""
+    ``toy``, ``gpt2`` or ``llama``; ``model_config`` goes to the adapter
+    (for ``gpt2`` and ``llama``: ``config``, ``params``, ``seed``,
+    ``device``, which defaults to ``cuda``). ``max_seq_len`` is capped
+    at the model's position count (Llama-2's 2048)."""
 
     # in-flight streams must drain their remaining tokens while the
     # replica drains

@@ -26,9 +26,10 @@ Two implementations:
   token is a deterministic function of the cached prefix READ BACK
   THROUGH THE BLOCK TABLES (a paging bug corrupts its output).
 
-* ``TorchModelAdapter`` — GPT-2 (``models/gpt2.py``) over a paged pool
-  of torch tensors on the adapter's device. Every single-token decode
-  step runs attention in the hand-written paged-decode kernel (through
+* ``TorchModelAdapter`` — GPT-2 (``models/gpt2.py``) or Llama
+  (``models/llama.py``) over a paged pool of torch tensors on the
+  adapter's device. Every single-token decode step runs attention in the
+  hand-written paged-decode kernel (through
   ``ops.attention.cached_attention``); prefill and speculative windows
   pad their length to a power of two >= 8 and take the gather +
   ``decode_attention`` path, with padding tokens parked on the null
@@ -202,48 +203,75 @@ class ToyAdapter:
             self._state.pop(seq_id, None)
 
 
+def build_model(kind: str, config=None, params=None, seed: int = 0,
+                device="cuda"):
+    """(config, model) for serving: ``kind`` ``gpt2`` or ``llama`` (the
+    tiny test config unless ``config`` is given), weights from flax
+    ``params`` or else seeded as the model's family does (GPT-2 on the
+    host, then moved; Llama built and seeded on ``device``: a 7B init on
+    the host takes minutes and 27 GB of host memory), stored in the
+    dtypes they compute in, in eval mode on ``device``."""
+    device = resolve_device(device)
+    if kind == "gpt2":
+        from ray_tpu_torch.models import gpt2
+        cfg = config or gpt2.GPT2Config.tiny()
+        model = gpt2.GPT2(cfg)
+        if params is None:
+            model.init_weights(torch.Generator().manual_seed(seed))
+        else:
+            gpt2.params_from_flax(params, model)
+    elif kind == "llama":
+        from ray_tpu_torch.models import llama
+        cfg = config or llama.LlamaConfig.tiny()
+        if params is None:
+            model = llama.make_llama(cfg, seed, device=device)
+        else:
+            model = llama.LlamaModel(cfg)
+            llama.params_from_flax(params, model)
+    else:
+        raise ValueError(f"unknown model kind {kind!r} (gpt2 | llama)")
+    # serving stores the weights in the dtype each computes in (flax
+    # casts its f32 params at every call: the same values)
+    return cfg, model.to_compute_dtype().to(device).eval()
+
+
+def model_positions(cfg) -> int:
+    """The model's position count: GPT-2's n_positions, Llama's
+    max_seq_len (the rows of its RoPE table)."""
+    return cfg.n_positions if hasattr(cfg, "n_positions") else cfg.max_seq_len
 
 
 class TorchModelAdapter:
-    """GPT-2 incremental decode over the paged pool, in PyTorch.
+    """GPT-2 or Llama incremental decode over the paged pool, in PyTorch.
 
-    The pool is two ``[L, P, bs, Hkv, D]`` tensors on ``device``,
-    updated IN PLACE through per-layer views (``index_put_``); the JAX
-    adapter donates its pools to the same end. Decode steps run one
-    token per row with no padding, so every layer's attention goes
+    The pool is two ``[L, P, bs, Hkv, D]`` tensors in ``cfg.dtype`` on
+    ``device`` (Llama's Hkv: its kv heads, not replicated over the query
+    groups), updated IN PLACE through per-layer views (``index_put_``);
+    the JAX adapter donates its pools to the same end. Decode steps run
+    one token per row with no padding, so every layer's attention goes
     through the paged-decode kernel. Prefill and speculative windows
     pad their length to a power of two >= 8; padding tokens write to
-    the null page and attend to nothing. ``max_seq_len`` is the
-    model's position count: rows that would pass it, or that name a
-    token or page out of range, are refused on the host before any
-    device call.
+    the null page and attend to nothing. Only each row's last real
+    token goes through the LM head. ``max_seq_len`` is the model's
+    position count: rows that would pass it, or that name a token or
+    page out of range, are refused on the host before any device call.
     """
 
     def __init__(self, kind: str = "gpt2", config=None, params=None,
                  seed: int = 0, device="cuda"):
         self.device = resolve_device(device)
         self.kind = kind
-        if kind == "llama":
-            raise NotImplementedError(
-                "llama serving is not ported yet (ROADMAP.md Queue A "
-                "item 7)")
-        if kind != "gpt2":
-            raise ValueError(f"unknown model kind {kind!r}")
-        from ray_tpu_torch.models import gpt2
-        self.cfg = config or gpt2.GPT2Config.tiny()
-        model = gpt2.GPT2(self.cfg)
-        if params is None:
-            model.init_weights(torch.Generator().manual_seed(seed))
+        self.cfg, self.model = build_model(kind, config, params, seed,
+                                           self.device)
+        cfg = self.cfg
+        if kind == "gpt2":
+            self.n_layers, self.n_kv_heads = cfg.n_layer, cfg.n_head
+            self.head_dim = cfg.n_embd // cfg.n_head
         else:
-            gpt2.params_from_flax(params, model)
-        # serving stores the weights in cfg.dtype (flax casts its f32
-        # params at every call: the same values)
-        self.model = model.to_compute_dtype().to(self.device).eval()
-        self.n_layers = self.cfg.n_layer
-        self.n_kv_heads = self.cfg.n_head
-        self.head_dim = self.cfg.n_embd // self.cfg.n_head
-        self.vocab_size = self.cfg.vocab_size
-        self.max_seq_len = self.cfg.n_positions
+            self.n_layers, self.n_kv_heads = cfg.n_layers, cfg.n_kv_heads
+            self.head_dim = cfg.head_dim
+        self.vocab_size = cfg.vocab_size
+        self.max_seq_len = model_positions(cfg)
         self.decode_steps = 0       # batched single-token steps run
         self._lock = threading.Lock()
 
@@ -382,9 +410,9 @@ class TorchModelAdapter:
 
 def make_adapter(model: str = "toy",
                  model_config: Optional[Dict[str, Any]] = None):
-    """Deployment-facing factory: ``model`` is ``toy`` | ``gpt2``
-    (tiny test config unless ``model_config`` overrides; its
-    ``device`` defaults to ``cuda``). ``llama`` is not ported yet."""
+    """Deployment-facing factory: ``model`` is ``toy`` | ``gpt2`` |
+    ``llama`` (tiny test configs unless ``model_config`` overrides; its
+    ``device`` defaults to ``cuda``)."""
     model_config = dict(model_config or {})
     if model == "toy":
         return ToyAdapter(**model_config)

@@ -20,12 +20,12 @@ greedy decode produces — token-for-token identity is a theorem, not a
 tuning goal; tests/test_torch_llm_engine.py asserts it for the toy
 model.
 
-Counterpart of ``ray_tpu/serve/llm/spec_decode.py``: ``greedy_verify``
-and ``ToyDraft`` are ported; the model draft (``FlaxDraft`` there)
-waits for its ROADMAP.md item (Queue A item 7).
+Counterpart of ``ray_tpu/serve/llm/spec_decode.py``: ``greedy_verify``,
+``ToyDraft`` and ``TorchDraft`` (``FlaxDraft`` there).
 
 Drafts are *stateless* (no paged cache): the toy draft replays the
-toy adapter's closed-form logits.
+toy adapter's closed-form logits; a model draft runs one full forward
+per proposed token.
 """
 
 from __future__ import annotations
@@ -33,6 +33,10 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
+
+from ray_tpu_torch.serve.llm.model_runner import (_pad_pow2, build_model,
+                                                  model_positions)
 
 
 def greedy_verify(window: Sequence[int],
@@ -81,15 +85,53 @@ class ToyDraft:
         return out
 
 
+class TorchDraft:
+    """Greedy draft over a gpt2/llama model (the tiny test configs
+    unless ``config`` is given; weights from flax ``params`` or seeded
+    as the adapter seeds them, so a draft of the target's config and
+    seed is the target): one full non-incremental forward per proposed
+    token, its length padded to a power of two >= 8 and capped at the
+    model's positions, and the LM head on the last real token only. No
+    paged cache: speculation never touches the target's KV pool. Runs
+    on ``cuda`` unless the caller asks for ``cpu``."""
+
+    def __init__(self, kind: str = "gpt2", config=None, params=None,
+                 seed: int = 0, device="cuda"):
+        self.kind = kind
+        self.cfg, self.model = build_model(kind, config, params, seed,
+                                           device)
+        self.device = next(self.model.parameters()).device
+        self.vocab_size = self.cfg.vocab_size
+        self.max_seq_len = model_positions(self.cfg)
+
+    @torch.no_grad()
+    def propose(self, tokens: Sequence[int], k: int) -> List[int]:
+        toks = [int(t) for t in tokens]
+        out: List[int] = []
+        for _ in range(int(k)):
+            n = len(toks)
+            if n >= self.max_seq_len:
+                break
+            padded = np.zeros((1, min(_pad_pow2(n, 8), self.max_seq_len)),
+                              np.int64)
+            padded[0, :n] = toks
+            # causal attention: positions < n never see the padding
+            h = self.model.trunk(torch.from_numpy(padded).to(self.device))
+            logits = self.model.head(h[:, n - 1]).float()
+            t = int(logits[0].argmax())
+            out.append(t)
+            toks.append(t)
+        return out
+
+
 def make_draft(model: str = "toy",
                model_config: Optional[Dict[str, Any]] = None):
     """Engine-facing factory mirroring ``make_adapter``: ``model`` is
-    ``toy``; ``gpt2`` and ``llama`` drafts are not ported yet."""
+    ``toy`` | ``gpt2`` | ``llama`` (a model draft's ``device`` defaults
+    to ``cuda``)."""
     model_config = dict(model_config or {})
     if model == "toy":
         return ToyDraft(**model_config)
     if model in ("gpt2", "llama"):
-        raise NotImplementedError(
-            f"draft model {model!r} is not ported yet (ROADMAP.md Queue A "
-            "item 7: model drafts for speculative decoding)")
+        return TorchDraft(kind=model, **model_config)
     raise ValueError(f"unknown draft model {model!r} (toy|gpt2|llama)")

@@ -1,5 +1,7 @@
 """The port stands alone: no module of ``ray_tpu_torch/`` and not
-``chip_smoke.py`` imports JAX, flax, optax or the JAX package.
+``chip_smoke.py`` imports JAX, flax, optax, the JAX package or
+``transformers`` (the card machine has none of them; the HF imports
+read local state_dicts).
 
 Checked on the source (AST), not on ``sys.modules``: a process may
 have JAX loaded for reasons of its own.
@@ -11,7 +13,7 @@ import os
 import pytest
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ray_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ray_tpu", "transformers")
 
 
 def _port_files():

@@ -40,6 +40,9 @@ SHAPES = [
     (4, 8, 2, 32, 4, 6, [0, 9, 24, 13]),
     (2, 32, 8, 128, 16, 256, [4096, 1]),
     (8, 12, 12, 64, 16, 64, [0, 1, 127, 128, 129, 256, 257, 1024]),
+    # Llama-2-7B serving: G = 1 at D 128, a full 128-page table
+    (16, 32, 32, 128, 16, 128, [1, 17, 127, 128, 129, 255, 256, 257, 700,
+                                 1023, 1024, 1025, 1536, 2000, 2047, 2048]),
 ]
 
 
@@ -60,7 +63,8 @@ def _inputs(B, H, Hkv, D, bs, NB, lengths, dtype, seed=0):
 @pytest.mark.parametrize("shape", SHAPES, ids=["serve", "gqa", "tiny",
                                                "padding-row",
                                                "long-small-batch",
-                                               "split-edges"])
+                                               "split-edges",
+                                               "llama-serve"])
 def test_paged_decode_kernel_matches_plain_version(shape, dtype):
     """f32 within 1e-4; bf16 within 2e-2 on unit-normal inputs, since
     p is rounded to bf16 against a running max rather than the final

@@ -121,11 +121,13 @@ def test_spec_decode_toy_identity():
     assert run(3) == run(0)
 
 
-def test_unported_models_raise_not_implemented():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_draft("gpt2")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_adapter("llama", {"device": "cpu"})
+def test_unknown_models_raise_value_error():
+    with pytest.raises(ValueError, match="unknown draft model"):
+        make_draft("x")
+    with pytest.raises(ValueError, match="unknown model"):
+        make_adapter("x")
+    with pytest.raises(ValueError, match="unknown model kind"):
+        TorchModelAdapter("x", device="cpu")
 
 
 # ------------------------------------------------- torch vs flax GPT-2

@@ -134,6 +134,18 @@ def test_kernel_argument_checks(case):
                               a["block_tables"], a["lengths"])
 
 
+def test_split_plan_at_llama_serve_shape():
+    """Llama-2-7B serving (B 16, H = Hkv = 32, D 128, bs 16, NB 128,
+    bf16): tiles of 32 tokens in boxes of a page, splits of 8 pages, 16
+    splits covering the table; G = 1 passes the kernel's checks."""
+    plan = TA.paged_split_plan(16, 32, 128, 16, 128, 2)
+    assert plan == (32, 8, 16, 16, (16, 32, 16, 130), 32 * 1024 + 16 + 4 * 8)
+    a = _torch(_inputs(16, 32, 32, 128, 16, 128, [1] * 15 + [2048]))
+    TA._check_kernel_args(a["q"].bfloat16(), a["k_pages"].bfloat16(),
+                          a["v_pages"].bfloat16(), a["block_tables"],
+                          a["lengths"])
+
+
 def test_kernel_tile_fits_shared_memory():
     """The split plan at the serving shape (B 16, H 12, D 64, bs 16,
     NB 64, bf16): tiles of 64 tokens (8 KB of K) loaded a page (16
