@@ -130,10 +130,44 @@ Phases, each of which fails the run (non-zero exit, no result line):
               no kernel of the port; step time and img/s beside phase
               11's; one profiled step by RESNET_PROFILE_GROUPS. The group
               is destroyed at the end.
+14. parallel — sp, pp and ep (run before the summary). The card is one
+              H100, so every multi-rank path is held on the CPU (gloo
+              ranks, tests/test_torch_{ring_attention,pipeline,moe}.py
+              and the dry run); here: (a) the ring's block schedule at
+              Llama-2-7B's attention widths (b1, h32, d128, bf16) over
+              sp = 4 x 4,096 = 16,384 tokens, every rank's forward and
+              backward in this process (ring_attention.simulated_ring:
+              the ring's own per-block steps and merge, the transport
+              replaced), 10 launches of each streaming kernel and one
+              delta pass a rank; concatenated, o, lse, dq, dk and dv are
+              held against the streaming kernels called once on the
+              whole sequence (RING_RATIO against the f64 function);
+              each rank's device time beside a quarter of the whole
+              sequence's; at a small shape the ring through the kernels
+              against the ring through their plain versions (BF16_RATIO
+              against the f64 function). (b) make_causal_lm_trainer on
+              GPT-2 small with attention_backend="ring" on a NCCL group
+              of one rank (sp = 1: one causal block a layer), 16 x
+              1024: one step within MESH_REL of the exact=True route's,
+              then bench.gpt2_loop with it: each streaming kernel and
+              the delta pass once a layer a step, no whole-kv launch;
+              step time beside phase 6's. (c) make_pipelined_lm_trainer
+              on GPT-2 small at pp = 1 on the same group, M = 4
+              microbatches of 4 x 1024 bf16 (phase 6's tokens a step):
+              the step's loss equals eval_loss before it (MESH_REL),
+              the loss falls; a step launches the whole-kv forward
+              2 n_layer M times (the stage's forward, then again under
+              remat in the backward), the backward and the delta pass
+              n_layer M times; step time, tokens/s and peak memory
+              beside phase 6's; one profiled step (informational, after
+              the counts). (d) the MoE step of the dry run's phase
+              4 (4 experts, d 16, d_ff 32, 16 tokens) in f32 on the card
+              against the same step on the CPU (MOE_RTOL, MOE_ATOL).
 13. summary — nvidia-smi's card line, the kernels line (each kernel's
               launches by the path that counted them: phases 4, 5b, 6,
-              8 and 12; paged decode's entry also carries its Llama
-              serve case), then the device line, last.
+              8, 12 and 14; paged decode's entry also carries its Llama
+              serve case, the streaming kernels' the ring's), then the
+              device line, last.
 
 Exits non-zero without printing a result when CUDA is absent or when
 the repository's package is not beside this script.
@@ -141,6 +175,7 @@ the repository's package is not beside this script.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -210,6 +245,17 @@ PARAM_MASK = 1e-6
 # phase 12c: GPT-2's f32 step on the mesh route (world size 1) against
 # the route without a group: loss and grad_norm within MESH_REL relative
 MESH_REL = 1e-6
+# phase 14a: the ring's bf16 outputs against the whole-sequence streaming
+# kernels', each measured against the f64 function: the ring's max and
+# rms error at most RING_RATIO times the whole sequence's. The ring
+# rounds each block's o and each rank's dk, dv and dq parts to bf16
+# before it sums them in f32; a CPU rehearsal with the plain versions (b1,
+# h2 and h4, 4 ranks of 512 and 256, d 128 and 64) gave ratios up to
+# 1.70 (max) and 1.23 (rms), so the rms bound is above BF16_RATIO's.
+RING_RATIO = (3.0, 1.5)
+# phase 14d: the f32 MoE step on the card against the CPU, at
+# tests/test_moe.py's tolerances
+MOE_RTOL, MOE_ATOL = 1e-4, 1e-5
 
 
 def require(cond: bool, msg: str):
@@ -329,10 +375,10 @@ def hold_outputs(name, dtype, outs, refs) -> dict:
     return abs_err
 
 
-def held_outputs(pairs, refs, names):
+def held_outputs(pairs, refs, names, ratio=BF16_RATIO):
     """``hold_outputs``'s rule on [(kernel, plain), ...]: (held, bad),
     held[name] = the f32 measure (a float) or the bf16 ratios (max,
-    rms); bad = the names outside F32_TOL or BF16_RATIO. ``refs()`` is
+    rms); bad = the names outside F32_TOL or ``ratio``. ``refs()`` is
     called only when some output is bf16."""
     from ray_tpu_torch.ops import attention as A
     import torch
@@ -345,7 +391,7 @@ def held_outputs(pairs, refs, names):
             ok = held[n] <= F32_TOL
         else:
             held[n] = A.error_ratios(a, b, ref[i])
-            ok = held[n][0] <= BF16_RATIO[0] and held[n][1] <= BF16_RATIO[1]
+            ok = held[n][0] <= ratio[0] and held[n][1] <= ratio[1]
         if not ok:
             bad.append(n)
     return held, bad
@@ -884,8 +930,6 @@ def mesh_phase(cfg, tokens, phase6, phase11, name, card):
     the exact=True line, (b) ResNet-50; the group is destroyed however
     the phase ends. Returns the kernels' launch counts of (a)'s timed
     steps ("gpt2_train") and of the exact step ("gpt2_exact")."""
-    import tempfile
-    import shutil
     import torch
     import torch.distributed as dist
     from ray_tpu_torch import bench, kernels
@@ -896,11 +940,7 @@ def mesh_phase(cfg, tokens, phase6, phase11, name, card):
     narrow = dataclasses.replace(cfg, n_layer=2, dtype=torch.float32)
     plain = {"gpt2": one_step(narrow, A.TRAINING_KERNELS, tokens),
              "resnet": resnet_narrow_step("cuda")}
-    store = tempfile.mkdtemp(prefix="chip_smoke_store_")
-    collectives.initialize_distributed(
-        "file://" + os.path.join(store, "store"), 1, 0,
-        local_device_ids=[0], backend="nccl")
-    try:
+    with one_rank_group():
         # (c) the mesh route against the route without a group
         collectives.reset_call_counts()
         mesh_gpt2 = one_step(narrow, A.TRAINING_KERNELS, tokens)
@@ -999,10 +1039,279 @@ def mesh_phase(cfg, tokens, phase6, phase11, name, card):
             "max_memory_allocated_bytes": r["max_memory_allocated_bytes"],
             "device": name, "nvidia_smi": card}), flush=True)
         print("mesh_resnet_profile", json.dumps(r["profile"]), flush=True)
+    return out
+
+
+@contextlib.contextmanager
+def one_rank_group():
+    """A NCCL process group of one rank in this process (a file store in
+    a new temporary directory), destroyed however the block ends."""
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from ray_tpu_torch.parallel import collectives
+    store = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    collectives.initialize_distributed(
+        "file://" + os.path.join(store, "store"), 1, 0,
+        local_device_ids=[0], backend="nccl")
+    try:
+        yield
     finally:
         dist.destroy_process_group()
         shutil.rmtree(store, ignore_errors=True)
-    return out
+
+
+def ring_inputs(B, H, S, D, seed=SEED):
+    """q (pre-scaled by D^-0.5, as the ring hands it to each block), k,
+    v and do [B, H, S, D] bf16 on the card, from a seeded generator."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn(B, H, S, D, generator=g).to(
+        "cuda", torch.bfloat16) for _ in range(4))
+    return (q * D ** -0.5).to(torch.bfloat16), k, v, do
+
+
+def whole_sequence(q, k, v, do, impl):
+    """``impl``'s streaming triple once on the whole sequence, causal:
+    (o, lse, dq, dk, dv)."""
+    o, lse = impl.forward(q, k, v, causal=True)
+    delta = impl.delta(o, do)
+    dk, dv = impl.backward_dkv(q, k, v, do, lse, delta, causal=True)
+    dq = impl.backward_dq(q, k, v, do, lse, delta, causal=True)
+    return o, lse, dq, dk, dv
+
+
+def f64_yardstick(q, k, v, do):
+    """The whole sequence's (o, lse, dq, dk, dv) in f64, causal, a few
+    heads at a time (the backward from the exact o and lse)."""
+    from ray_tpu_torch.ops import attention as A
+    o, lse = A.flash_attention_forward_f64(q, k, v, causal=True)
+    return (o, lse) + A.flash_attention_backward_f64(q, k, v, o, lse, do,
+                                                     causal=True)
+
+
+def ring_phase(n, sl, name, card) -> dict:
+    """Phase 14a: the ring's schedule for every rank of an ``n``-rank
+    ring of ``sl`` tokens a rank at Llama-2-7B's attention widths, in
+    this process. Returns the launch counts and the times."""
+    import torch
+    from ray_tpu_torch import kernels
+    from ray_tpu_torch.ops import attention as A
+    from ray_tpu_torch.ops import ring_attention as R
+    names = ("o", "lse", "dq", "dk", "dv")
+    B, H, D = 1, 32, 128
+    q, k, v, do = ring_inputs(B, H, n * sl, D)
+    K = A.TRAINING_KERNELS
+    kernels.reset_launch_counts()
+    ring = R.simulated_ring(q, k, v, do, n, impl=K)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    blocks = n * (n + 1) // 2
+    want = {"flash_attention_forward": blocks,
+            "flash_attention_backward_dkv": blocks,
+            "flash_attention_backward_dq": blocks, "attention_delta": n}
+    require(counts == want, f"ring schedule launched {counts}, want {want}")
+    whole = whole_sequence(q, k, v, do, K)
+    torch.cuda.synchronize()
+    require(all(bool(torch.isfinite(t).all()) for t in ring),
+            "ring: non-finite output")
+    held, bad = held_outputs(list(zip(ring, whole)),
+                             lambda: f64_yardstick(q, k, v, do), names,
+                             RING_RATIO)
+    max_abs = {n_: float((a.float() - b.float()).abs().max())
+               for n_, a, b in zip(names, ring, whole)}
+
+    # each rank's device time: CUDA events between the schedule's steps
+    # (one stream, so the events split the device's time among the ranks)
+    def timed_ring():
+        marks = []
+
+        def on_step(rank):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((rank, ev))
+        R.simulated_ring(q, k, v, do, n, impl=K, on_step=on_step)
+        torch.cuda.synchronize()
+        ms = [0.0] * n
+        for (rank, a), (_, b) in zip(marks, marks[1:]):
+            if rank is not None:
+                ms[rank] += a.elapsed_time(b)
+        return ms
+    rank_ms = [min(x) for x in zip(*[timed_ring() for _ in range(3)])]
+    whole_ms = []
+    for _ in range(3):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        whole_sequence(q, k, v, do, K)
+        e1.record()
+        torch.cuda.synchronize()
+        whole_ms.append(e0.elapsed_time(e1))
+    res = {"shape": [B, H, n * sl, D], "sp": n, "tokens_per_rank": sl,
+           "dtype": "bfloat16", "causal": True, "launches": counts,
+           "held_against_whole": held, "max_abs_err": max_abs,
+           "tol": {"float32": F32_TOL, "bfloat16": RING_RATIO},
+           "rank_ms": rank_ms, "whole_ms": min(whole_ms),
+           "whole_quarter_ms": min(whole_ms) / n,
+           "last_rank_over_quarter": rank_ms[-1] / (min(whole_ms) / n),
+           "device": name, "nvidia_smi": card}
+    print("ring_schedule", json.dumps(res), flush=True)
+    require(not bad, f"ring vs whole sequence: {bad} outside their "
+            f"tolerance: {held}")
+    del q, k, v, do, ring, whole
+    torch.cuda.empty_cache()
+
+    # kernel blocks against plain blocks, both rings, at a shape where
+    # the f64 function and the plain versions are cheap
+    q, k, v, do = ring_inputs(1, 4, n * 512, D, SEED + 1)
+    kern = R.simulated_ring(q, k, v, do, n, impl=K)
+    plain = R.simulated_ring(q, k, v, do, n, impl=A.TRAINING_PLAIN)
+    hold_outputs(f"ring {n} x 512, kernels vs plain blocks", "bfloat16",
+                 dict(zip(names, zip(kern, plain))),
+                 lambda: f64_yardstick(q, k, v, do))
+    return res
+
+
+def ring_trainer_phase(phase6, name, card) -> dict:
+    """Phase 14b: GPT-2 small with attention_backend="ring" through
+    make_causal_lm_trainer on the one-rank NCCL group (sp = 1). Returns
+    the launch counts of the bench's timed steps."""
+    import torch
+    from ray_tpu_torch import bench, kernels
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.train import spmd
+    cfg = gpt2.GPT2Config.small()
+    ring_cfg = dataclasses.replace(cfg, attention_backend="ring")
+    tokens = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (16, 1024), dtype=np.int32)
+    steps = {}
+    for label, c, exact in (("ring", ring_cfg, False),
+                            ("exact", cfg, True)):
+        tr = spmd.make_causal_lm_trainer(c, exact=exact)
+        st = tr.init(SEED)
+        batch = spmd.put_batch(tr, {"input_ids": tokens, "labels": tokens})
+        kernels.reset_launch_counts()
+        st, m = tr.step(st, batch)
+        steps[label] = {"loss": float(m["loss"]),
+                        "grad_norm": float(m["grad_norm"]),
+                        "launches": kernels.launch_counts()}
+        del tr, st, batch
+        torch.cuda.empty_cache()
+    rel = {k: abs(steps["ring"][k] - steps["exact"][k])
+           / abs(steps["exact"][k]) for k in ("loss", "grad_norm")}
+    print("ring_trainer_step", json.dumps({**steps, "rel": rel,
+                                           "tol": MESH_REL}), flush=True)
+    require(max(rel.values()) <= MESH_REL,
+            f"ring trainer vs exact=True: {rel}")
+    g = bench.gpt2_loop(config=ring_cfg)
+    counts, n_steps = g["gpt2_launches"], g["gpt2_steps_timed"]
+    want = {k: cfg.n_layer * n_steps for k in
+            ("flash_attention_forward", "flash_attention_backward_dkv",
+             "flash_attention_backward_dq", "attention_delta")}
+    require(counts == want, f"ring trainer launched {counts}, want {want}")
+    require(all(math.isfinite(x) for x in g["gpt2_losses"])
+            and g["gpt2_losses"][-1] < g["gpt2_losses"][0],
+            f"ring trainer: losses {g['gpt2_losses']}")
+    print("ring_train", json.dumps({
+        "model": "gpt2-small, attention_backend=ring, sp 1",
+        "step_time_ms": g["gpt2_step_time_ms"],
+        "tokens_per_sec": g["gpt2_tokens_per_sec_per_chip"],
+        "phase6_step_time_ms": phase6["gpt2_step_time_ms"],
+        "phase6_tokens_per_sec": phase6["gpt2_tokens_per_sec_per_chip"],
+        "launches": counts, "steps_timed": n_steps,
+        "max_memory_allocated_bytes": g["gpt2_max_memory_allocated_bytes"],
+        "losses": g["gpt2_losses"], "device": name, "nvidia_smi": card}),
+        flush=True)
+    return counts
+
+
+def pipelined_phase(phase6, name, card) -> dict:
+    """Phase 14c: make_pipelined_lm_trainer on GPT-2 small at pp = 1 on
+    the one-rank NCCL group, M = 4 microbatches of 4 x 1024 bf16.
+    Returns the launch counts of the timed steps."""
+    import torch
+    from ray_tpu_torch import kernels
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.train import spmd
+    cfg = gpt2.GPT2Config.small()
+    M, mb, T = 4, 4, 1024
+    warmup, windows, per_window = 1, 3, 2
+    tr = spmd.make_pipelined_lm_trainer(cfg)
+    st = tr.init(SEED)
+    tokens = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (M, mb, T), dtype=np.int32)
+    batch = spmd.put_batch(tr, {"input_ids": tokens, "labels": tokens})
+    torch.cuda.reset_peak_memory_stats()
+    ref = float(tr.eval_loss(st, batch))
+    st, m = tr.step(st, batch)
+    first = float(m["loss"])
+    rel = abs(first - ref) / abs(ref)
+    losses = [first]
+    for _ in range(warmup):
+        losses.append(float(tr.step(st, batch)[1]["loss"]))
+    kernels.reset_launch_counts()
+    host_ms = []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ms = [tr.step(st, batch)[1]["loss"] for _ in range(per_window)]
+        losses += [float(x) for x in ms]        # host read: synchronised
+        host_ms.append((time.perf_counter() - t0) * 1e3 / per_window)
+    counts = kernels.launch_counts()
+    n_steps = windows * per_window
+    L = cfg.n_layer
+    want = {"whole_attention_forward": 2 * L * M * n_steps,
+            "whole_attention_backward": L * M * n_steps,
+            "attention_delta": L * M * n_steps}
+    best = min(host_ms)
+    res = {"model": "gpt2-small, pipelined, pp 1", "microbatches": M,
+           "microbatch": [mb, T], "eval_loss": ref, "first_step_loss": first,
+           "loss_rel_to_eval_loss": rel, "tol": MESH_REL,
+           "step_time_ms": best, "tokens_per_sec": M * mb * T / best * 1e3,
+           "ms_by_window": host_ms,
+           "phase6_step_time_ms": phase6["gpt2_step_time_ms"],
+           "phase6_tokens_per_sec": phase6["gpt2_tokens_per_sec_per_chip"],
+           "launches": counts, "launches_want": want,
+           "steps_timed": n_steps,
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "phase6_max_memory_allocated_bytes":
+               phase6["gpt2_max_memory_allocated_bytes"],
+           "losses": losses, "device": name, "nvidia_smi": card}
+    print("pipelined_train", json.dumps(res), flush=True)
+    require(all(math.isfinite(x) for x in losses), f"pipelined: {losses}")
+    require(rel <= MESH_REL, f"pipelined step loss {first} vs eval_loss {ref}")
+    require(losses[-1] < losses[0], f"pipelined: loss did not fall {losses}")
+    require(counts == want, f"pipelined launched {counts}, want {want}")
+    print("pipelined_profile", json.dumps(profile_step(
+        lambda: tr.step(st, batch))), flush=True)
+    del tr, st, batch
+    torch.cuda.empty_cache()
+    return counts
+
+
+def moe_phase() -> dict:
+    """Phase 14d: the dry run's phase 4 MoE step (one device) in f32 on
+    the card against the same step on the CPU."""
+    from ray_tpu_torch.parallel import dryrun
+    x = np.random.default_rng(5).standard_normal((16, 16)).astype(
+        np.float32)
+    cpu, card = dryrun.moe_sgd(None, x), dryrun.moe_sgd(None, x,
+                                                         device="cuda")
+    pairs = {"losses": (card["losses"], cpu["losses"]),
+             "y": (card["y"], cpu["y"]), "aux": (card["aux"], cpu["aux"]),
+             **{f"grad {k}": (card["grads"][k], v)
+                for k, v in cpu["grads"].items()}}
+    err = {k: float(np.max(np.abs(np.asarray(a) - np.asarray(b))))
+           for k, (a, b) in pairs.items()}
+    ok = {k: bool(np.allclose(a, b, rtol=MOE_RTOL, atol=MOE_ATOL))
+          for k, (a, b) in pairs.items()}
+    res = {"losses_cuda": card["losses"], "losses_cpu": cpu["losses"],
+           "max_abs_err": err, "tol": {"rtol": MOE_RTOL, "atol": MOE_ATOL}}
+    print("moe_step", json.dumps(res), flush=True)
+    require(all(ok.values()), f"moe card vs cpu: {ok}")
+    require(card["losses"][1] < card["losses"][0],
+            f"moe: loss did not fall {card['losses']}")
+    return res
 
 
 def serve_streams(server, prompts, new_tokens: int):
@@ -1623,6 +1932,15 @@ def main() -> int:
     mesh_counts = mesh_phase(cfg, tokens, g, phase11, name, card)
     torch.cuda.empty_cache()
 
+    # 14. parallel: the ring's schedule at full width, the ring and the
+    # pipeline through their trainers on a NCCL group of one rank, MoE
+    ring = ring_phase(4, 4096, name, card)
+    with one_rank_group():
+        ring_train_counts = ring_trainer_phase(g, name, card)
+        pipe_counts = pipelined_phase(g, name, card)
+    moe_phase()
+    torch.cuda.empty_cache()
+
     # 13. summary
     def kernel_entry(case, kname, source, line, by_path):
         """``by_path``: {path: launches of ``kname`` in its counted
@@ -1643,9 +1961,14 @@ def main() -> int:
                 if kname in counts}
 
     gpt2_paths = (("gpt2_train", train_counts),
-                  ("mesh_gpt2_train", mesh_counts["gpt2_train"]))
+                  ("mesh_gpt2_train", mesh_counts["gpt2_train"]),
+                  ("pipelined_train", pipe_counts))
     streaming_paths = (("llama_train", llama_counts),
-                       ("mesh_gpt2_exact", mesh_counts["gpt2_exact"]))
+                       ("mesh_gpt2_exact", mesh_counts["gpt2_exact"]),
+                       ("ring_schedule", ring["launches"]),
+                       ("ring_train", ring_train_counts))
+    ring_case = {k: ring[k] for k in ("shape", "sp", "rank_ms", "whole_ms",
+                                      "last_rank_over_quarter")}
     main_whole = whole["a: train shape", "bfloat16"]
     main_flash = flash["a: llama train shape", "bfloat16"]
     summary = {"kernels": [
@@ -1660,8 +1983,9 @@ def main() -> int:
                        by_path(kname, *gpt2_paths))
           for kname, line in (("whole_attention_forward", 86),
                               ("whole_attention_backward", 110))),
-        *(kernel_entry(main_flash[kname], kname, "flash_attention.cu", line,
-                       by_path(kname, *streaming_paths))
+        *({**kernel_entry(main_flash[kname], kname, "flash_attention.cu",
+                          line, by_path(kname, *streaming_paths)),
+           "ring_case": ring_case}
           for kname, line in zip(streaming_names, (303, 410, 469))),
         # the delta pass of both backwards: in the JAX package a jnp.sum
         # in _whole_backward (:262) and _flash_backward (:528) that XLA

@@ -191,14 +191,15 @@ def resnet_loop(device="cuda", make_feed=None, profile=None) -> dict:
     return out
 
 
-def gpt2_loop(device="cuda", profile=None) -> dict:
+def gpt2_loop(device="cuda", profile=None, config=None) -> dict:
     """GPT-2 small train-step throughput, ``bench.py:gpt2_loop``'s keys.
 
     On ``cuda``: GPT-2 small (flash attention, bf16), batch 16 x 1024,
     2 warm-up steps, best of 6 windows of 5 steps. On ``cpu``: a tiny
     GPT-2 (2 layers, 64 wide, plain attention, f32), batch 2 x 32, 1
-    warm-up step, 1 window of 2. Seeded tokens, repeated. ``profile``:
-    see ``_timed_run``."""
+    warm-up step, 1 window of 2. Seeded tokens, repeated. ``config``
+    (a ``GPT2Config``) replaces the model's configuration (the batch
+    and the windows stay). ``profile``: see ``_timed_run``."""
     from ray_tpu_torch.models.gpt2 import GPT2Config
     from ray_tpu_torch.parallel.mesh import MeshSpec
     from ray_tpu_torch.train.spmd import make_causal_lm_trainer, put_batch
@@ -217,6 +218,7 @@ def gpt2_loop(device="cuda", profile=None) -> dict:
                          dtype=torch.float32)
         batch, seq = 2 * n_dev, 32
         windows, per_window, warmup = 1, 2, 1
+    cfg = config or cfg
 
     trainer = make_causal_lm_trainer(cfg, spec=MeshSpec(dp=n_dev),
                                      device=dev)

@@ -20,7 +20,9 @@ Counterpart of ``ray_tpu/models/gpt2.py`` with the same numerics:
 
 ``attention_backend="flash"`` runs ``ops.attention.flash_attention``
 (the whole-kv CUDA kernels at GPT-2's shapes; the streaming ones with
-``exact=True``), ``"reference"`` the plain attention. With ``kv_cache``
+``exact=True``), ``"reference"`` the plain attention, ``"ring"``
+``ops.ring_attention`` over the mesh's sp axis (one causal block of the
+streaming kernels without a mesh). With ``kv_cache``
 the forward is one incremental step over a contiguous cache
 (``init_kv_cache``) or one layer of a paged pool (the serve engine).
 
@@ -31,6 +33,12 @@ the LayerNorms run whole on every rank. Every param is used whole (the
 trainer gathers it), and each slice one rank works on passes through
 ``collectives.psum_backward``, so that after the backward every rank
 holds the whole gradient of every param for its batch rows.
+
+On a mesh with sp > 1 each rank holds its slice of the sequence:
+positions (``wpe``'s rows) start at its sp index times its length, and
+the attention of every backend goes through the ring (the blocks'
+plain versions for ``"reference"``, the streaming kernels otherwise):
+the same exact attention over the whole sequence.
 """
 
 from __future__ import annotations
@@ -46,10 +54,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ray_tpu_torch.device import resolve_device
-from ray_tpu_torch.ops.attention import (TRAINING_KERNELS, TrainingAttention,
+from ray_tpu_torch.ops.attention import (TRAINING_KERNELS, TRAINING_PLAIN,
+                                         TrainingAttention,
                                          attention_reference,
                                          cached_attention, flash_attention,
                                          paged_attention_decode)
+from ray_tpu_torch.ops.ring_attention import ring_attention
 from ray_tpu_torch.parallel import collectives as C
 
 
@@ -62,7 +72,7 @@ class GPT2Config:
     n_head: int = 12
     dropout: float = 0.0
     dtype: Any = torch.bfloat16
-    attention_backend: str = "flash"  # flash | reference
+    attention_backend: str = "flash"  # flash | ring | reference
 
     @classmethod
     def small(cls):  # gpt2 124M
@@ -146,6 +156,7 @@ class CausalSelfAttention(nn.Module):
         self.impl = impl
         self.exact = False
         self.tp_mesh = None
+        self.sp_mesh = None
         self.c_attn = Dense(cfg.n_embd, 3 * cfg.n_embd, cfg.dtype)
         self.c_proj = Dense(cfg.n_embd, cfg.n_embd, cfg.dtype)
 
@@ -177,16 +188,20 @@ class CausalSelfAttention(nn.Module):
         def heads(t):  # [B,S,H*D] -> [B,H,S,D]
             return t.reshape(B, S, H, HD // H).transpose(1, 2)
         backend = self.cfg.attention_backend
-        if backend == "flash":
+        if backend not in ("flash", "ring", "reference"):
+            raise ValueError(f"attention_backend={backend!r}: flash, ring "
+                             "or reference")
+        if backend == "ring" or self.sp_mesh is not None:
+            y = ring_attention(
+                heads(q), heads(k), heads(v), mesh=self.sp_mesh,
+                causal=True,
+                impl=TRAINING_PLAIN if backend == "reference" else self.impl)
+        elif backend == "flash":
             y = flash_attention(heads(q), heads(k), heads(v), causal=True,
                                 exact=self.exact, impl=self.impl)
-        elif backend == "reference":
+        else:
             y = attention_reference(heads(q), heads(k), heads(v),
                                     causal=True)
-        else:
-            raise NotImplementedError(
-                f"attention_backend={backend!r} is not ported "
-                "(ring attention: ROADMAP.md Queue A item 8)")
         return y.transpose(1, 2).reshape(B, S, HD)
 
     def _forward_tp(self, x):
@@ -273,6 +288,7 @@ class GPT2(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.tp_mesh = None
+        self.sp_mesh = None
         self.wte = Embed(cfg.vocab_size, cfg.n_embd, cfg.dtype)
         self.wpe = Embed(cfg.n_positions, cfg.n_embd, cfg.dtype)
         for i in range(cfg.n_layer):
@@ -292,18 +308,17 @@ class GPT2(nn.Module):
 
     def set_mesh(self, mesh):
         """Split the attention heads, the MLP's hidden units and the tied
-        head's contraction over ``mesh``'s tp axis (nothing at tp = 1).
-        n_head, 4 n_embd and n_embd must divide by tp."""
-        tp = mesh.size("tp")
-        cfg = self.cfg
-        if tp > 1 and (cfg.n_head % tp or cfg.n_embd % tp):
-            raise ValueError(f"tp={tp} must divide n_head={cfg.n_head} and "
-                             f"n_embd={cfg.n_embd}")
-        on = mesh if tp > 1 else None
-        self.tp_mesh = on
-        for blk in self.blocks():
-            blk.attn.tp_mesh = blk.mlp.tp_mesh = on
+        head's contraction over ``mesh``'s tp axis, and the sequence
+        over its sp axis (``set_blocks_mesh``)."""
+        self.tp_mesh, self.sp_mesh = set_blocks_mesh(self.blocks(), self.cfg,
+                                                     mesh)
         return self
+
+    def position_offset(self, seq_len: int) -> int:
+        """The global position of this rank's first token: its sp index
+        times ``seq_len`` (0 without sp)."""
+        mesh = self.sp_mesh
+        return 0 if mesh is None else mesh.index("sp") * seq_len
 
     def trunk(self, input_ids, positions=None, kv_cache=None,
               seq_lengths=None, valid=None,
@@ -322,7 +337,7 @@ class GPT2(nn.Module):
                 if valid is not None:
                     positions = torch.where(valid, positions, 0)
             else:
-                positions = ar
+                positions = ar + self.position_offset(S)
         x = dropout(self.wte(input_ids) + self.wpe(positions),
                     self.cfg.dropout, gen)
         for i, block in enumerate(self.blocks()):
@@ -369,26 +384,53 @@ class GPT2(nn.Module):
                 mod.to(self.cfg.dtype)
         return self
 
-    @torch.no_grad()
     def init_weights(self, generator: torch.Generator):
-        """flax's initialisers, drawn from ``generator``: lecun-normal
-        Dense kernels (normal truncated at 2 sigma), zero biases,
-        LayerNorm ones and zeros, Embed's normal(1 / sqrt(features))."""
-        for mod in self.modules():
-            if isinstance(mod, Dense):
-                std = math.sqrt(1.0 / mod.in_features) / .87962566103423978
-                mod.weight.copy_(_truncated_normal(mod.weight.shape,
-                                                   generator) * std)
+        """flax's initialisers, drawn from ``generator``
+        (``init_flax_weights``)."""
+        return init_flax_weights(self, generator)
+
+
+def set_blocks_mesh(blocks, cfg: GPT2Config, mesh):
+    """Set ``mesh`` on GPT-2 ``Block``s: under tp > 1 each tp rank
+    computes its heads of the attention and its columns of the MLP
+    (n_head and n_embd must divide by tp); under sp > 1 the rank's
+    tokens are its slice of the sequence and attention runs through
+    the ring. Returns (tp mesh, sp mesh), None where the axis has size
+    1."""
+    tp = mesh.size("tp")
+    if tp > 1 and (cfg.n_head % tp or cfg.n_embd % tp):
+        raise ValueError(f"tp={tp} must divide n_head={cfg.n_head} and "
+                         f"n_embd={cfg.n_embd}")
+    tp_mesh = mesh if tp > 1 else None
+    sp_mesh = mesh if mesh.size("sp") > 1 else None
+    for blk in blocks:
+        blk.attn.tp_mesh = blk.mlp.tp_mesh = tp_mesh
+        blk.attn.sp_mesh = sp_mesh
+    return tp_mesh, sp_mesh
+
+
+@torch.no_grad()
+def init_flax_weights(module: nn.Module, generator: torch.Generator):
+    """flax's initialisers on every Dense, Embed and LayerNorm of
+    ``module`` in module order, drawn from ``generator``: lecun-normal
+    Dense kernels (normal truncated at 2 sigma), zero biases, LayerNorm
+    ones and zeros, Embed's normal(1 / sqrt(features))."""
+    for mod in module.modules():
+        if isinstance(mod, Dense):
+            std = math.sqrt(1.0 / mod.in_features) / .87962566103423978
+            mod.weight.copy_(_truncated_normal(mod.weight.shape,
+                                               generator) * std)
+            if mod.bias is not None:
                 mod.bias.zero_()
-            elif isinstance(mod, Embed):
-                w = torch.empty(mod.weight.shape)
-                nn.init.normal_(w, std=mod.embedding_dim ** -0.5,
-                                generator=generator)
-                mod.weight.copy_(w)
-            elif isinstance(mod, LayerNorm):
-                mod.weight.fill_(1.0)
-                mod.bias.zero_()
-        return self
+        elif isinstance(mod, Embed):
+            w = torch.empty(mod.weight.shape)
+            nn.init.normal_(w, std=mod.embedding_dim ** -0.5,
+                            generator=generator)
+            mod.weight.copy_(w)
+        elif isinstance(mod, LayerNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+    return module
 
 
 def _truncated_normal(shape, generator: torch.Generator):
@@ -413,12 +455,20 @@ def causal_lm_loss(logits, labels, ignore_index: int = -100):
     return total / count.clamp(min=1)
 
 
-def causal_lm_loss_terms(logits, labels, ignore_index: int = -100):
+def causal_lm_loss_terms(logits, labels, ignore_index: int = -100,
+                         next_labels=None):
     """``causal_lm_loss``'s sum over the counted tokens and their count
     (f32): on a mesh each batch shard gives its two, and the loss is
-    the sum of the sums over the sum of the counts."""
-    shift_logits = logits[:, :-1]
-    shift_labels = labels[:, 1:].long()
+    the sum of the sums over the sum of the counts. ``next_labels``
+    ([B, 1], for a slice of the sequence): the label of the position
+    after the slice's last, so that its last logit is counted too
+    (``ignore_index`` where the sequence ends)."""
+    if next_labels is None:
+        shift_logits = logits[:, :-1]
+        shift_labels = labels[:, 1:].long()
+    else:
+        shift_logits = logits
+        shift_labels = torch.cat([labels[:, 1:], next_labels], 1).long()
     mask = shift_labels != ignore_index
     safe = torch.where(mask, shift_labels, 0)
     m = shift_logits.detach().amax(dim=-1)

@@ -20,8 +20,12 @@ numerics:
 ``attention_backend="flash"`` runs ``ops.attention.flash_attention``:
 the whole-kv kernels where ``_use_whole_kv`` holds (s <= 2048), the
 streaming kernels otherwise (Llama-2's 4096 tokens); ``"reference"``
-the plain attention; ``"ring"`` is not ported (ROADMAP.md Queue A item
-8).
+the plain attention; ``"ring"`` ``ops.ring_attention`` over the mesh's
+sp axis (``set_mesh``; one causal block of the streaming kernels
+without a mesh), the kv heads repeated over their query groups first,
+as in the JAX package. With sp > 1 each rank holds its slice of the
+sequence, rotated by its global positions, and every backend goes
+through the ring (plain blocks for ``"reference"``).
 
 With ``kv_cache`` the forward is one incremental step (the serving
 slice): the new tokens are rotated by their absolute positions, the
@@ -55,12 +59,14 @@ from torch import nn
 from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.models.gpt2 import (Dense, Embed, StateDict,
                                        _truncated_normal, read_state_dict)
-from ray_tpu_torch.ops.attention import (TRAINING_KERNELS, TrainingAttention,
-                                         _repeat_kv, attention_reference,
+from ray_tpu_torch.ops.attention import (TRAINING_KERNELS, TRAINING_PLAIN,
+                                         TrainingAttention, _repeat_kv,
+                                         attention_reference,
                                          cached_attention, flash_attention,
                                          paged_attention_decode)
+from ray_tpu_torch.ops.ring_attention import ring_attention
 
-_BACKENDS = ("flash", "reference")
+_BACKENDS = ("flash", "ring", "reference")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,7 +81,7 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     dtype: Any = torch.bfloat16
-    attention_backend: str = "flash"  # flash | reference (ring: not ported)
+    attention_backend: str = "flash"  # flash | ring | reference
 
     @property
     def head_dim(self) -> int:
@@ -146,6 +152,7 @@ class LlamaAttention(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.impl = impl
+        self.sp_mesh = None
         hd, dt = cfg.head_dim, cfg.dtype
         self.wq = Dense(cfg.dim, cfg.n_heads * hd, dt, bias=False)
         self.wk = Dense(cfg.dim, cfg.n_kv_heads * hd, dt, bias=False)
@@ -173,7 +180,12 @@ class LlamaAttention(nn.Module):
                 kv_cache, seq_lengths, valid=valid, paged_decode=paged_decode)
             return self.wo(y.reshape(B, S, H * hd)), kv_cache
         k, v = _repeat_kv(k, H // Hkv), _repeat_kv(v, H // Hkv)
-        if cfg.attention_backend == "flash":
+        backend = cfg.attention_backend
+        if backend == "ring" or self.sp_mesh is not None:
+            y = ring_attention(
+                q, k, v, mesh=self.sp_mesh, causal=True,
+                impl=TRAINING_PLAIN if backend == "reference" else self.impl)
+        elif backend == "flash":
             y = flash_attention(q, k, v, causal=True, impl=self.impl)
         else:
             y = attention_reference(q, k, v, causal=True)
@@ -225,10 +237,10 @@ class LlamaModel(nn.Module):
                  impl: TrainingAttention = TRAINING_KERNELS):
         super().__init__()
         if cfg.attention_backend not in _BACKENDS:
-            raise NotImplementedError(
-                f"attention_backend={cfg.attention_backend!r} is not ported "
-                f"({_BACKENDS}; ring attention: ROADMAP.md Queue A item 8)")
+            raise ValueError(f"attention_backend={cfg.attention_backend!r}: "
+                             f"one of {_BACKENDS}")
         self.cfg = cfg
+        self.sp_mesh = None
         self.tok_embeddings = Embed(cfg.vocab_size, cfg.dim, cfg.dtype)
         for i in range(cfg.n_layers):
             self.add_module(f"layers_{i}",
@@ -242,6 +254,18 @@ class LlamaModel(nn.Module):
     def blocks(self):
         return [getattr(self, f"layers_{i}") for i in range(self.cfg.n_layers)]
 
+    def set_mesh(self, mesh):
+        """Split the sequence over ``mesh``'s sp axis: each rank's tokens
+        are its slice, rotated by their global positions, and attention
+        runs through the ring. Nothing else is split: tp must be 1."""
+        if mesh.size("tp") > 1:
+            raise ValueError("LlamaModel splits only the sequence over a "
+                             f"mesh; tp={mesh.size('tp')}")
+        self.sp_mesh = mesh if mesh.size("sp") > 1 else None
+        for blk in self.blocks():
+            blk.attention.sp_mesh = self.sp_mesh
+        return self
+
     def trunk(self, input_ids, kv_cache=None, seq_lengths=None, valid=None,
               paged_decode=paged_attention_decode):
         """Everything before ``head``: the last block's output, [B, S,
@@ -252,8 +276,13 @@ class LlamaModel(nn.Module):
         takes position 0, as in the JAX package)."""
         x = self.tok_embeddings(input_ids)
         if kv_cache is None:
+            # under sp the rank's tokens start at its slice's position
+            freqs = self.freqs
+            if self.sp_mesh is not None:
+                S = input_ids.shape[1]
+                freqs = freqs[self.sp_mesh.index("sp") * S:]
             for block in self.blocks():
-                x = block(x, self.freqs)
+                x = block(x, freqs)
             return x
         S = input_ids.shape[1]
         positions = seq_lengths[:, None].long() + torch.arange(

@@ -16,7 +16,9 @@ Two layers, as in the JAX package:
    returns its input. ``psum_forward`` and ``psum_backward`` are the
    two halves of a tensor-parallel region for autograd (Megatron's g
    and f): a sum in the forward with the gradient passed through, and
-   the identity with the gradient summed.
+   the identity with the gradient summed; ``all_gather_forward`` is
+   the gather counterpart of the first, and ``all_to_all_grad`` an
+   all_to_all whose gradient is the inverse exchange (MoE's dispatch).
 2. Host-level: ``init_collective_group`` / ``allreduce`` / ``barrier``
    in the reference's API shape, on a subgroup of the process group.
 
@@ -125,14 +127,18 @@ def reduce_scatter(x: torch.Tensor, axis: str, mesh, *,
     return out.movedim(0, scatter_axis)
 
 
-def ppermute(x: torch.Tensor, axis: str, mesh,
-             perm: Sequence[tuple]) -> torch.Tensor:
+def ppermute(x: torch.Tensor, axis: str, mesh, perm: Sequence[tuple], *,
+             async_op: bool = False):
     """Send ``x`` along each (source, destination) pair of axis indices;
-    a rank that receives nothing gets zeros (``jax.lax.ppermute``)."""
+    a rank that receives nothing gets zeros (``jax.lax.ppermute``).
+    ``async_op=True`` returns ``(out, wait)`` at once: ``out`` holds
+    what arrives after ``wait()`` (the transfer overlaps what the rank
+    does meanwhile)."""
     group = _group(mesh, axis)
     if group is None:
-        return x.clone() if (0, 0) in set(map(tuple, perm)) else \
+        out = x.clone() if (0, 0) in set(map(tuple, perm)) else \
             torch.zeros_like(x)
+        return (out, lambda: None) if async_op else out
     me = mesh.index(axis)
     ranks = dist.get_process_group_ranks(group)
     out = torch.zeros_like(x)
@@ -143,10 +149,17 @@ def ppermute(x: torch.Tensor, axis: str, mesh,
                                   group=group))
         if dst == me:
             ops.append(dist.P2POp(dist.irecv, out, ranks[src], group=group))
+    reqs = []
     if ops:
         _count("ppermute")
-        for req in dist.batch_isend_irecv(ops):
+        reqs = dist.batch_isend_irecv(ops)
+
+    def wait(_sent=ops):      # keeps the sent buffers alive until then
+        for req in reqs:
             req.wait()
+    if async_op:
+        return out, wait
+    wait()
     return out
 
 
@@ -212,6 +225,52 @@ def psum_backward(x: torch.Tensor, axis: str, mesh) -> torch.Tensor:
     if _group(mesh, axis) is None:
         return x
     return _PsumBackward.apply(x, axis, mesh)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, mesh, split_axis, concat_axis):
+        ctx.args = axis, mesh, split_axis, concat_axis
+        return all_to_all(x, axis, mesh, split_axis=split_axis,
+                          concat_axis=concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, mesh, split_axis, concat_axis = ctx.args
+        return (all_to_all(g, axis, mesh, split_axis=concat_axis,
+                           concat_axis=split_axis), None, None, None, None)
+
+
+def all_to_all_grad(x: torch.Tensor, axis: str, mesh, *, split_axis: int,
+                    concat_axis: int) -> torch.Tensor:
+    """``all_to_all`` with autograd: its gradient is the inverse
+    exchange (split where the forward concatenated, and back)."""
+    if _group(mesh, axis) is None:
+        return x
+    return _AllToAll.apply(x, axis, mesh, split_axis, concat_axis)
+
+
+class _AllGatherForward(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, mesh, gather_axis):
+        ctx.args = axis, mesh, gather_axis
+        return all_gather(x, axis, mesh, gather_axis=gather_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, mesh, gather_axis = ctx.args
+        part = g.chunk(mesh.size(axis), dim=gather_axis)[mesh.index(axis)]
+        return part, None, None, None
+
+
+def all_gather_forward(x: torch.Tensor, axis: str, mesh, *,
+                       gather_axis: int = 0) -> torch.Tensor:
+    """Gather the axis's parts into a replicated tensor (tiled along
+    ``gather_axis``); like ``psum_forward`` its gradient, the same on
+    every rank, is not summed: each rank keeps its own part of it."""
+    if _group(mesh, axis) is None:
+        return x
+    return _AllGatherForward.apply(x, axis, mesh, gather_axis)
 
 
 # --------------------------------------------------------------------------

@@ -17,8 +17,10 @@ initialize_distributed``: NCCL on the card, gloo on the CPU)
 ``MeshSpec.build`` lays its axes over the group's ranks as a torch
 ``DeviceMesh``, whose per-axis process groups the collectives run on.
 Without a process group it takes exactly one device (the route that
-needs no collective). pp, ep and sp above 1 are not ported (ROADMAP.md
-Queue A item 8).
+needs no collective). Every axis gets its process group; so do the
+tuples ``BATCH_AXES`` (what a batch's sums run over) and
+``TOKEN_AXES`` (the same with sp: a causal LM's tokens are split over
+(dp, fsdp) by rows and over sp by positions).
 
 The sharding rules (``param_sharding``, ``_tp_hint``) are the JAX
 package's, on the same flax-style param paths and flax shapes; they
@@ -35,9 +37,8 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 import torch
 
 AXIS_ORDER = ("dp", "fsdp", "pp", "ep", "sp", "tp")
-# the axes ported so far; the others must stay at 1
-MESH_AXES = ("dp", "fsdp", "tp")
 BATCH_AXES = ("dp", "fsdp")     # the axes the batch dim is split over
+TOKEN_AXES = ("dp", "fsdp", "sp")   # ... and with sp, the sequence dim
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,9 +49,9 @@ class Mesh:
     every axis of size 1); ``coordinate`` is this rank's index on each
     axis; ``groups`` holds each axis's process group.
 
-    An axis is a name of ``AXIS_ORDER`` or, as in JAX, the tuple
-    ``BATCH_AXES`` for dp and fsdp as one (dp-major): the group that the
-    batch's sums run on."""
+    An axis is a name of ``AXIS_ORDER`` or, as in JAX, one of the tuples
+    ``BATCH_AXES`` (dp and fsdp as one, dp-major: the group that the
+    batch's sums run on) and ``TOKEN_AXES`` (dp, fsdp and sp as one)."""
     devices: Tuple[torch.device, ...]
     shape: Tuple[int, ...]
     axis_names: Tuple[str, ...] = AXIS_ORDER
@@ -82,7 +83,7 @@ class Mesh:
             return None
         if axis not in self.groups:
             raise ValueError(f"axis {axis!r}: the groups are those of "
-                             f"{AXIS_ORDER} and {BATCH_AXES}")
+                             f"{AXIS_ORDER}, {BATCH_AXES} and {TOKEN_AXES}")
         return self.groups[axis]
 
 
@@ -131,7 +132,6 @@ class MeshSpec:
         exactly one."""
         import torch.distributed as dist
 
-        self.require_ported()
         shape = tuple(self.axis_sizes()[a] for a in AXIS_ORDER)
         if dist.is_available() and dist.is_initialized():
             world = dist.get_world_size()
@@ -152,13 +152,18 @@ class MeshSpec:
                                  f"runs on {device_type}, not {dev}")
             ranks = _topology_aware_reshape(range(world), shape)
             dm = DeviceMesh(device_type, ranks, mesh_dim_names=AXIS_ORDER)
-            # the same ranks as (dp * fsdp, the rest): its first axis
-            # is the batch's group
-            batch = DeviceMesh(device_type,
-                               ranks.reshape(self.dp * self.fsdp, -1),
-                               mesh_dim_names=("batch", "rest"))
             groups = {a: dm.get_group(a) for a in AXIS_ORDER}
-            groups[BATCH_AXES] = batch.get_group("batch")
+            for axes in (BATCH_AXES, TOKEN_AXES):
+                # the same ranks as (the axes' product, the rest), those
+                # axes outermost in their order: the first axis's groups
+                # are the tuple's
+                dims = [AXIS_ORDER.index(a) for a in axes]
+                rest = [d for d in range(len(AXIS_ORDER)) if d not in dims]
+                joined = DeviceMesh(device_type, ranks.permute(
+                    dims + rest).reshape(math.prod(
+                        shape[d] for d in dims), -1),
+                    mesh_dim_names=("joined", "rest"))
+                groups[axes] = joined.get_group("joined")
             return Mesh((dev,), shape, device_mesh=dm,
                         coordinate=tuple(dm.get_coordinate()),
                         groups=groups)
@@ -177,15 +182,6 @@ class MeshSpec:
                 "process group of as many ranks "
                 "(collectives.initialize_distributed)")
         return Mesh(tuple(devices), shape)
-
-    def require_ported(self):
-        """Raise ``NotImplementedError`` where pp, ep or sp is above 1."""
-        beyond = [a for a in AXIS_ORDER
-                  if a not in MESH_AXES and getattr(self, a) > 1]
-        if beyond:
-            raise NotImplementedError(
-                f"{self.describe()}: {'/'.join(beyond)} not ported; pp, ep "
-                "and sp are ROADMAP.md Queue A item 8")
 
     def describe(self) -> str:
         active = {a: getattr(self, a) for a in self.active_axes()}

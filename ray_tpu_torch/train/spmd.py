@@ -7,17 +7,22 @@ it eagerly, one process per device, on a ``Mesh`` from the same
 
   - without a process group: one device, no collective;
   - with one (``collectives.initialize_distributed``; NCCL on the card,
-    gloo on the CPU): dp, fsdp and tp over the group's ranks. Each
+    gloo on the CPU): every axis over the group's ranks. Each
     rank stores, and its optimizer updates, only its block of each
     param (``state_shardings``: the JAX package's ``param_sharding``
     rules, so the optimizer's moments are sharded as in ZeRO). A step
     gathers the whole params, runs forward and backward on the rank's
-    rows of the global batch (``put_batch``: by its (dp, fsdp)
-    coordinate, dp-major), sums the grads over (dp, fsdp) and keeps
+    part of the global batch (``put_batch``: rows by its (dp, fsdp)
+    coordinate, dp-major, and for a causal LM positions by its sp
+    coordinate), sums the grads over (dp, fsdp) (and sp) and keeps
     each block's part (``_MeshState``). Under tp the model splits its
     own work (``GPT2.set_mesh``: heads, MLP columns, the tied head);
     ResNet's convs are not split (tp shards their storage only), and
     its batch norm takes global-batch statistics (``ResNet.set_mesh``).
+    Under sp GPT-2's attention runs through the ring, its positions
+    and the loss's one-token shift cross the slices' bounds. Under pp
+    (``make_pipelined_lm_trainer``) each rank holds one stage of
+    blocks and ``parallel.pipeline`` runs the microbatch schedule.
 
 One step on n ranks computes what one step on one device computes for
 the whole global batch: the loss is the global mean (over the valid
@@ -38,7 +43,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import itertools
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,8 +51,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ray_tpu_torch.device import resolve_device
+from ray_tpu_torch.models.gpt2 import (Block, Dense, Embed, LayerNorm,
+                                       init_flax_weights, set_blocks_mesh)
+from ray_tpu_torch.ops.attention import TRAINING_KERNELS
 from ray_tpu_torch.parallel import collectives as C
-from ray_tpu_torch.parallel.mesh import (BATCH_AXES, Mesh,
+from ray_tpu_torch.parallel.mesh import (BATCH_AXES, TOKEN_AXES, Mesh,
                                          MeshSpec, local_shard,
                                          param_sharding, shard_dims)
 
@@ -61,12 +69,20 @@ class SpmdTrainer:
     init(seed=0, params=None) -> state   (``params``: a flax variables
                                           tree to start from instead)
     step(state, batch) -> state, metrics
+    eval_loss(state, batch) -> loss      (the pipelined trainer's pp = 1
+                                          oracle on the same params)
+
+    ``batch_dims`` gives, for each batch key, the axes that split each
+    of its dims (None: whole), as the JAX trainer's batch
+    ``PartitionSpec``s do; ``put_batch`` reads it.
     """
     mesh: Mesh
     spec: MeshSpec
     init: Callable
     step: Callable
     device: torch.device
+    batch_dims: Dict[str, tuple] = dataclasses.field(default_factory=dict)
+    eval_loss: Optional[Callable] = None
 
 
 def flax_layout(model: nn.Module) -> Dict[str, Tuple[tuple, tuple]]:
@@ -91,32 +107,46 @@ def flax_layout(model: nn.Module) -> Dict[str, Tuple[tuple, tuple]]:
             leaf = "scale"
         elif attr == "weight" and t.ndim in (2, 4):
             leaf, perm = "kernel", ((1, 0) if t.ndim == 2 else (2, 3, 1, 0))
+        elif attr.startswith("experts_"):     # MoE: flax's own layout
+            leaf = attr
         else:
             raise ValueError(f"{name}: no flax counterpart")
         out[name] = ((coll, *prefix.split("."), leaf), perm)
     return out
 
 
-def state_shardings(model: nn.Module, mesh,
-                    spec: MeshSpec) -> Dict[str, tuple]:
+def state_shardings(model: nn.Module, mesh, spec: MeshSpec,
+                    override: Optional[Callable] = None) -> Dict[str, tuple]:
     """The placements (one per mesh axis, on the torch tensor's dims) of
     every param and batch-norm buffer of ``model``: ``param_sharding``
-    on the flax path and shape. The optimizer's moments take their
-    param's. (The trainers keep the buffers whole on every rank.)"""
+    on the flax path and shape, or what ``override(mesh, path, shape,
+    spec)`` returns where it returns placements (the JAX package's
+    ``override`` hook; e.g. ``moe.expert_sharding_rule``). The
+    optimizer's moments take their param's. (The trainers keep the
+    buffers whole on every rank.)"""
     from torch.distributed.tensor import Shard
     tensors = dict(itertools.chain(model.named_parameters(),
                                    model.named_buffers()))
     out = {}
     for name, (path, perm) in flax_layout(model).items():
         shape = tuple(tensors[name].shape[d] for d in perm)
+        pl = override(mesh, path, shape, spec) if override else None
+        if pl is None:
+            pl = param_sharding(mesh, path, shape, spec)
         out[name] = tuple(Shard(perm[p.dim]) if p.is_shard() else p
-                          for p in param_sharding(mesh, path, shape, spec))
+                          for p in pl)
     return out
 
 
-def _batch_sum(x: torch.Tensor, mesh) -> torch.Tensor:
-    """The sum of ``x`` over the batch's ranks (dp and fsdp)."""
-    return C.psum(x, BATCH_AXES, mesh)
+def _batch_sum(x: torch.Tensor, mesh, axes=BATCH_AXES) -> torch.Tensor:
+    """The sum of ``x`` over the batch's ranks (dp and fsdp; ``axes``
+    = ``TOKEN_AXES`` adds sp)."""
+    return C.psum(x, axes, mesh)
+
+
+# axes whose ranks each compute a part of the work on the same batch
+# rows and, after the backward, hold the same whole gradient
+_MODEL_AXES = ("tp", "ep")
 
 
 class _MeshState:
@@ -125,12 +155,23 @@ class _MeshState:
     blocks. Where no axis shards a param its block is the model's param
     itself; the others are gathered into the model's params at the
     start of each step. Without a process group nothing is sharded and
-    no collective runs."""
+    no collective runs.
 
-    def __init__(self, model: nn.Module, mesh: Mesh, spec: MeshSpec):
+    ``sum_axes``: the axes over which the batch's work is split, over
+    which the grads are summed (``BATCH_AXES``; ``TOKEN_AXES`` for a
+    causal LM, whose positions sp splits). ``pieces`` = {param name:
+    axes}: params of which each rank along those axes holds a piece of
+    its own that no placement names (pp: a stage's blocks); their grads
+    are not summed there, and the global norm counts each piece once."""
+
+    def __init__(self, model: nn.Module, mesh: Mesh, spec: MeshSpec, *,
+                 sum_axes=BATCH_AXES, override: Optional[Callable] = None,
+                 pieces: Optional[Dict[str, tuple]] = None):
         self.mesh = mesh
+        self.sum_axes = sum_axes
+        self.pieces = dict(pieces or {})
         self.params = dict(model.named_parameters())
-        placements = state_shardings(model, mesh, spec)
+        placements = state_shardings(model, mesh, spec, override)
         self.sharded = {n: shard_dims(placements[n]) for n in self.params
                         if shard_dims(placements[n])}
         self.shards = {
@@ -157,17 +198,19 @@ class _MeshState:
 
     @torch.no_grad()
     def reduce_grads(self):
-        """The model params' grads (this rank's rows) -> each block's
-        grad for the global batch: summed over (dp, fsdp), of which the
-        block keeps its part (fsdp by reduce-scatter, tp by a slice:
-        every tp rank holds the same whole grad)."""
+        """The model params' grads (this rank's part of the batch) ->
+        each block's grad for the global batch: summed over
+        ``sum_axes``, of which the block keeps its part (fsdp by
+        reduce-scatter; tp and ep by a slice: every rank along them
+        holds the same whole grad)."""
         mesh = self.mesh
         if mesh.device_mesh is None:
             return
         whole = [n for n in self.params if n not in self.sharded]
         if whole:
             grads = [self._grad(n) for n in whole]
-            flat = _batch_sum(torch.cat([g.reshape(-1) for g in grads]), mesh)
+            flat = _batch_sum(torch.cat([g.reshape(-1) for g in grads]), mesh,
+                              self.sum_axes)
             for n, g, part in zip(whole, grads, flat.split(
                     [g.numel() for g in grads])):
                 g.copy_(part.view(g.shape))
@@ -175,22 +218,26 @@ class _MeshState:
         for n, dims in self.sharded.items():
             g = self._grad(n)
             if "fsdp" in dims:
-                g = C.psum(C.reduce_scatter(g, "fsdp", mesh,
-                                            scatter_axis=dims["fsdp"]),
-                           "dp", mesh)
+                g = C.reduce_scatter(g, "fsdp", mesh,
+                                     scatter_axis=dims["fsdp"])
+                for axis in self.sum_axes:
+                    if axis != "fsdp":
+                        g = C.psum(g, axis, mesh)
             else:
-                g = _batch_sum(g, mesh)
-            if "tp" in dims:
-                g = g.chunk(mesh.size("tp"), dims["tp"])[mesh.index("tp")]
+                g = _batch_sum(g, mesh, self.sum_axes)
+            for axis in _MODEL_AXES:
+                if axis in dims:
+                    g = g.chunk(mesh.size(axis), dims[axis])[mesh.index(axis)]
             self.shards[n].grad = g.contiguous()
 
     def grad_norm(self) -> torch.Tensor:
         """The global norm of the grads of the whole params: each block's
-        sum of squares, summed over the axes that shard it (in param
-        order, as ``global_norm`` sums on one device)."""
+        sum of squares, summed over the axes that shard it and the axes
+        of its ``pieces`` (in param order, as ``global_norm`` sums on
+        one device)."""
         parts: Dict[tuple, torch.Tensor] = {}
         for n, block in self.shards.items():
-            axes = tuple(self.sharded.get(n, ()))
+            axes = tuple(self.sharded.get(n, ())) + self.pieces.get(n, ())
             sq = block.grad.float().square().sum()
             parts[axes] = parts[axes] + sq if axes in parts else sq
         total = None
@@ -210,17 +257,24 @@ def _zero_grads(state):
 def gather_state(state) -> Dict[str, Any]:
     """The whole params and buffers (``"model"``, a state_dict) and the
     optimizer's per-param state (``"opt"``: {param name: {key: tensor}})
-    of a trainer state, on every rank. A collective on the mesh route:
-    every rank calls it."""
+    of a trainer state, on every rank. A param held in ``pieces`` (a
+    pipeline's stage) comes stacked on a new leading axis, one row per
+    rank of the piece's axis. A collective on the mesh route: every
+    rank calls it."""
     ms: _MeshState = state["mesh_state"]
-    model = {**{n: ms.full(n, ms.shards[n]).detach().clone()
-                for n in ms.params},
+
+    def whole(n, t):
+        t = ms.full(n, t)
+        for axis in ms.pieces.get(n, ()):
+            t = C.all_gather(t, axis, ms.mesh, tiled=False)
+        return t.detach().clone()
+    model = {**{n: whole(n, ms.shards[n]) for n in ms.params},
              **{n: b.detach().clone()
                 for n, b in state["model"].named_buffers()}}
     opt = {}
     for n, block in ms.shards.items():
         st = state["opt"].state.get(block, {})
-        opt[n] = {k: (ms.full(n, v).clone() if torch.is_tensor(v) and v.ndim
+        opt[n] = {k: (whole(n, v) if torch.is_tensor(v) and v.ndim
                       else v) for k, v in st.items()}
     return {"model": model, "opt": opt}
 
@@ -280,10 +334,13 @@ def make_causal_lm_trainer(model_config=None, *,
     ``init``) overrides ``model_config``. ``exact=True`` sends the
     attention down the streaming path (``flash_attention(exact=True)``:
     the exact running-max softmax), as the JAX package's
-    ``RTPU_ATTN_EXACT`` does. ``mesh`` (default ``spec.build()``) picks
-    the route (module docstring); runs on ``cuda`` unless ``device``
-    says otherwise. Dropout runs on the route without a process group
-    only."""
+    ``RTPU_ATTN_EXACT`` does. ``spec.build()`` picks the route (module
+    docstring); runs on ``cuda`` unless ``device`` says otherwise.
+    Batches are [B, T]: B split over (dp, fsdp), T over sp, as JAX's
+    ``P(("dp", "fsdp"), "sp")``; at sp > 1 the one-device step's
+    semantics hold (global positions, the loss's shift across slices,
+    the token count and the grads summed over sp too). Dropout runs on
+    the route without a process group only."""
     from ray_tpu_torch.models.gpt2 import (GPT2, GPT2Config,
                                            causal_lm_loss_terms,
                                            params_from_flax)
@@ -307,7 +364,7 @@ def make_causal_lm_trainer(model_config=None, *,
         else:
             params_from_flax(params, m)
         m = m.to(dev).train().set_exact(exact).set_mesh(mesh)
-        ms = _MeshState(m, mesh, spec)
+        ms = _MeshState(m, mesh, spec, sum_axes=TOKEN_AXES)
         opt = adamw(list(ms.shards.values()), learning_rate, weight_decay)
         return {"model": m, "opt": opt, "step": 0, "mesh_state": ms}
 
@@ -321,9 +378,11 @@ def make_causal_lm_trainer(model_config=None, *,
                 (_DROPOUT_SEED << 32) + state["step"])
         ms.gather()
         _zero_grads(state)
+        labels = batch["labels"]
         total, count = causal_lm_loss_terms(
-            m(batch["input_ids"], dropout_generator=gen), batch["labels"])
-        count = _batch_sum(count, mesh).clamp(min=1)
+            m(batch["input_ids"], dropout_generator=gen), labels,
+            next_labels=next_labels(labels, mesh))
+        count = _batch_sum(count, mesh, TOKEN_AXES).clamp(min=1)
         (total / count).backward()
         ms.reduce_grads()
         g_norm = ms.grad_norm()
@@ -331,11 +390,252 @@ def make_causal_lm_trainer(model_config=None, *,
                              grad_clip, g_norm)
         opt.step()
         state["step"] += 1
-        loss = _batch_sum(total.detach(), mesh) / count
+        loss = _batch_sum(total.detach(), mesh, TOKEN_AXES) / count
         return state, {"loss": loss, "grad_norm": g_norm}
 
+    rows_pos = (BATCH_AXES, "sp")       # JAX's P(("dp", "fsdp"), "sp")
     return SpmdTrainer(mesh=mesh, spec=spec, init=init, step=step,
-                       device=dev)
+                       device=dev, batch_dims={"input_ids": rows_pos,
+                                               "labels": rows_pos})
+
+
+def next_labels(labels: torch.Tensor, mesh, axis: str = "sp",
+                ignore_index: int = -100):
+    """For a causal LM whose positions ``axis`` splits: each row's label
+    at the first position of the next slice ([B, 1]; ``ignore_index``
+    on the last slice), from the next rank along ``axis``. None where
+    the axis has size 1."""
+    n = mesh.size(axis)
+    if n == 1:
+        return None
+    got = C.ppermute(labels[:, :1].contiguous(), axis, mesh,
+                     [(i, i - 1) for i in range(1, n)])
+    if mesh.index(axis) == n - 1:
+        got = torch.full_like(got, ignore_index)
+    return got
+
+
+class PipelineEmbed(nn.Module):
+    """The pipelined trainer's embedding, outside the pipeline: wte(ids)
+    + wpe(positions) in ``cfg.dtype`` (flax ``Embed``s)."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        self.wte = Embed(cfg.vocab_size, cfg.n_embd, cfg.dtype)
+        self.wpe = Embed(cfg.n_positions, cfg.n_embd, cfg.dtype)
+
+    def forward(self, ids, offset: int = 0):
+        pos = torch.arange(ids.shape[-1], device=ids.device) + offset
+        return self.wte(ids) + self.wpe(pos)
+
+
+class PipelineStage(nn.Module):
+    """One pipeline stage: ``n_layer / pp`` GPT-2 ``Block``s
+    (``h_0`` ...), deterministic."""
+
+    def __init__(self, cfg, n_blocks: int):
+        super().__init__()
+        for i in range(n_blocks):
+            self.add_module(f"h_{i}", Block(cfg, TRAINING_KERNELS))
+
+    def blocks(self):
+        return list(self.children())
+
+    def forward(self, x):
+        for blk in self.blocks():
+            x = blk(x)
+        return x
+
+
+class PipelineHead(nn.Module):
+    """The final LayerNorm and an untied f32 ``lm_head`` Dense (with
+    bias): f32 logits."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        self.ln_f = LayerNorm(cfg.n_embd)
+        self.lm_head = Dense(cfg.n_embd, cfg.vocab_size, torch.float32)
+
+    def forward(self, x):
+        return self.lm_head(self.ln_f(x))
+
+
+class PipelinedLM(nn.Module):
+    """This rank's part of the pipelined causal LM: ``embed`` and
+    ``head`` (the same on every pp rank) and ``stages``, the rank's own
+    stage. Module paths are the JAX trainer's param tree
+    (``{"embed", "stages", "head"}``) without the stage axis."""
+
+    def __init__(self, cfg, n_stages: int):
+        super().__init__()
+        if cfg.n_layer % n_stages:
+            raise ValueError(f"n_layer={cfg.n_layer} must divide into "
+                             f"pp={n_stages} stages")
+        self.cfg = cfg
+        self.embed = PipelineEmbed(cfg)
+        self.stages = PipelineStage(cfg, cfg.n_layer // n_stages)
+        self.head = PipelineHead(cfg)
+
+    def set_mesh(self, mesh):
+        """tp splits each block's heads and MLP columns (GPT-2's tp
+        path); sp sends its attention through the ring."""
+        set_blocks_mesh(self.stages.blocks(), self.cfg, mesh)
+        return self
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator, stage: int,
+                     n_stages: int):
+        """flax's initialisers from ``generator`` in the order embed,
+        the n_layer blocks of every stage, head, so that the params do
+        not depend on the pp size; this rank keeps ``stage``'s blocks."""
+        init_flax_weights(self.embed, generator)
+        mine = self.stages.blocks()
+        for s in range(n_stages):
+            for i in range(len(mine)):
+                init_flax_weights(mine[i] if s == stage else
+                                  Block(self.cfg, None), generator)
+        init_flax_weights(self.head, generator)
+        return self
+
+
+def pipelined_params_from_flax(tree: Dict[str, Any], stage: int,
+                               model: Optional[PipelinedLM] = None
+                               ) -> Dict[str, torch.Tensor]:
+    """The JAX pipelined trainer's params (``{"params": {"embed",
+    "stages", "head"}}``; ``stages``' leaves have the leading stage axis)
+    -> ``PipelinedLM``'s state_dict in f32 for pp rank ``stage`` (its
+    row of ``stages``). With ``model`` the weights are also loaded."""
+    from ray_tpu_torch.models.gpt2 import params_from_flax
+    p = tree["params"]
+    row = _tree_rows(p["stages"], stage)
+    blocks = params_from_flax({"params": {
+        **row, "wte": {"embedding": p["embed"]["wte"]["embedding"]},
+        "wpe": {"embedding": p["embed"]["wpe"]["embedding"]},
+        "ln_f": p["head"]["ln_f"]}})
+
+    def t(x, transpose=False):
+        a = torch.from_numpy(np.array(np.asarray(x), np.float32))
+        return a.T.contiguous() if transpose else a
+    sd = {"embed.wte.weight": blocks.pop("wte.weight"),
+          "embed.wpe.weight": blocks.pop("wpe.weight"),
+          "head.ln_f.weight": blocks.pop("ln_f.weight"),
+          "head.ln_f.bias": blocks.pop("ln_f.bias"),
+          "head.lm_head.weight": t(p["head"]["lm_head"]["kernel"], True),
+          "head.lm_head.bias": t(p["head"]["lm_head"]["bias"]),
+          **{f"stages.{k}": v for k, v in blocks.items()}}
+    if model is not None:
+        model.load_state_dict(sd)
+    return sd
+
+
+def _tree_rows(tree, i):
+    if isinstance(tree, Mapping):
+        return {k: _tree_rows(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def make_pipelined_lm_trainer(model_config, *,
+                              spec: Optional[MeshSpec] = None,
+                              learning_rate: float = 3e-4,
+                              weight_decay: float = 0.1,
+                              grad_clip: float = 1.0,
+                              device="cuda") -> SpmdTrainer:
+    """Causal-LM trainer with pipeline parallelism over ``pp``: the
+    embedding outside the pipeline (the same on every pp rank), the
+    rank's stage of GPT-2 ``Block``s through ``pipeline.pipeline_run``
+    (remat: each stage's forward again in the backward), the final
+    LayerNorm and an untied f32 ``lm_head`` (the same on every pp
+    rank), ``causal_lm_loss`` over all microbatches; then the global
+    norm, the clip and AdamW (b2 0.95), as ``make_causal_lm_trainer``.
+    Batches are [M, mb, T]: M microbatches, mb split over (dp, fsdp),
+    T over sp (JAX's ``P(None, ("dp", "fsdp"), "sp")``). Gradients:
+    the embedding's flow through stage 0's inputs only, the head's
+    come from the loss on every pp rank and are not summed over pp, and
+    each stage's count once in the global norm. ``eval_loss(state,
+    batch)`` is the pp = 1 oracle on the same params
+    (``pipeline.sequential_apply``). The blocks run deterministic, as
+    the JAX trainer's do. Runs on ``cuda`` unless ``device`` says
+    otherwise."""
+    from ray_tpu_torch.models.gpt2 import causal_lm_loss_terms
+    from ray_tpu_torch.parallel.pipeline import (pipeline_run,
+                                                 sequential_apply)
+    from torch.func import functional_call
+
+    cfg = model_config
+    mesh, spec = _build(spec, device)
+    dev = mesh.device
+    S, stage = mesh.size("pp"), mesh.index("pp")
+    if cfg.n_layer % S:
+        raise ValueError(f"n_layer={cfg.n_layer} must divide into pp={S} "
+                         "stages")
+
+    def init(seed: int = 0, params: Optional[Dict[str, Any]] = None):
+        m = PipelinedLM(cfg, S)
+        if params is None:
+            m.init_weights(torch.Generator().manual_seed(seed), stage, S)
+        else:
+            pipelined_params_from_flax(params, stage, m)
+        m = m.to(dev).train().set_mesh(mesh)
+        ms = _MeshState(m, mesh, spec, sum_axes=TOKEN_AXES, pieces={
+            n: ("pp",) for n, _ in m.named_parameters()
+            if n.startswith("stages.")})
+        opt = adamw(list(ms.shards.values()), learning_rate, weight_decay)
+        return {"model": m, "opt": opt, "step": 0, "mesh_state": ms}
+
+    def stage_fn(model):
+        return lambda p, x: functional_call(model.stages, p, (x,))
+
+    def loss_terms(model, y, labels):
+        M, mb, T = labels.shape
+        logits = model.head(y)
+        labels = labels.reshape(M * mb, T)
+        return causal_lm_loss_terms(logits.reshape(M * mb, T, -1), labels,
+                                    next_labels=next_labels(labels, mesh))
+
+    def embed(model, ids):
+        return model.embed(ids, mesh.index("sp") * ids.shape[-1]).to(
+            cfg.dtype)
+
+    def step(state, batch):
+        m, opt, ms = state["model"], state["opt"], state["mesh_state"]
+        ms.gather()
+        _zero_grads(state)
+        x = embed(m, batch["input_ids"])
+        params = dict(m.stages.named_parameters())
+        y = pipeline_run(stage_fn(m), params, x, mesh)
+        total, count = loss_terms(m, y, batch["labels"])
+        count = _batch_sum(count, mesh, TOKEN_AXES).clamp(min=1)
+        (total / count).backward()
+        ms.reduce_grads()
+        g_norm = ms.grad_norm()
+        clip_by_global_norm_([b.grad for b in ms.shards.values()],
+                             grad_clip, g_norm)
+        opt.step()
+        state["step"] += 1
+        loss = _batch_sum(total.detach(), mesh, TOKEN_AXES) / count
+        return state, {"loss": loss, "grad_norm": g_norm}
+
+    @torch.no_grad()
+    def eval_loss(state, batch):
+        """The pp = 1 oracle: the same params, every stage in order on
+        each microbatch (the other stages' params gathered over pp)."""
+        m, ms = state["model"], state["mesh_state"]
+        ms.gather()
+        stacked = {n[len("stages."):]: C.all_gather(p, "pp", mesh,
+                                                    tiled=False)
+                   for n, p in m.named_parameters()
+                   if n.startswith("stages.")}
+        y = sequential_apply(stage_fn(m), stacked,
+                             embed(m, batch["input_ids"]))
+        total, count = loss_terms(m, y, batch["labels"])
+        return (_batch_sum(total, mesh, TOKEN_AXES)
+                / _batch_sum(count, mesh, TOKEN_AXES).clamp(min=1))
+
+    dims = (None, BATCH_AXES, "sp")     # JAX's P(None, ("dp", "fsdp"), "sp")
+    return SpmdTrainer(mesh=mesh, spec=spec, init=init, step=step,
+                       device=dev, batch_dims={"input_ids": dims,
+                                               "labels": dims},
+                       eval_loss=eval_loss)
 
 
 def make_image_classifier_trainer(model, *,
@@ -403,26 +703,33 @@ def make_image_classifier_trainer(model, *,
                        "accuracy": _batch_sum(hits, mesh) / n}
 
     return SpmdTrainer(mesh=mesh, spec=spec, init=init, step=step,
-                       device=dev)
+                       device=dev,
+                       batch_dims={"image": (BATCH_AXES,),
+                                   "label": (BATCH_AXES,)})
 
 
 def put_batch(trainer: SpmdTrainer, batch: Dict[str, np.ndarray]):
-    """Host batch (the global batch) -> this rank's rows as tensors on
-    the trainer's device: the batch dim split over (dp, fsdp), dp-major,
-    as ``P(("dp", "fsdp"))`` splits it. Dtypes are kept except that
-    integers other than uint8 become int64 (token ids and labels: what
-    embedding, gather and the loss take). uint8 images stay bytes until
-    the step normalises them on the device."""
+    """Host batch (the global batch) -> this rank's part as tensors on
+    the trainer's device: each dim split over the axes that
+    ``trainer.batch_dims`` names for it (by default the first dim over
+    (dp, fsdp), dp-major, as ``P(("dp", "fsdp"))`` splits it). Dtypes
+    are kept except that integers other than uint8 become int64 (token
+    ids and labels: what embedding, gather and the loss take). uint8
+    images stay bytes until the step normalises them on the device."""
     mesh = trainer.mesh
-    n, i = mesh.size(BATCH_AXES), mesh.index(BATCH_AXES)
     out = {}
     for k, v in batch.items():
         a = np.asarray(v)
-        if a.shape[0] % n:
-            raise ValueError(f"{k}: a batch of {a.shape[0]} rows does not "
-                             f"split over {n} (dp, fsdp) ranks")
-        rows = a.shape[0] // n
-        t = torch.as_tensor(a[i * rows:(i + 1) * rows])
+        for dim, axes in enumerate(trainer.batch_dims.get(k, (BATCH_AXES,))):
+            if axes is None:
+                continue
+            n, i = mesh.size(axes), mesh.index(axes)
+            if a.shape[dim] % n:
+                raise ValueError(f"{k}: dim {dim} of {a.shape[dim]} does not "
+                                 f"split over {n} {axes} ranks")
+            size = a.shape[dim] // n
+            a = a.take(range(i * size, (i + 1) * size), axis=dim)
+        t = torch.as_tensor(a)
         if not t.is_floating_point() and t.dtype != torch.uint8:
             t = t.long()
         out[k] = t.to(trainer.device)

@@ -50,8 +50,9 @@ def test_port_files_found():
     rel = {os.path.relpath(f, REPO_ROOT) for f in files}
     assert "chip_smoke.py" in rel
     assert "ray_tpu_torch/ops/attention.py" in rel
-    for mod in ("mesh", "collectives", "dryrun"):
+    for mod in ("mesh", "collectives", "dryrun", "pipeline", "moe"):
         assert f"ray_tpu_torch/parallel/{mod}.py" in rel
+    assert "ray_tpu_torch/ops/ring_attention.py" in rel
     assert "ray_tpu_torch/train/spmd.py" in rel
     assert len(files) > 10
 

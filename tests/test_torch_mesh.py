@@ -469,39 +469,34 @@ def test_bench_counts_chips_from_the_process_group():
     assert res[0]["gpt2_losses"] == res[1]["gpt2_losses"]
 
 
-@pytest.mark.parametrize("n, phase", [(4, 1), (8, 3)])
+@pytest.mark.parametrize("n, phase", [(4, 1), (8, 1), (8, 2), (8, 3),
+                                      (8, 4)])
 def test_dryrun_multichip(n, phase):
-    """Phase 1 on default_spec_for(4) = dp2 x tp2: a finite loss, the
-    same on every rank. Phase 3 on 8 ranks: dp2 x fsdp2 x tp2 within
-    1e-6 of the one-device losses over two steps, the loss falls, and
-    AdamW's exp_avg after one step on dp2 x fsdp4 within 1e-6 of the
-    one-device step's (the JAX dry run's bound is 1e-4)."""
+    """Phase 1 on default_spec_for(n) (dp2 x tp2 at 4; dp2 x sp2 x tp2 at
+    8, the ring): a finite bf16 loss, the same on every rank, and the
+    f32 step's loss and grad_norm within 1e-6 of the one-device step's.
+    Phase 2 on dp2 x pp2 x tp2: the pipelined step's loss within 1e-6
+    of ``eval_loss`` on the same params (JAX's bound is 5e-2) and its
+    loss and grad_norm of the one-device pipelined step's. Phase 3 on 8
+    ranks: dp2 x fsdp2 x tp2 within 1e-6 of the one-device losses over
+    two steps, the loss falls, and AdamW's exp_avg after one step on
+    dp2 x fsdp4 within 1e-6 of the one-device step's (the JAX dry run's
+    bound is 1e-4). Phase 4 on dp2 x ep4: the MoE step's two losses
+    within 1e-6 of the unsharded step's (JAX's bound: 1e-4), the second
+    lower, each rank holding one expert's block."""
     out = D.dryrun_multichip(n, phases=(phase,), timeout_s=SPAWN_TIMEOUT_S)
     if phase == 1:
         assert np.isfinite(out["phase1"]["loss"])
-    else:
+        assert max(out["phase1"]["rel"].values()) <= 1e-6
+        assert (TS.default_spec_for(n).sp == 2) == (n == 8)
+    elif phase == 2:
+        assert max(out["phase2"]["rel"].values()) <= 1e-6
+    elif phase == 3:
         assert out["phase3"]["exp_avg_max_abs_err"] < 1e-6
         assert max(out["phase3"]["loss_rel"]) <= 1e-6
-
-
-def test_dryrun_phase1_at_8_waits_for_sp():
-    """default_spec_for(8) has sp = 2: phase 1 raises before it spawns."""
-    assert TS.default_spec_for(8).sp == 2
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        D.dryrun_multichip(8, phases=(1,))
-
-
-# ---------------------------------------------------------------------------
-# (vi) what the mesh does not take yet
-
-
-@pytest.mark.parametrize("axis", ["sp", "pp", "ep"])
-def test_meshspec_refuses_unported_axes(axis):
-    spec = TM.MeshSpec(**{axis: 2})
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        spec.build(["cpu"] * 2)
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        TM.MeshSpec(dp=2, **{axis: 2}).require_ported()
+    else:
+        assert max(out["phase4"]["loss_rel"]) <= 1e-6
+        assert out["phase4"]["losses"][1] < out["phase4"]["losses"][0]
 
 
 # ---------------------------------------------------------------------------

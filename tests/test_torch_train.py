@@ -200,10 +200,7 @@ def test_meshspec_matches_jax(spec):
         j.with_auto_dp(8)))
     assert TM.MeshSpec.from_dict(spec) == t
     n = t.num_devices
-    if t.sp > 1:
-        with pytest.raises(NotImplementedError, match="Queue A item 8"):
-            t.build(["cpu"] * n)
-    elif n > 1:
+    if n > 1:
         # more than one device runs one process per device
         with pytest.raises(RuntimeError, match="process group"):
             t.build(["cpu"] * n)
