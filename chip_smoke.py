@@ -163,6 +163,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
               the counts). (d) the MoE step of the dry run's phase
               4 (4 experts, d 16, d_ff 32, 16 tokens) in f32 on the card
               against the same step on the CPU (MOE_RTOL, MOE_ATOL).
+15. ppo atari — RLlib's local PPO path (ray_tpu_torch.rllib, run before
+              the summary): (b) first, the card against the port's own
+              CPU run: one PPOPolicy.learn_on_batch on a fixed f32 MLP
+              batch (stats and params within PPO_F32 of their scale,
+              TF32 off), and AtariCNN's bf16 forward at 84 x 84 x 4 on
+              the card against an f64 CPU forward of the same params,
+              its (max, rms) error at most ATARI_BF16_RATIO times the
+              CPU bf16 forward's; (a) bench.ppo_loop: PPO on
+              PixelCatcher-v0 at the Atari widths (84 x 84 x 4 frames
+              through FrameStackConnector(4), the Nature CNN, 50 envs x
+              100 steps = 5,000 a batch, minibatch 500 x 10 epochs, the
+              atari-ppo.yaml settings, seed 0): one warm-up iteration
+              and 3 timed ones; finite losses, weights that moved;
+              prints env steps/s, the sample / postprocess / learn
+              split, peak memory and one learn phase profiled by kernel
+              group (PPO_PROFILE_GROUPS) with its idle share; (c) the
+              launch counts, zeroed at the phase's start and read at
+              its end, are empty: the RL path launches none of the
+              port's kernels.
 13. summary — nvidia-smi's card line, the kernels line (each kernel's
               launches by the path that counted them: phases 4, 5b, 6,
               8, 12 and 14; paged decode's entry also carries its Llama
@@ -256,6 +275,24 @@ RING_RATIO = (3.0, 1.5)
 # phase 14d: the f32 MoE step on the card against the CPU, at
 # tests/test_moe.py's tolerances
 MOE_RTOL, MOE_ATOL = 1e-4, 1e-5
+# phase 15b: one f32 PPO learn_on_batch on the card against the CPU:
+# stats and params within PPO_F32 * (1 + max |cpu|) (the CPU tests'
+# bound against JAX, tests/test_torch_rllib.py); the bf16 AtariCNN
+# forward's (max, rms) error against the f64 CPU forward at most
+# ATARI_BF16_RATIO times the CPU bf16 forward's (cuDNN adds the conv
+# bias to the rounded bf16 output, oneDNN before rounding, so the rms
+# bound is above BF16_RATIO's)
+PPO_F32 = 1e-5
+ATARI_BF16_RATIO = (3.0, 1.5)
+# the PPO learn phase's groups: cuDNN's convs, the products (the
+# 7,744 x 512 Dense and the heads), Adam's foreach kernels, the
+# host-to-device copies of each minibatch, then the rest
+PPO_PROFILE_GROUPS = (
+    ("conv_fwd", ("fprop", "conv2d", "implicit_convolve")),
+    ("conv_bwd", ("dgrad", "wgrad")),
+    ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "cublas", "sm90_")),
+    ("optimizer", ("multi_tensor_apply",)),
+    ("copy_h2d", ("memcpy htod",)))
 
 
 def require(cond: bool, msg: str):
@@ -1314,6 +1351,110 @@ def moe_phase() -> dict:
     return res
 
 
+def ppo_learn_parity(device) -> dict:
+    """Phase 15b (1): one PPOPolicy.learn_on_batch on ``device`` against
+    the same call on the CPU: a CartPole-sized MLP (f32) built from one
+    seed on both (the init draws on the CPU), a fixed batch whose ratios
+    and value errors pass their clips; stats and params within PPO_F32
+    of their scale."""
+    from ray_tpu_torch.rllib import Box, Discrete
+    from ray_tpu_torch.rllib.algorithms.ppo import PPOPolicy
+    from ray_tpu_torch.rllib.sample_batch import SampleBatch
+    rng = np.random.default_rng(SEED)
+    n = 256
+    batch = SampleBatch({
+        "obs": rng.standard_normal((n, 4)).astype(np.float32),
+        "actions": rng.integers(0, 2, n).astype(np.int32),
+        "action_logp": rng.uniform(-1.5, -0.2, n).astype(np.float32),
+        "advantages": rng.standard_normal(n).astype(np.float32),
+        "value_targets": (5 * rng.standard_normal(n)).astype(np.float32)})
+    cfg = {"seed": SEED, "lr": 3e-4, "clip_param": 0.1, "grad_clip": 0.5,
+           "entropy_coeff": 0.01}
+    runs = {}
+    for dev in ("cpu", device):
+        pol = PPOPolicy(Box(-1, 1, (4,)), Discrete(2), dict(cfg, device=dev))
+        stats = pol.learn_on_batch(batch)
+        runs[dev] = (stats, pol.get_weights())
+    (cs, cw), (ds, dw) = runs["cpu"], runs[device]
+    gaps = {k: abs(ds[k] - v) / (1 + abs(v)) for k, v in cs.items()}
+    gaps.update({k: float(np.max(np.abs(dw[k] - v))) / (
+        1 + float(np.max(np.abs(v)))) for k, v in cw.items()})
+    worst = max(gaps, key=gaps.get)
+    res = {"stats_cuda": ds, "stats_cpu": cs, "worst": worst,
+           "worst_gap_of_scale": gaps[worst], "tol": PPO_F32}
+    print("ppo_learn_parity", json.dumps(res), flush=True)
+    require(gaps[worst] <= PPO_F32, f"ppo learn_on_batch card vs cpu: "
+            f"{worst} off by {gaps[worst]} of its scale")
+    return res
+
+
+def atari_cnn_parity(device) -> dict:
+    """Phase 15b (2): AtariCNN as make_model builds it (bf16 trunk, f32
+    heads) at 84 x 84 x 4 on ``device`` against an f64 forward of the
+    same params on the CPU, beside the CPU bf16 forward's error: (max,
+    rms) ratios at most ATARI_BF16_RATIO."""
+    import torch
+    from ray_tpu_torch.rllib.models import AtariCNN
+    shape = (84, 84, 4)
+    gen = torch.Generator().manual_seed(SEED)
+    cpu = AtariCNN(shape, 6).init_weights(gen)
+    card = AtariCNN(shape, 6).to(device)
+    card.load_state_dict(cpu.state_dict())
+    f64 = AtariCNN(shape, 6, compute_dtype=torch.float64).double()
+    f64.load_state_dict(cpu.state_dict())
+    x = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, 256, (256, *shape)).astype(np.uint8))
+    with torch.no_grad():
+        ref = [t.numpy() for t in f64(x)]
+        outs = {"cpu": [t.double().numpy() for t in cpu(x)],
+                "cuda": [t.double().cpu().numpy() for t in card(x.to(device))]}
+    res = {}
+    for i, what in enumerate(("logits", "value")):
+        err = {k: (float(np.max(np.abs(o[i] - ref[i]))),
+                   float(np.sqrt(np.mean((o[i] - ref[i]) ** 2))))
+               for k, o in outs.items()}
+        ratio = [c / max(p, 1e-30) for c, p in zip(err["cuda"], err["cpu"])]
+        res[what] = {"err_cuda": err["cuda"], "err_cpu": err["cpu"],
+                     "ratio": ratio}
+        require(all(np.isfinite(outs["cuda"][i]).ravel()),
+                f"atari cnn {what}: not finite")
+        require(ratio[0] <= ATARI_BF16_RATIO[0]
+                and ratio[1] <= ATARI_BF16_RATIO[1],
+                f"atari cnn {what}: ratios {ratio} over {ATARI_BF16_RATIO}")
+    print("atari_cnn_parity", json.dumps({**res, "shape": [256, *shape],
+                                          "limit": ATARI_BF16_RATIO}),
+          flush=True)
+    return res
+
+
+def ppo_phase(name, card) -> dict:
+    """Phase 15: (b) the card against the CPU, (a) PPO-Atari through
+    bench.ppo_loop with one learn phase profiled, (c) no launch of the
+    port's kernels across the phase."""
+    import torch
+    from ray_tpu_torch import bench, kernels
+    kernels.reset_launch_counts()
+    ppo_learn_parity("cuda")
+    atari_cnn_parity("cuda")
+    r = bench.ppo_loop(profile=lambda learn: profile_step(
+        learn, PPO_PROFILE_GROUPS))
+    launches = kernels.launch_counts()
+    profile = r.pop("ppo_profile")
+    print("ppo_train", json.dumps({**r, "device": name, "nvidia_smi": card}),
+          flush=True)
+    print("ppo_profile", json.dumps(profile), flush=True)
+    require(r["ppo_obs_shape"] == [84, 84, 4]
+            and r["ppo_env_steps_per_iter"] == 5000
+            and r["ppo_num_envs"] == 50 and r["ppo_minibatch"] == 500
+            and r["ppo_num_sgd_iter"] == 10, f"ppo widths: {r}")
+    require(all(math.isfinite(x) for x in r["ppo_total_losses"]),
+            f"ppo: non-finite loss {r['ppo_total_losses']}")
+    require(r["ppo_weights_moved"] > 0, "ppo: the weights did not move")
+    require(launches == {}, f"ppo: the RL path launched {launches}")
+    torch.cuda.empty_cache()
+    return r
+
+
 def serve_streams(server, prompts, new_tokens: int):
     """One greedy stream of ``new_tokens`` per prompt, opened together
     on ``server`` and drained in turn, with the launch counts and the
@@ -1940,6 +2081,10 @@ def main() -> int:
         pipe_counts = pipelined_phase(g, name, card)
     moe_phase()
     torch.cuda.empty_cache()
+
+    # 15. RLlib's local PPO path at the Atari widths: none of the port's
+    # kernels
+    ppo_phase(name, card)
 
     # 13. summary
     def kernel_entry(case, kname, source, line, by_path):

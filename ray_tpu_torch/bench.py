@@ -7,9 +7,12 @@ the JAX package's headline bench (``bench.py:bench_loop``, ``gpt2_loop``).
 ``resnet_loop``: ResNet-50 at its published widths (1,000 classes, bf16
 compute, f32 params), batch 256 at 224 x 224, SGD-Nesterov through
 ``make_image_classifier_trainer``; ``gpt2_loop``: GPT-2 small at batch
-16 x 1024 through ``make_causal_lm_trainer``. Each times steps on one
-resident batch (no input cost: the compute ceiling), as windows of
-steps closed by a host read of the loss, and reports the best window.
+16 x 1024 through ``make_causal_lm_trainer``; ``ppo_loop``: PPO on the
+pixel env at the Atari widths (84 x 84 x 4, Nature CNN, batch 5,000,
+minibatch 500 x 10) through ``rllib.PPO``, env steps per second (the
+host's env, connectors and GAE included). The first two time steps on
+one resident batch (no input cost: the compute ceiling), as windows of
+steps closed by a host read of the loss, and report the best window.
 The framework path of the JAX bench (``DataParallelTrainer``, the
 session, the Dataset feed) needs the runtime, which the port does not
 have yet (ROADMAP.md Queue A, A1 and A6).
@@ -258,8 +261,107 @@ def gpt2_loop(device="cuda", profile=None, config=None) -> dict:
     return out
 
 
+def ppo_atari_config(device="cuda"):
+    """PPO on PixelCatcher-v0 at the standard Atari widths: 84 x 84
+    grayscale frames, 4 stacked (``FrameStackConnector(4)``), the
+    Nature-CNN policy (bf16 trunk, f32 heads). The batch settings are
+    upstream Ray's ``rllib/tuned_examples/ppo/atari-ppo.yaml``: train
+    batch 5,000, fragments of 100, 10 workers x 5 envs, minibatch 500 x
+    10 epochs, clip 0.1, vf clip 10, entropy 0.01, lambda 0.95. Remote
+    workers need the runtime, so one local worker steps the 50 envs.
+    The yaml's ``kl_coeff`` has no counterpart in the loss (which only
+    reports ``kl``). On ``cpu``: 21 x 21 frames (``ResizeObsConnector``),
+    2 stacked, 4 envs x 16 steps, minibatch 32 x 1 (the tests' size)."""
+    from ray_tpu_torch.rllib import (FrameStackConnector, PPOConfig,
+                                     ResizeObsConnector)
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        obs = [FrameStackConnector(4)]
+        sizes = dict(train_batch_size=5000, rollout_fragment_length=100,
+                     num_envs_per_worker=50, sgd_minibatch_size=500,
+                     num_sgd_iter=10)
+    else:
+        obs = [ResizeObsConnector(21, 21), FrameStackConnector(2)]
+        sizes = dict(train_batch_size=64, rollout_fragment_length=16,
+                     num_envs_per_worker=4, sgd_minibatch_size=32,
+                     num_sgd_iter=1)
+    return (PPOConfig().environment("PixelCatcher-v0")
+            .rollouts(connectors={"obs": obs}, **sizes)
+            .training(clip_param=0.1, vf_clip_param=10.0,
+                      entropy_coeff=0.01, **{"lambda": 0.95})
+            .resources(device=str(dev)).debugging(seed=0))
+
+
+def ppo_loop(device="cuda", profile=None) -> dict:
+    """PPO-Atari throughput through ``Algorithm.step`` (``ppo_atari_config``).
+
+    One warm-up iteration, then timed ones (3 on ``cuda``, 1 on
+    ``cpu``); ``ppo_launches`` counts the kernels' launches in them (the
+    counts are read, not zeroed, so a caller's count across the loop
+    stays whole). ``ppo_env_steps_per_sec`` is the median of the timed
+    iterations' ``env_steps_per_sec`` (``Algorithm.step``'s: env steps
+    sampled over the iteration's host time); the split of an iteration
+    into sampling, postprocessing (GAE) and learning comes from PPO's
+    ``timers``. ``profile``: a function called with one learn phase
+    (``num_sgd_iter`` epochs over a fresh train batch, after the timed
+    iterations); its result is kept under ``ppo_profile``. The JAX
+    package has no such bench, so these numbers stand alone."""
+    dev = resolve_device(device)
+    algo = ppo_atari_config(dev).build()
+    policy = algo.get_policy()
+    w0 = policy.get_weights()
+    timed = 3 if dev.type == "cuda" else 1
+    t0 = time.perf_counter()
+    algo.step()
+    warmup_s = time.perf_counter() - t0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    before = kernels.launch_counts()
+    runs = [algo.step() for _ in range(timed)]
+    launches = {k: n - before.get(k, 0)
+                for k, n in kernels.launch_counts().items()
+                if n != before.get(k, 0)}
+    w1 = policy.get_weights()
+    cfg = algo.config
+
+    def med(key, sub=None):
+        return float(np.median([(r[sub] if sub else r)[key] for r in runs]))
+
+    out = {
+        "ppo_platform": dev.type, "ppo_device_kind": _device_kind(dev),
+        "ppo_env": cfg["env"],
+        "ppo_obs_shape": list(policy.observation_space.shape),
+        "ppo_num_envs": cfg["num_envs_per_worker"],
+        "ppo_env_steps_per_iter": runs[-1]["num_env_steps_sampled_this_iter"],
+        "ppo_minibatch": cfg["sgd_minibatch_size"],
+        "ppo_num_sgd_iter": cfg["num_sgd_iter"],
+        "ppo_iters_timed": timed, "ppo_warmup_s": warmup_s,
+        "ppo_env_steps_per_sec": med("env_steps_per_sec"),
+        "ppo_env_steps_per_sec_by_iter": [r["env_steps_per_sec"]
+                                          for r in runs],
+        **{f"ppo_{k}": med(k, "timers") for k in runs[0]["timers"]},
+        "ppo_timers_by_iter": [r["timers"] for r in runs],
+        "ppo_total_losses": [r["learner/total_loss"] for r in runs],
+        "ppo_episode_reward_mean": runs[-1]["episode_reward_mean"],
+        "ppo_weights_moved": max(float(np.max(np.abs(w1[k] - w0[k])))
+                                 for k in w0),
+        "ppo_launches": launches,
+    }
+    if dev.type == "cuda":
+        out["ppo_max_memory_allocated_bytes"] = (
+            torch.cuda.max_memory_allocated(dev))
+    if profile is not None:
+        from ray_tpu_torch.rllib import synchronous_parallel_sample
+        batch = synchronous_parallel_sample(
+            algo.workers, max_env_steps=cfg["train_batch_size"])
+        out["ppo_profile"] = profile(
+            lambda: algo._sgd_epochs(policy, batch))
+    algo.cleanup()
+    return out
+
+
 def main(device="cuda"):
-    """Both loops and one JSON line. Under torchrun (``WORLD_SIZE`` in
+    """The three loops and one JSON line. Under torchrun (``WORLD_SIZE`` in
     the environment) the process group is formed here first, NCCL with
     card ``LOCAL_RANK``, and only rank 0 prints."""
     import torch.distributed as dist
@@ -268,6 +370,7 @@ def main(device="cuda"):
             local_device_ids=[int(os.environ.get("LOCAL_RANK", 0))])
     res = resnet_loop(device)
     res.update(gpt2_loop(device))
+    res.update(ppo_loop(device))
     line = {"metric": METRIC, "value": res["img_per_sec_per_chip"],
             "unit": UNIT, **res}
     if not dist.is_initialized() or dist.get_rank() == 0:

@@ -1,0 +1,52 @@
+"""ray_tpu_torch.rllib — reinforcement learning on PyTorch, local path.
+
+Counterpart of ``ray_tpu/rllib`` (reference analogue: rllib/ —
+Algorithm, RolloutWorker/WorkerSet, SampleBatch, policies): the old
+stack (``Algorithm`` -> the WorkerSet's local ``RolloutWorker`` ->
+``PPOPolicy``) and the new one (``RLModule`` / ``PPOLearner`` / a local
+``LearnerGroup``). The policy's forward, the loss, the backward and Adam
+run on ``config["device"]`` ("cuda" unless the caller asks for "cpu");
+env stepping, connectors and GAE stay numpy on the host, as in the JAX
+package. Remote rollout workers and learners, evaluation workers and
+multi-agent raise ``NotImplementedError``.
+"""
+
+from ray_tpu_torch.rllib.sample_batch import (MultiAgentBatch, SampleBatch,
+                                              convert_ma_batch_to_sample_batch)
+from ray_tpu_torch.rllib.env import (Box, CartPoleEnv, Discrete,
+                                     MultiAgentCartPole, MultiAgentEnv,
+                                     PendulumEnv, PixelCatcher, VectorEnv,
+                                     make_env)
+from ray_tpu_torch.rllib.connectors import (ClipActionConnector, Connector,
+                                            ConnectorPipeline,
+                                            FlattenObsConnector,
+                                            FrameStackConnector,
+                                            GrayscaleObsConnector,
+                                            LambdaConnector,
+                                            MeanStdObsConnector,
+                                            ResizeObsConnector)
+from ray_tpu_torch.rllib.models import (AtariCNN, MLPNet, make_model,
+                                        params_from_flax)
+from ray_tpu_torch.rllib.policy import TorchPolicy
+from ray_tpu_torch.rllib.core import (Learner, LearnerGroup, MultiRLModule,
+                                      PPOLearner, RLModule, RLModuleSpec)
+from ray_tpu_torch.rllib.postprocessing import compute_advantages
+from ray_tpu_torch.rllib.rollout_worker import (RolloutWorker, WorkerSet,
+                                                synchronous_parallel_sample)
+from ray_tpu_torch.rllib.algorithm import Algorithm, AlgorithmConfig
+from ray_tpu_torch.rllib.algorithms import PPO, PPOConfig
+
+__all__ = [
+    "SampleBatch", "MultiAgentBatch", "convert_ma_batch_to_sample_batch",
+    "Box", "Discrete", "CartPoleEnv", "PendulumEnv", "PixelCatcher",
+    "VectorEnv", "make_env", "MLPNet", "AtariCNN", "make_model",
+    "params_from_flax", "TorchPolicy", "compute_advantages",
+    "RolloutWorker", "WorkerSet", "synchronous_parallel_sample",
+    "Algorithm", "AlgorithmConfig", "PPO", "PPOConfig",
+    "MultiAgentEnv", "MultiAgentCartPole",
+    "Connector", "ConnectorPipeline", "FlattenObsConnector",
+    "MeanStdObsConnector", "ClipActionConnector", "LambdaConnector",
+    "GrayscaleObsConnector", "ResizeObsConnector", "FrameStackConnector",
+    "RLModule", "RLModuleSpec", "MultiRLModule", "Learner",
+    "PPOLearner", "LearnerGroup",
+]

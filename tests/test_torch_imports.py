@@ -54,6 +54,13 @@ def test_port_files_found():
         assert f"ray_tpu_torch/parallel/{mod}.py" in rel
     assert "ray_tpu_torch/ops/ring_attention.py" in rel
     assert "ray_tpu_torch/train/spmd.py" in rel
+    for mod in ("env", "sample_batch", "postprocessing", "connectors",
+                "models", "policy", "rollout_worker", "algorithm",
+                "algorithms/ppo", "core/rl_module", "core/learner",
+                "core/learner_group"):
+        assert f"ray_tpu_torch/rllib/{mod}.py" in rel
+    assert "ray_tpu_torch/tune/trainable.py" in rel
+    assert "ray_tpu_torch/air/checkpoint.py" in rel
     assert len(files) > 10
 
 
