@@ -182,6 +182,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
               launch counts, zeroed at the phase's start and read at
               its end, are empty: the RL path launches none of the
               port's kernels.
+16. rl algorithms — RLlib's V-trace and value-based local paths (run
+              before the summary): (b) first, the card against the
+              port's own CPU run, f32, TF32 off: one IMPALAPolicy and
+              one APPOPolicy learn_on_batch on a fixed MLP batch with
+              cuts and terminals, two DQNPolicy learn_on_batch with
+              double-Q and weights (per-sample td_errors included),
+              stats and params within PPO_F32 of their scale; vtrace on
+              a 500-row sequence against the f64 row loop
+              (vtrace_f64), with the scan's device time beside a row
+              loop's on the card; 4 batches through a LearnerThread on
+              the card while the main thread reads weights under its lock,
+              against learn_on_batch inline on a second policy, within
+              PPO_F32, check_error() clean; (a) bench.impala_loop:
+              IMPALA on PixelCatcher-v0 at 84 x 84 x 4, 10 envs x 50
+              steps = 500 a learn step (atari-impala.yaml's fragment
+              and batch), one warm-up and 10 timed iterations, one
+              learn phase profiled (PPO_PROFILE_GROUPS); one APPO
+              iteration through the same config; bench.dqn_loop: DQN
+              at the same widths, 8 envs x 4 steps, batch 32, double-Q,
+              a uniform buffer of 50,000 rows, the buffer filled to
+              1,000 rows, one warm-up and 200 timed iterations, one
+              learn phase of 10 updates profiled; finite losses,
+              weights that moved, DQN's buffer grown, epsilon fallen,
+              target synced; (c) the launch counts, zeroed at the
+              phase's start and read at its end, are empty.
 13. summary — nvidia-smi's card line, the kernels line (each kernel's
               launches by the path that counted them: phases 4, 5b, 6,
               8, 12 and 14; paged decode's entry also carries its Llama
@@ -1455,6 +1480,252 @@ def ppo_phase(name, card) -> dict:
     return r
 
 
+def learn_gaps(want, got) -> dict:
+    """{name: gap of scale} of one run against another, each a list of
+    (stats, weights) after successive updates: per stat (arrays such as
+    DQN's td_errors by their max) and per param, |got - want| over
+    1 + max |want|, worst over the updates."""
+    gaps = {}
+    for (ws, ww), (gs, gw) in zip(want, got):
+        for k, v in {**ws, **ww}.items():
+            g = np.asarray({**gs, **gw}[k], np.float64)
+            v = np.asarray(v, np.float64)
+            gap = float(np.max(np.abs(g - v))) / (1 + float(np.max(
+                np.abs(v))))
+            gaps[k] = max(gaps.get(k, 0.0), gap)
+    return gaps
+
+
+def hold_learn(tag, cpu, card) -> dict:
+    """Prints and requires ``learn_gaps(cpu, card)`` within PPO_F32."""
+    gaps = learn_gaps(cpu, card)
+    worst = max(gaps, key=gaps.get)
+    res = {"worst": worst, "worst_gap_of_scale": gaps[worst],
+           "tol": PPO_F32, "updates": len(cpu),
+           "stats_cuda": {k: v for k, v in card[-1][0].items()
+                          if np.ndim(v) == 0}}
+    print(tag, json.dumps(res), flush=True)
+    require(gaps[worst] <= PPO_F32, f"{tag} card vs cpu: {worst} off by "
+            f"{gaps[worst]} of its scale")
+    return res
+
+
+def vtrace_mlp_batch(n=256):
+    """A fixed MLP batch for IMPALA/APPO: the behaviour log-probs put the
+    ratios on both sides of the clips; terminals and cuts inside."""
+    from ray_tpu_torch.rllib.sample_batch import SampleBatch
+    rng = np.random.default_rng(SEED)
+    terms = rng.random(n) < 0.05
+    cuts = np.maximum(terms, rng.random(n) < 0.1).astype(np.float32)
+    cuts[-1] = 1.0
+    return SampleBatch({
+        "obs": rng.standard_normal((n, 4)).astype(np.float32),
+        "new_obs": rng.standard_normal((n, 4)).astype(np.float32),
+        "actions": rng.integers(0, 2, n).astype(np.int32),
+        "action_logp": rng.uniform(-2.5, -0.2, n).astype(np.float32),
+        "rewards": rng.standard_normal(n).astype(np.float32),
+        "dones": terms, "cuts": cuts,
+        "eps_id": np.cumsum(cuts).astype(np.int64)})
+
+
+def dqn_mlp_batch(n=256, seed=SEED):
+    from ray_tpu_torch.rllib.sample_batch import SampleBatch
+    rng = np.random.default_rng(seed)
+    return SampleBatch({
+        "obs": rng.standard_normal((n, 4)).astype(np.float32),
+        "new_obs": rng.standard_normal((n, 4)).astype(np.float32),
+        "actions": rng.integers(0, 2, n).astype(np.int64),
+        "rewards": rng.standard_normal(n).astype(np.float32),
+        "dones": rng.random(n) < 0.1,
+        "weights": rng.uniform(0.2, 1.0, n).astype(np.float32),
+        "batch_indexes": np.arange(n, dtype=np.int64)})
+
+
+def rl_learn_parity(device) -> dict:
+    """Phase 16b (1): one IMPALAPolicy and one APPOPolicy
+    ``learn_on_batch`` on a fixed MLP batch with cuts and terminals, and
+    two DQNPolicy ``learn_on_batch`` with double-Q and weights (the
+    second after the online net moved off the target), each on
+    ``device`` against the same calls on the CPU: CartPole-sized f32
+    MLPs built from one seed on both (the init draws on the CPU); stats
+    (DQN's per-sample td_errors included) and params within PPO_F32 of
+    their scale."""
+    from ray_tpu_torch.rllib import Box, Discrete
+    from ray_tpu_torch.rllib.algorithms import (APPOPolicy, DQNPolicy,
+                                                IMPALAPolicy)
+    cfg = {"seed": SEED, "lr": 5e-4, "grad_clip": 40.0}
+    out = {}
+    cases = (("impala_learn_parity", IMPALAPolicy, [vtrace_mlp_batch()]),
+             ("appo_learn_parity", APPOPolicy, [vtrace_mlp_batch()]),
+             ("dqn_learn_parity", DQNPolicy,
+              [dqn_mlp_batch(), dqn_mlp_batch(seed=SEED + 1)]))
+    for tag, cls, batches in cases:
+        runs = {}
+        for dev in ("cpu", device):
+            pol = cls(Box(-1, 1, (4,)), Discrete(2), dict(cfg, device=dev))
+            runs[dev] = [(pol.learn_on_batch(b), pol.get_weights())
+                         for b in batches]
+        out[tag] = hold_learn(tag, runs["cpu"], runs[device])
+    return out
+
+
+def vtrace_loop(behaviour_logp, target_logp, rewards, values, next_values,
+                terms, cuts, gamma):
+    """V-trace's recurrence as a row loop on [T] tensors (three launches
+    a row): what the scan replaces, timed beside it."""
+    import torch
+    rho = torch.clamp(torch.exp(target_logp - behaviour_logp), max=1.0)
+    deltas = rho * (rewards + gamma * (1 - terms) * next_values - values)
+    a = gamma * (1 - cuts) * rho
+    acc = torch.empty_like(values)
+    nxt = torch.zeros((), device=values.device)
+    for t in range(values.shape[0] - 1, -1, -1):
+        nxt = deltas[t] + a[t] * nxt
+        acc[t] = nxt
+    return values + acc
+
+
+def vtrace_parity(device, flush) -> dict:
+    """Phase 16b (2): ``vtrace`` on a 500-row sequence (IMPALA-Atari's
+    train batch; cuts and terminals inside, the rho clip taken) on
+    ``device`` in f32 against the f64 row loop on the CPU, within
+    PPO_F32 of scale; its device time (CUDA events, L2 flushed) beside
+    the row loop's on the card."""
+    import torch
+    from ray_tpu_torch.rllib.algorithms.impala import vtrace, vtrace_f64
+    n, gamma = 500, 0.99
+    rng = np.random.default_rng(SEED)
+    terms = (rng.random(n) < 0.02).astype(np.float32)
+    cuts = np.maximum(terms, rng.random(n) < 0.02).astype(np.float32)
+    cuts[49::50] = 1.0
+    args = [rng.uniform(-2.0, -0.1, n), rng.uniform(-2.0, -0.1, n),
+            rng.standard_normal(n), 3 * rng.standard_normal(n),
+            3 * rng.standard_normal(n), terms, cuts]
+    args = [np.asarray(a, np.float32) for a in args]
+    want = vtrace_f64(*args, gamma)
+    targs = [torch.from_numpy(a).to(device) for a in args]
+    got = [t.cpu().numpy() for t in vtrace(*targs, gamma)]
+    gaps = {k: float(np.max(np.abs(g - w))) / (1 + float(np.max(np.abs(w))))
+            for k, g, w in zip(("vs", "pg_adv"), got, want)}
+    loop_vs = vtrace_loop(*targs, gamma).cpu().numpy()
+    gaps["vs_row_loop"] = float(np.max(np.abs(loop_vs - want[0]))) / (
+        1 + float(np.max(np.abs(want[0]))))
+    res = {"rows": n, "gaps_of_scale": gaps, "tol": PPO_F32,
+           "scan_ms": time_ms(lambda: vtrace(*targs, gamma), flush),
+           "row_loop_ms": time_ms(lambda: vtrace_loop(*targs, gamma), flush,
+                                  iters=3)}
+    print("vtrace_parity", json.dumps(res), flush=True)
+    require(max(gaps.values()) <= PPO_F32, f"vtrace card vs f64: {gaps}")
+    return res
+
+
+def learner_thread_parity(device) -> dict:
+    """Phase 16b (3): K = 4 fixed batches through a LearnerThread on
+    ``device`` while the main thread reads weights under its lock, against
+    the same batches through ``learn_on_batch`` inline on a second
+    policy from the same seed on ``device``: the weights within PPO_F32
+    of their scale, every batch learned, ``check_error()`` clean."""
+    from ray_tpu_torch.rllib import Box, Discrete
+    from ray_tpu_torch.rllib.algorithms import IMPALAPolicy
+    from ray_tpu_torch.rllib.execution import LearnerThread
+    k = 4
+    batches = []
+    for i in range(k):
+        b = vtrace_mlp_batch()
+        b["rewards"] = b["rewards"] + np.float32(i)
+        batches.append(b)
+    cfg = {"seed": SEED, "lr": 5e-4, "grad_clip": 40.0, "device": device}
+    threaded = IMPALAPolicy(Box(-1, 1, (4,)), Discrete(2), dict(cfg))
+    inline = IMPALAPolicy(Box(-1, 1, (4,)), Discrete(2), dict(cfg))
+    thread = LearnerThread(threaded)
+    thread.start()
+    for b in batches:
+        require(thread.put(b, timeout=60.0), "learner thread: queue full")
+    reads = 0
+    deadline = time.monotonic() + 120.0
+    while thread.num_steps < k:
+        thread.check_error()
+        require(thread.is_alive() and time.monotonic() < deadline,
+                f"learner thread stalled at {thread.num_steps} of {k}")
+        thread.get_weights()
+        reads += 1
+        time.sleep(0.002)
+    thread.stop()
+    thread.join(timeout=60.0)
+    require(not thread.is_alive(), "learner thread did not stop")
+    thread.check_error()
+    for b in batches:
+        inline.learn_on_batch(b)
+    gaps = learn_gaps([({}, inline.get_weights())],
+                      [({}, thread.get_weights())])
+    worst = max(gaps, key=gaps.get)
+    res = {"batches": k, "steps": thread.num_steps, "weight_reads": reads,
+           "worst": worst, "worst_gap_of_scale": gaps[worst], "tol": PPO_F32,
+           "metrics": thread.metrics()}
+    print("learner_thread_parity", json.dumps(res), flush=True)
+    require(gaps[worst] <= PPO_F32, f"learner thread vs inline: {worst} "
+            f"off by {gaps[worst]} of its scale")
+    return res
+
+
+def rl_algos_phase(name, card) -> dict:
+    """Phase 16: (b) the card against the CPU (IMPALA, APPO and DQN
+    updates, V-trace, the learner thread), (a) IMPALA-Atari (and one
+    APPO pass) through bench.impala_loop and DQN-Atari through
+    bench.dqn_loop, each with one learn phase profiled, (c) no launch
+    of the port's kernels across the phase."""
+    import torch
+    from ray_tpu_torch import bench, kernels
+    kernels.reset_launch_counts()
+    l2_flush = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
+    rl_learn_parity("cuda")
+    vtrace_parity("cuda", l2_flush.zero_)
+    del l2_flush
+    learner_thread_parity("cuda")
+
+    def show(tag, r, key):
+        profile = r.pop(key, None)
+        print(tag, json.dumps({**r, "device": name, "nvidia_smi": card}),
+              flush=True)
+        if profile is not None:
+            print(tag.replace("_train", "_profile"), json.dumps(profile),
+                  flush=True)
+
+    r = bench.impala_loop(profile=lambda learn: profile_step(
+        learn, PPO_PROFILE_GROUPS))
+    show("impala_train", r, "impala_profile")
+    require(r["impala_obs_shape"] == [84, 84, 4]
+            and r["impala_env_steps_per_iter"] == 500
+            and r["impala_num_envs"] == 10, f"impala widths: {r}")
+    require(all(math.isfinite(x) for x in r["impala_total_losses"]),
+            f"impala: non-finite loss {r['impala_total_losses']}")
+    require(r["impala_weights_moved"] > 0, "impala: the weights did not move")
+    a = bench.impala_loop(algo="APPO", timed=1)
+    show("appo_train", a, "impala_profile")
+    require(a["impala_obs_shape"] == [84, 84, 4]
+            and all(math.isfinite(x) for x in a["impala_total_losses"])
+            and a["impala_weights_moved"] > 0, f"appo: {a}")
+    d = bench.dqn_loop(profile=lambda learn: profile_step(
+        learn, PPO_PROFILE_GROUPS))
+    show("dqn_train", d, "dqn_profile")
+    require(d["dqn_obs_shape"] == [84, 84, 4] and d["dqn_num_envs"] == 8
+            and d["dqn_train_batch_size"] == 32
+            and d["dqn_replay_capacity"] == 50_000, f"dqn widths: {d}")
+    require(all(math.isfinite(x) for x in d["dqn_total_losses"]),
+            f"dqn: non-finite loss {d['dqn_total_losses']}")
+    require(d["dqn_weights_moved"] > 0, "dqn: the weights did not move")
+    require(d["dqn_replay_size"][1] > d["dqn_replay_size"][0],
+            f"dqn: the replay buffer did not grow {d['dqn_replay_size']}")
+    require(d["dqn_epsilon"][1] < d["dqn_epsilon"][0],
+            f"dqn: epsilon did not fall {d['dqn_epsilon']}")
+    require(d["dqn_target_updates"][1] > d["dqn_target_updates"][0],
+            f"dqn: the target never synced {d['dqn_target_updates']}")
+    launches = kernels.launch_counts()
+    require(launches == {}, f"rl algorithms: the path launched {launches}")
+    torch.cuda.empty_cache()
+    return {"impala": r, "appo": a, "dqn": d}
+
+
 def serve_streams(server, prompts, new_tokens: int):
     """One greedy stream of ``new_tokens`` per prompt, opened together
     on ``server`` and drained in turn, with the launch counts and the
@@ -2085,6 +2356,10 @@ def main() -> int:
     # 15. RLlib's local PPO path at the Atari widths: none of the port's
     # kernels
     ppo_phase(name, card)
+
+    # 16. IMPALA/APPO, the learner thread and DQN at the Atari widths:
+    # none of the port's kernels
+    rl_algos_phase(name, card)
 
     # 13. summary
     def kernel_entry(case, kname, source, line, by_path):

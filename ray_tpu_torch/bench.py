@@ -10,7 +10,19 @@ compute, f32 params), batch 256 at 224 x 224, SGD-Nesterov through
 16 x 1024 through ``make_causal_lm_trainer``; ``ppo_loop``: PPO on the
 pixel env at the Atari widths (84 x 84 x 4, Nature CNN, batch 5,000,
 minibatch 500 x 10) through ``rllib.PPO``, env steps per second (the
-host's env, connectors and GAE included). The first two time steps on
+host's env, connectors and GAE included); ``impala_loop``: IMPALA (or
+APPO) on the same env and network, fragments of 50 and a train batch
+of 500 (upstream Ray's ``rllib/tuned_examples/impala/atari-impala.yaml``;
+cut: the yaml's remote workers run as one local worker of 10 envs, so
+each learn step takes 500 rows); ``dqn_loop``: DQN on the same env and
+network (the logits head as Q-values), the JAX package's ``DQNConfig``
+defaults (fragments of 4, train batch 32, double-Q, a uniform replay
+buffer of 50,000 rows on the host, 1,000 rows before learning, a target
+sync every 500 env steps, epsilon over 10,000 steps) with 8 envs; cut
+against upstream's ``rllib/tuned_examples/dqn/atari-dqn.yaml``: its
+1,000,000-row buffer, its 20,000 steps before learning, its target sync
+every 8,000 steps and its epsilon over 200,000 steps, so that a short
+run learns, syncs the target and lowers epsilon. The first two time steps on
 one resident batch (no input cost: the compute ceiling), as windows of
 steps closed by a host read of the loss, and report the best window.
 The framework path of the JAX bench (``DataParallelTrainer``, the
@@ -261,6 +273,20 @@ def gpt2_loop(device="cuda", profile=None, config=None) -> dict:
     return out
 
 
+def _moved(w0, w1) -> float:
+    return max(float(np.max(np.abs(w1[k] - w0[k]))) for k in w0)
+
+
+def _launches_since(before) -> dict:
+    return {k: n - before.get(k, 0) for k, n in kernels.launch_counts().items()
+            if n != before.get(k, 0)}
+
+
+def _median(runs, key, sub=None) -> float:
+    """The median of ``key`` (of ``sub``) over an RL loop's results."""
+    return float(np.median([(r[sub] if sub else r)[key] for r in runs]))
+
+
 def ppo_atari_config(device="cuda"):
     """PPO on PixelCatcher-v0 at the standard Atari widths: 84 x 84
     grayscale frames, 4 stacked (``FrameStackConnector(4)``), the
@@ -318,15 +344,8 @@ def ppo_loop(device="cuda", profile=None) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
     before = kernels.launch_counts()
     runs = [algo.step() for _ in range(timed)]
-    launches = {k: n - before.get(k, 0)
-                for k, n in kernels.launch_counts().items()
-                if n != before.get(k, 0)}
-    w1 = policy.get_weights()
+    launches = _launches_since(before)
     cfg = algo.config
-
-    def med(key, sub=None):
-        return float(np.median([(r[sub] if sub else r)[key] for r in runs]))
-
     out = {
         "ppo_platform": dev.type, "ppo_device_kind": _device_kind(dev),
         "ppo_env": cfg["env"],
@@ -336,15 +355,15 @@ def ppo_loop(device="cuda", profile=None) -> dict:
         "ppo_minibatch": cfg["sgd_minibatch_size"],
         "ppo_num_sgd_iter": cfg["num_sgd_iter"],
         "ppo_iters_timed": timed, "ppo_warmup_s": warmup_s,
-        "ppo_env_steps_per_sec": med("env_steps_per_sec"),
+        "ppo_env_steps_per_sec": _median(runs, "env_steps_per_sec"),
         "ppo_env_steps_per_sec_by_iter": [r["env_steps_per_sec"]
                                           for r in runs],
-        **{f"ppo_{k}": med(k, "timers") for k in runs[0]["timers"]},
+        **{f"ppo_{k}": _median(runs, k, "timers")
+           for k in runs[0]["timers"]},
         "ppo_timers_by_iter": [r["timers"] for r in runs],
         "ppo_total_losses": [r["learner/total_loss"] for r in runs],
         "ppo_episode_reward_mean": runs[-1]["episode_reward_mean"],
-        "ppo_weights_moved": max(float(np.max(np.abs(w1[k] - w0[k])))
-                                 for k in w0),
+        "ppo_weights_moved": _moved(w0, policy.get_weights()),
         "ppo_launches": launches,
     }
     if dev.type == "cuda":
@@ -360,8 +379,202 @@ def ppo_loop(device="cuda", profile=None) -> dict:
     return out
 
 
+def impala_atari_config(device="cuda", algo="IMPALA"):
+    """IMPALA (``algo="APPO"``: APPO, clip 0.3) on PixelCatcher-v0 at the
+    Atari widths: 84 x 84 grayscale frames, 4 stacked, the Nature-CNN
+    policy (bf16 trunk, f32 heads). The batch settings are upstream
+    Ray's ``rllib/tuned_examples/impala/atari-impala.yaml``: fragments
+    of 50, a train batch of 500; the loss coefficients, ``grad_clip`` 40
+    and ``lr`` 5e-4 are ``IMPALAConfig``'s defaults. Cut: the yaml's
+    remote workers run as one local worker of 10 envs (remote workers
+    need the runtime, A1), so each iteration samples 500 rows and
+    learns on them once. On ``cpu``: 21 x 21 frames, 2 stacked, 2 envs
+    x 16 steps (the tests' size)."""
+    from ray_tpu_torch.rllib import (FrameStackConnector,
+                                     ResizeObsConnector)
+    from ray_tpu_torch.rllib.algorithms import APPOConfig, IMPALAConfig
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        obs = [FrameStackConnector(4)]
+        sizes = dict(train_batch_size=500, rollout_fragment_length=50,
+                     num_envs_per_worker=10)
+    else:
+        obs = [ResizeObsConnector(21, 21), FrameStackConnector(2)]
+        sizes = dict(train_batch_size=32, rollout_fragment_length=16,
+                     num_envs_per_worker=2)
+    config = {"IMPALA": IMPALAConfig, "APPO": APPOConfig}[algo]()
+    return (config.environment("PixelCatcher-v0")
+            .rollouts(connectors={"obs": obs}, num_workers=0, **sizes)
+            .resources(device=str(dev)).debugging(seed=0))
+
+
+def impala_loop(device="cuda", profile=None, algo="IMPALA",
+                timed=None) -> dict:
+    """IMPALA-Atari (or APPO) throughput through ``Algorithm.step``
+    (``impala_atari_config``): one warm-up iteration, then ``timed``
+    ones (default 10 on ``cuda``, 1 on ``cpu``). Keys as ``ppo_loop``'s
+    with the prefix ``impala_``: the median env steps/s, the split of an
+    iteration (IMPALA's ``timers``: sample, postprocess, learn; V-trace
+    is not timed apart here: chip_smoke.py times it alone), the losses,
+    weights that moved, the kernels' launches in the timed iterations
+    (read, not zeroed) and the peak memory. ``profile``: a function
+    called with one learn phase (``learn_on_batch`` on a fresh 500-row
+    batch with its cuts); its result is kept under
+    ``impala_profile``."""
+    from ray_tpu_torch.rllib.algorithms.impala import _mark_cuts
+    dev = resolve_device(device)
+    algo_obj = impala_atari_config(dev, algo).build()
+    policy = algo_obj.get_policy()
+    w0 = policy.get_weights()
+    timed = timed or (10 if dev.type == "cuda" else 1)
+    t0 = time.perf_counter()
+    algo_obj.step()
+    warmup_s = time.perf_counter() - t0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    before = kernels.launch_counts()
+    runs = [algo_obj.step() for _ in range(timed)]
+    launches = _launches_since(before)
+    cfg = algo_obj.config
+    out = {
+        "impala_algo": algo, "impala_platform": dev.type,
+        "impala_device_kind": _device_kind(dev), "impala_env": cfg["env"],
+        "impala_obs_shape": list(policy.observation_space.shape),
+        "impala_num_envs": cfg["num_envs_per_worker"],
+        "impala_env_steps_per_iter":
+            runs[-1]["num_env_steps_sampled_this_iter"],
+        "impala_iters_timed": timed, "impala_warmup_s": warmup_s,
+        "impala_env_steps_per_sec": _median(runs, "env_steps_per_sec"),
+        "impala_env_steps_per_sec_by_iter": [r["env_steps_per_sec"]
+                                             for r in runs],
+        **{f"impala_{k}": _median(runs, k, "timers")
+           for k in runs[0]["timers"]},
+        "impala_timers_by_iter": [r["timers"] for r in runs],
+        "impala_total_losses": [r["learner/total_loss"] for r in runs],
+        "impala_policy_losses": [r["learner/policy_loss"] for r in runs],
+        "impala_vf_losses": [r["learner/vf_loss"] for r in runs],
+        "impala_episode_reward_mean": runs[-1]["episode_reward_mean"],
+        "impala_weights_moved": _moved(w0, policy.get_weights()),
+        "impala_launches": launches,
+    }
+    if dev.type == "cuda":
+        out["impala_max_memory_allocated_bytes"] = (
+            torch.cuda.max_memory_allocated(dev))
+    if profile is not None:
+        batch = _mark_cuts(algo_obj.workers.local_worker.sample())
+        out["impala_profile"] = profile(
+            lambda: policy.learn_on_batch(batch))
+    algo_obj.cleanup()
+    return out
+
+
+def dqn_atari_config(device="cuda"):
+    """DQN on PixelCatcher-v0 at the Atari widths (84 x 84 x 4, the
+    Nature CNN with its logits head as Q-values) with the JAX package's
+    ``DQNConfig`` defaults: fragments of 4, a train batch of 32,
+    double-Q, a uniform replay buffer of 50,000 rows (``obs`` and
+    ``new_obs``: 2.8 GB of uint8 on the host, nothing on the card),
+    1,000 rows before learning, a target sync every 500 env steps,
+    epsilon from 1 to 0.02 over 10,000 steps; 8 envs, so an iteration
+    samples 32 rows and learns once. Cut against upstream's
+    ``atari-dqn.yaml``: the buffer (1,000,000 rows), the steps before
+    learning (20,000), the target period (8,000) and the epsilon
+    schedule (200,000). On ``cpu``: 21 x 21 frames, 2 stacked, 2 envs,
+    a buffer of 1,000 rows, 64 before learning, a target sync every 32
+    steps, epsilon over 256."""
+    from ray_tpu_torch.rllib import (DQNConfig, FrameStackConnector,
+                                     ResizeObsConnector)
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        obs = [FrameStackConnector(4)]
+        sizes = dict(num_envs_per_worker=8)
+    else:
+        obs = [ResizeObsConnector(21, 21), FrameStackConnector(2)]
+        sizes = dict(num_envs_per_worker=2, replay_buffer_capacity=1000,
+                     learning_starts=64, target_network_update_freq=32,
+                     epsilon_timesteps=256)
+    return (DQNConfig().environment("PixelCatcher-v0")
+            .rollouts(connectors={"obs": obs}, num_workers=0,
+                      rollout_fragment_length=4)
+            .training(train_batch_size=32, double_q=True,
+                      prioritized_replay=False, **sizes)
+            .resources(device=str(dev)).debugging(seed=0))
+
+
+def dqn_loop(device="cuda", profile=None) -> dict:
+    """DQN-Atari throughput through ``Algorithm.step``
+    (``dqn_atari_config``): iterations until the buffer holds
+    ``learning_starts`` rows, one warm-up iteration that learns, then
+    timed ones (200 on ``cuda``, 8 on ``cpu``). Keys as
+    ``ppo_loop``'s with the prefix ``dqn_``: the median env steps/s and
+    the rate over the whole timed run, DQN's ``timers`` (sample, replay,
+    learn), the losses, weights that moved, the replay buffer's size,
+    epsilon and the target syncs before and after, the kernels' launches
+    (read, not zeroed) and the peak memory. ``profile``: a function
+    called with one learn phase (10 updates, each a replay draw and a
+    ``learn_on_batch``); its result is kept under ``dqn_profile``."""
+    dev = resolve_device(device)
+    algo = dqn_atari_config(dev).build()
+    policy = algo.get_policy()
+    cfg = algo.config
+    w0 = policy.get_weights()
+    timed = 200 if dev.type == "cuda" else 8
+    t0 = time.perf_counter()
+    fill = 0
+    while len(algo.replay) < cfg["learning_starts"]:
+        algo.step()
+        fill += 1
+    warm = algo.step()
+    warmup_s = time.perf_counter() - t0
+    start = {"replay_size": warm["replay_size"], "epsilon": warm["epsilon"],
+             "target_updates": algo.num_target_updates}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    before = kernels.launch_counts()
+    t0 = time.perf_counter()
+    runs = [algo.step() for _ in range(timed)]
+    timed_s = time.perf_counter() - t0
+    launches = _launches_since(before)
+    steps = sum(r["num_env_steps_sampled_this_iter"] for r in runs)
+    out = {
+        "dqn_platform": dev.type, "dqn_device_kind": _device_kind(dev),
+        "dqn_env": cfg["env"],
+        "dqn_obs_shape": list(policy.observation_space.shape),
+        "dqn_num_envs": cfg["num_envs_per_worker"],
+        "dqn_train_batch_size": cfg["train_batch_size"],
+        "dqn_replay_capacity": cfg["replay_buffer_capacity"],
+        "dqn_env_steps_per_iter": runs[-1]["num_env_steps_sampled_this_iter"],
+        "dqn_fill_iters": fill, "dqn_iters_timed": timed,
+        "dqn_warmup_s": warmup_s,
+        "dqn_env_steps_per_sec": _median(runs, "env_steps_per_sec"),
+        "dqn_env_steps_per_sec_whole": steps / timed_s,
+        **{f"dqn_{k}": _median(runs, k, "timers")
+           for k in runs[0]["timers"]},
+        "dqn_total_losses": [r["learner/total_loss"] for r in runs],
+        "dqn_mean_q": [runs[0]["learner/mean_q"], runs[-1]["learner/mean_q"]],
+        "dqn_replay_size": [start["replay_size"], runs[-1]["replay_size"]],
+        "dqn_epsilon": [start["epsilon"], runs[-1]["epsilon"]],
+        "dqn_target_updates": [start["target_updates"],
+                               algo.num_target_updates],
+        "dqn_episode_reward_mean": runs[-1]["episode_reward_mean"],
+        "dqn_weights_moved": _moved(w0, policy.get_weights()),
+        "dqn_launches": launches,
+    }
+    if dev.type == "cuda":
+        out["dqn_max_memory_allocated_bytes"] = (
+            torch.cuda.max_memory_allocated(dev))
+    if profile is not None:
+        def learn():
+            for _ in range(10):
+                policy.learn_on_batch(algo.replay.sample(
+                    cfg["train_batch_size"]))
+        out["dqn_profile"] = profile(learn)
+    algo.cleanup()
+    return out
+
+
 def main(device="cuda"):
-    """The three loops and one JSON line. Under torchrun (``WORLD_SIZE`` in
+    """The five loops and one JSON line. Under torchrun (``WORLD_SIZE`` in
     the environment) the process group is formed here first, NCCL with
     card ``LOCAL_RANK``, and only rank 0 prints."""
     import torch.distributed as dist
@@ -371,6 +584,8 @@ def main(device="cuda"):
     res = resnet_loop(device)
     res.update(gpt2_loop(device))
     res.update(ppo_loop(device))
+    res.update(impala_loop(device))
+    res.update(dqn_loop(device))
     line = {"metric": METRIC, "value": res["img_per_sec_per_chip"],
             "unit": UNIT, **res}
     if not dist.is_initialized() or dist.get_rank() == 0:

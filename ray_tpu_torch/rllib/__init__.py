@@ -2,8 +2,9 @@
 
 Counterpart of ``ray_tpu/rllib`` (reference analogue: rllib/ —
 Algorithm, RolloutWorker/WorkerSet, SampleBatch, policies): the old
-stack (``Algorithm`` -> the WorkerSet's local ``RolloutWorker`` ->
-``PPOPolicy``) and the new one (``RLModule`` / ``PPOLearner`` / a local
+stack (``Algorithm`` -> the WorkerSet's local ``RolloutWorker`` -> a
+``TorchPolicy``: PPO, IMPALA/APPO, DQN/SimpleQ with the replay buffers,
+PG/A2C) and the new one (``RLModule`` / ``PPOLearner`` / a local
 ``LearnerGroup``). The policy's forward, the loss, the backward and Adam
 run on ``config["device"]`` ("cuda" unless the caller asks for "cpu");
 env stepping, connectors and GAE stay numpy on the host, as in the JAX
@@ -31,18 +32,23 @@ from ray_tpu_torch.rllib.policy import TorchPolicy
 from ray_tpu_torch.rllib.core import (Learner, LearnerGroup, MultiRLModule,
                                       PPOLearner, RLModule, RLModuleSpec)
 from ray_tpu_torch.rllib.postprocessing import compute_advantages
+from ray_tpu_torch.rllib.replay_buffers import (PrioritizedReplayBuffer,
+                                                ReplayBuffer)
 from ray_tpu_torch.rllib.rollout_worker import (RolloutWorker, WorkerSet,
                                                 synchronous_parallel_sample)
 from ray_tpu_torch.rllib.algorithm import Algorithm, AlgorithmConfig
-from ray_tpu_torch.rllib.algorithms import PPO, PPOConfig
+from ray_tpu_torch.rllib.algorithms import (DQN, DQNConfig, IMPALA,
+                                            IMPALAConfig, PPO, PPOConfig)
 
 __all__ = [
     "SampleBatch", "MultiAgentBatch", "convert_ma_batch_to_sample_batch",
     "Box", "Discrete", "CartPoleEnv", "PendulumEnv", "PixelCatcher",
     "VectorEnv", "make_env", "MLPNet", "AtariCNN", "make_model",
     "params_from_flax", "TorchPolicy", "compute_advantages",
+    "ReplayBuffer", "PrioritizedReplayBuffer",
     "RolloutWorker", "WorkerSet", "synchronous_parallel_sample",
-    "Algorithm", "AlgorithmConfig", "PPO", "PPOConfig",
+    "Algorithm", "AlgorithmConfig", "PPO", "PPOConfig", "DQN",
+    "DQNConfig", "IMPALA", "IMPALAConfig",
     "MultiAgentEnv", "MultiAgentCartPole",
     "Connector", "ConnectorPipeline", "FlattenObsConnector",
     "MeanStdObsConnector", "ClipActionConnector", "LambdaConnector",

@@ -1,6 +1,18 @@
-"""The port's RL algorithms: PPO so far (ROADMAP.md Queue A lists the
-rest of ``ray_tpu/rllib/algorithms/``)."""
+"""The port's RL algorithms: PPO, IMPALA/APPO, DQN/SimpleQ, PG/A2C and
+A3C (ROADMAP.md Queue A lists the rest of ``ray_tpu/rllib/algorithms/``)."""
 
 from ray_tpu_torch.rllib.algorithms.ppo import PPO, PPOConfig, PPOPolicy
+from ray_tpu_torch.rllib.algorithms.dqn import DQN, DQNConfig, DQNPolicy
+from ray_tpu_torch.rllib.algorithms.simple_q import SimpleQ, SimpleQConfig
+from ray_tpu_torch.rllib.algorithms.impala import (IMPALA, IMPALAConfig,
+                                                   IMPALAPolicy)
+from ray_tpu_torch.rllib.algorithms.appo import APPO, APPOConfig, APPOPolicy
+from ray_tpu_torch.rllib.algorithms.pg import (A2C, A2CConfig, A2CPolicy, PG,
+                                               PGConfig, PGPolicy)
+from ray_tpu_torch.rllib.algorithms.a3c import A3C, A3CConfig
 
-__all__ = ["PPO", "PPOConfig", "PPOPolicy"]
+__all__ = ["PPO", "PPOConfig", "PPOPolicy", "DQN", "DQNConfig", "DQNPolicy",
+           "SimpleQ", "SimpleQConfig", "IMPALA", "IMPALAConfig",
+           "IMPALAPolicy", "APPO", "APPOConfig", "APPOPolicy", "PG",
+           "PGConfig", "PGPolicy", "A2C", "A2CConfig", "A2CPolicy", "A3C",
+           "A3CConfig"]

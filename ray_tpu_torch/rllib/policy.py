@@ -24,6 +24,9 @@ Reference analogue: rllib/policy/torch_policy_v2.py:62 (compute_actions
   whose ``grad`` is None).
 - Weights are the model's ``state_dict`` as host numpy copies (torch
   layout; ``models.params_from_flax`` converts a flax tree).
+- ``"cuda"`` becomes the card current at construction, with its index,
+  so a learner thread launches on the policy's card whatever its own
+  current device is.
 """
 
 from __future__ import annotations
@@ -149,6 +152,10 @@ class TorchPolicy:
         self.config = config
         self.discrete = isinstance(action_space, Discrete)
         self.device = resolve_device(config.get("device", "cuda"))
+        if self.device.type == "cuda" and self.device.index is None:
+            # pinned here: a learner thread must not read its own current
+            # device
+            self.device = torch.device("cuda", torch.cuda.current_device())
         seed = config.get("seed") or 0
         init_gen = torch.Generator().manual_seed(seed)
         self.model = make_model(obs_space, action_space,

@@ -30,6 +30,14 @@ MULTI_AGENT_LATER = ("multi-agent: a later slice of the port "
                      "(MultiAgentRolloutWorker, ROADMAP.md Queue A, A9)")
 
 
+def needs_runtime(*_args, **_kwargs):
+    """Stands where a remote branch (IMPALA's async reaping, A3C's grad
+    requests) calls the runtime's remote calls, ``wait``, ``get`` and
+    ``put``: the WorkerSet refuses remote workers first, so no local
+    path reaches it."""
+    raise NotImplementedError(REMOTE_WORKERS_NEED_RUNTIME)
+
+
 class RolloutWorker:
     """Samples experience from a vectorized env with a local policy copy."""
 
@@ -233,10 +241,18 @@ class WorkerSet:
         self.config = config
         self.policy_cls = policy_cls
         self.local_worker = RolloutWorker(config, policy_cls, worker_index=0)
+        # none until the runtime's actors exist (A1); the algorithms'
+        # remote branches test this as the JAX package's do
+        self.remote_workers: List[Any] = []
 
     def sync_weights(self):
         """Nothing to broadcast: the local worker's policy is the
         learner's."""
+
+    def set_exploration(self, **attrs):
+        """Exploration knobs (e.g. DQN's epsilon) to the local worker's
+        policy (the JAX method's local half)."""
+        self.local_worker.set_exploration(**attrs)
 
     def sample_all(self) -> List[SampleBatch]:
         return [self.local_worker.sample()]

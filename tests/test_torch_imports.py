@@ -57,7 +57,10 @@ def test_port_files_found():
     for mod in ("env", "sample_batch", "postprocessing", "connectors",
                 "models", "policy", "rollout_worker", "algorithm",
                 "algorithms/ppo", "core/rl_module", "core/learner",
-                "core/learner_group"):
+                "core/learner_group", "replay_buffers",
+                "execution/learner_thread", "algorithms/impala",
+                "algorithms/appo", "algorithms/dqn", "algorithms/simple_q",
+                "algorithms/pg", "algorithms/a3c"):
         assert f"ray_tpu_torch/rllib/{mod}.py" in rel
     assert "ray_tpu_torch/tune/trainable.py" in rel
     assert "ray_tpu_torch/air/checkpoint.py" in rel
