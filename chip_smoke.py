@@ -207,6 +207,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
               weights that moved, DQN's buffer grown, epsilon fallen,
               target synced; (c) the launch counts, zeroed at the
               phase's start and read at its end, are empty.
+17. continuous and offline — RLlib's SAC, DDPG/TD3, offline JSON IO,
+              BC/MARWIL, CQL and CRR (run before the summary): (b)
+              first, the card against the port's own CPU run, f32, TF32
+              off, at Pendulum's spaces with the 256 x 256 nets and
+              batch 256, numpy noise given to both: one SAC update, one
+              DDPG and two TD3 learn steps (the delayed actor included),
+              one CQL update in each phase (_bc_weight 1 and 0), one CRR
+              update per weight_type, one MARWIL update; stats and params
+              within PPO_F32 of their scale, the SAC family's pi head
+              scaled by 1/4 off tanh's saturation (sac_own_init prints
+              one SAC update at its own init); (a) bench.sac_loop: SAC on
+              Pendulum-v1 at pendulum-sac.yaml's settings (256 x 256,
+              batch 256, fragments of 1, 256 steps before learning, a
+              100,000-row buffer), 1,000 timed iterations;
+              bench.ddpg_loop("TD3"): TD3Config's defaults, 1,000;
+              bench.offline_loop for CQL (25 timed iterations: past its
+              200 BC steps), CRR, MARWIL and BC (3 each) on a
+              100,000-row Pendulum set (500 episodes x 200 steps of the
+              noisy PD law, written by JsonWriter once and read back by
+              each); SAC's, TD3's and CQL's learn phases profiled
+              (PPO_PROFILE_GROUPS); finite losses, weights that moved,
+              buffers that grew, actions inside the Box; (c) the launch
+              counts, zeroed at the phase's start and read at its end,
+              are empty.
 13. summary — nvidia-smi's card line, the kernels line (each kernel's
               launches by the path that counted them: phases 4, 5b, 6,
               8, 12 and 14; paged decode's entry also carries its Llama
@@ -1726,6 +1750,226 @@ def rl_algos_phase(name, card) -> dict:
     return {"impala": r, "appo": a, "dqn": d}
 
 
+def offpolicy_batch(n=256, seed=SEED, bc_weight=None):
+    """A fixed Pendulum-shaped batch (obs 3, action 1) for the SAC family
+    and DDPG: raw actions inside (-0.999, 0.999), 10% terminals, replay
+    weights."""
+    from ray_tpu_torch.rllib.sample_batch import SampleBatch
+    rng = np.random.default_rng(seed)
+    b = SampleBatch({
+        "obs": rng.standard_normal((n, 3)).astype(np.float32),
+        "new_obs": rng.standard_normal((n, 3)).astype(np.float32),
+        "raw_actions": rng.uniform(-0.999, 0.999, (n, 1)).astype(np.float32),
+        "rewards": rng.standard_normal(n).astype(np.float32),
+        "dones": rng.random(n) < 0.1,
+        "weights": rng.uniform(0.2, 1.0, n).astype(np.float32)})
+    if bc_weight is not None:
+        b["_bc_weight"] = np.full((), bc_weight, np.float32)
+    return b
+
+
+def offpolicy_noise(kind, n=256, k=4, seed=SEED):
+    """The draws one update takes, from numpy: SAC's (next, new), CQL's
+    (with k uniform, policy and next-policy draws), CRR's (next and k
+    policy draws), TD3's smoothing draw."""
+    rng = np.random.default_rng(seed + 100)
+    normal = lambda *shape: rng.standard_normal(shape).astype(np.float32)  # noqa: E731
+    if kind == "sac":
+        return {"next": normal(n, 1), "new": normal(n, 1)}
+    if kind == "cql":
+        return {"next": normal(n, 1),
+                "uniform": rng.uniform(-1, 1, (k, n, 1)).astype(np.float32),
+                "pi": normal(k, n, 1), "next_pi": normal(k, n, 1),
+                "new": normal(n, 1)}
+    if kind == "crr":
+        return {"next": normal(n, 1), "pi": normal(k, n, 1)}
+    return normal(n, 1)
+
+
+def offpolicy_learn_parity(device) -> dict:
+    """Phase 17b: the card against the port's own CPU run, f32, TF32 off,
+    at Pendulum's spaces with the default 256 x 256 nets and batch 256
+    (policies built from one seed: the init draws on the CPU), numpy
+    noise given to both: one SAC update; one DDPG and two TD3 learn steps
+    (the second runs the delayed actor; replay weights in the batch);
+    one CQL update in each phase (``_bc_weight`` 1, then 0); one CRR
+    update per weight_type; one MARWIL update (Box actions, Monte Carlo
+    returns). Stats (td_errors included), params, targets and log_alpha
+    within PPO_F32 of their scale (``hold_learn``). The SAC family's pi
+    head is scaled by 1/4 on both sides: at its own init the pre-tanh
+    values reach ~16, where the card's and the CPU's tanh differ by an
+    ulp and log(1 - tanh^2 + 1e-6) turns that into log-prob gaps that
+    Adam's first step carries past PPO_F32. ``sac_own_init`` prints that
+    case (one SAC update at the own init, not required): the pre-tanh
+    range, the rows near saturation, the next action's log-prob gap and
+    the update's gaps."""
+    import torch
+    from ray_tpu_torch.rllib import Box
+    from ray_tpu_torch.rllib.algorithms import (CQLPolicy, CRRPolicy,
+                                                DDPGConfig, DDPGPolicy,
+                                                MARWILPolicy, SACPolicy,
+                                                TD3Config)
+    from ray_tpu_torch.rllib.algorithms.sac import _squash
+    from ray_tpu_torch.rllib.policy import weights_of
+    from ray_tpu_torch.rllib.sample_batch import SampleBatch
+    spaces = (Box(-np.inf, np.inf, (3,)), Box(-2.0, 2.0, (1,)))
+
+    def state(pol):
+        """Host copies (a CPU policy's tensors change in place)."""
+        out = dict(pol.get_weights())
+        target = getattr(pol, "target_model", None)
+        if target is not None:
+            out.update({f"target.{k}": v for k, v in
+                        weights_of(target).items()})
+        if hasattr(pol, "log_alpha"):
+            out["log_alpha"] = np.array(float(pol.log_alpha.detach()))
+        return out
+
+    def sac_family(cls, kind, batches, head_scale=4.0, **cfg):
+        def run(dev):
+            pol = cls(*spaces, dict(cfg, seed=SEED, device=dev))
+            with torch.no_grad():
+                for net in (pol.model, pol.target_model):
+                    for p in net.pi_net[4].parameters():
+                        p.div_(head_scale)
+            return [(pol.learn_on_batch(b, offpolicy_noise(kind, seed=i)),
+                     state(pol)) for i, b in enumerate(batches)]
+        return run
+
+    def sac_own_init():
+        b, noise = offpolicy_batch(), offpolicy_noise("sac", seed=0)
+        heads = {}
+        for dev in ("cpu", device):
+            pol = SACPolicy(*spaces, {"seed": SEED, "device": dev})
+            with torch.no_grad():
+                mean, log_std = pol.target_model.pi(
+                    torch.tensor(b["new_obs"], device=dev))
+                eps = torch.tensor(noise["next"], device=dev)
+                act, logp = _squash(mean, log_std, eps)
+                heads[dev] = [(mean + torch.exp(log_std) * eps).cpu().numpy(),
+                              act.double().cpu().numpy(), logp.cpu().numpy()]
+        gaps = learn_gaps(sac_family(SACPolicy, "sac", [b], 1.0)("cpu"),
+                          sac_family(SACPolicy, "sac", [b], 1.0)(device))
+        worst = max(gaps, key=gaps.get)
+        pre, act, logp = heads["cpu"]
+        res = {"max_abs_pre_tanh": float(np.max(np.abs(pre))),
+               "rows_1m_a2_below_1e-5": int(np.sum(1 - act ** 2 < 1e-5)),
+               "next_logp_max_abs_gap": float(np.max(np.abs(
+                   heads[device][2] - logp))),
+               "critic_loss_gap_of_scale": gaps["critic_loss"],
+               "worst": worst, "worst_gap_of_scale": gaps[worst],
+               "tol": PPO_F32}
+        print("sac_own_init", json.dumps(res), flush=True)
+        return res
+
+    def ddpg(config_cls, steps):
+        cfg = config_cls().to_dict()
+
+        def run(dev):
+            pol = DDPGPolicy(*spaces, dict(cfg, seed=SEED, device=dev))
+            return [(pol.learn_on_batch(offpolicy_batch(seed=SEED + i),
+                                        offpolicy_noise("td3", seed=i)),
+                     state(pol)) for i in range(steps)]
+        return run
+
+    def marwil(dev):
+        rng = np.random.default_rng(SEED)
+        b = SampleBatch({
+            "obs": rng.standard_normal((256, 3)).astype(np.float32),
+            "actions": rng.uniform(-2, 2, (256, 1)).astype(np.float32),
+            "returns": (30 * rng.standard_normal(256)).astype(np.float32)})
+        pol = MARWILPolicy(*spaces, {"seed": SEED, "lr": 1e-4, "beta": 1.0,
+                                     "device": dev})
+        return [(pol.learn_on_batch(b), state(pol))]
+
+    plain = [offpolicy_batch()]
+    cases = (
+        ("sac_learn_parity", sac_family(SACPolicy, "sac", plain)),
+        ("ddpg_learn_parity", ddpg(DDPGConfig, 1)),
+        ("td3_learn_parity", ddpg(TD3Config, 2)),
+        ("cql_learn_parity", sac_family(
+            CQLPolicy, "cql", [offpolicy_batch(bc_weight=1.0),
+                               offpolicy_batch(seed=SEED + 1,
+                                               bc_weight=0.0)])),
+        ("crr_exp_learn_parity", sac_family(CRRPolicy, "crr", plain,
+                                            weight_type="exp")),
+        ("crr_binary_learn_parity", sac_family(CRRPolicy, "crr", plain,
+                                               weight_type="binary")),
+        ("marwil_learn_parity", marwil))
+    out = {"sac_own_init": sac_own_init()}
+    for tag, run in cases:
+        out[tag] = hold_learn(tag, run("cpu"), run(device))
+    require("actor_loss" in out["td3_learn_parity"]["stats_cuda"],
+            "td3: the delayed actor did not run on the second step")
+    return out
+
+
+def offpolicy_phase(name, card) -> dict:
+    """Phase 17: (b) the card against the CPU (SAC, DDPG, TD3, CQL, CRR
+    and MARWIL updates), (a) SAC and TD3 on Pendulum through
+    bench.sac_loop / bench.ddpg_loop and CQL, CRR, MARWIL and BC on the
+    100,000-row Pendulum set through bench.offline_loop (written once),
+    SAC's, TD3's and CQL's learn phases profiled, (c) no launch of the
+    port's kernels across the phase."""
+    import tempfile
+
+    import torch
+    from ray_tpu_torch import bench, kernels
+    kernels.reset_launch_counts()
+    offpolicy_learn_parity("cuda")
+
+    def show(tag, r, key):
+        profile = r.pop(key, None)
+        print(tag, json.dumps({**r, "device": name, "nvidia_smi": card}),
+              flush=True)
+        if profile is not None:
+            print(tag.replace("_train", "_profile"), json.dumps(profile),
+                  flush=True)
+
+    def prof(learn):
+        return profile_step(learn, PPO_PROFILE_GROUPS)
+
+    res = {}
+    for p, r in (("sac", bench.sac_loop(profile=prof)),
+                 ("td3", bench.ddpg_loop("TD3", profile=prof))):
+        show(f"{p}_train", r, f"{p}_profile")
+        require(r[f"{p}_hidden"] == 256 and r[f"{p}_train_batch_size"] == 256
+                and r[f"{p}_iters_timed"] == 1000
+                and r[f"{p}_replay_capacity"] == 100_000, f"{p} widths: {r}")
+        require(r[f"{p}_losses_finite"], f"{p}: non-finite loss")
+        require(r[f"{p}_weights_moved"] > 0, f"{p}: the weights did not move")
+        require(r[f"{p}_replay_size"][1] > r[f"{p}_replay_size"][0],
+                f"{p}: the buffer did not grow {r[f'{p}_replay_size']}")
+        lo, hi = r[f"{p}_action_range"]
+        require(-2.0 <= lo <= hi <= 2.0, f"{p}: actions outside the Box "
+                f"{r[f'{p}_action_range']}")
+        res[p] = r
+    with tempfile.TemporaryDirectory() as data_dir:
+        t0 = time.perf_counter()
+        rows = bench.write_pendulum_dataset(data_dir)
+        write_s = time.perf_counter() - t0
+        for algo in ("CQL", "CRR", "MARWIL", "BC"):
+            r = bench.offline_loop(algo, profile=prof if algo == "CQL"
+                                   else None, data_dir=data_dir)
+            r.update(offline_rows_written=rows, offline_write_s=write_s)
+            show(f"offline_{algo.lower()}_train", r, "offline_profile")
+            require(r["offline_rows"] == 100_000 and rows == 100_000
+                    and r["offline_train_batch_size"] == 256,
+                    f"{algo}: data or batch {r}")
+            require(r["offline_losses_finite"], f"{algo}: non-finite loss")
+            require(r["offline_weights_moved"] > 0,
+                    f"{algo}: the weights did not move")
+            if algo == "CQL":
+                require(r["offline_learn_steps_total"] > r["offline_bc_iters"],
+                        f"cql: never left its BC phase {r}")
+            res[algo] = r
+    launches = kernels.launch_counts()
+    require(launches == {}, f"continuous and offline: the path launched "
+            f"{launches}")
+    torch.cuda.empty_cache()
+    return res
+
+
 def serve_streams(server, prompts, new_tokens: int):
     """One greedy stream of ``new_tokens`` per prompt, opened together
     on ``server`` and drained in turn, with the launch counts and the
@@ -2360,6 +2604,10 @@ def main() -> int:
     # 16. IMPALA/APPO, the learner thread and DQN at the Atari widths:
     # none of the port's kernels
     rl_algos_phase(name, card)
+
+    # 17. SAC and TD3 on Pendulum, CQL, CRR, MARWIL and BC offline: none
+    # of the port's kernels
+    offpolicy_phase(name, card)
 
     # 13. summary
     def kernel_entry(case, kname, source, line, by_path):

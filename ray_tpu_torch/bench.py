@@ -22,7 +22,12 @@ sync every 500 env steps, epsilon over 10,000 steps) with 8 envs; cut
 against upstream's ``rllib/tuned_examples/dqn/atari-dqn.yaml``: its
 1,000,000-row buffer, its 20,000 steps before learning, its target sync
 every 8,000 steps and its epsilon over 200,000 steps, so that a short
-run learns, syncs the target and lowers epsilon. The first two time steps on
+run learns, syncs the target and lowers epsilon; ``sac_loop`` /
+``ddpg_loop``: SAC and TD3 on Pendulum-v1 at 256 x 256, batch 256
+(``pendulum_sac_config``); ``offline_loop``: CQL, CRR, MARWIL or BC on a
+100,000-row Pendulum set written by ``JsonWriter`` and read back
+(``write_pendulum_dataset``, ``offline_config``); ``main`` runs the
+first five. The first two time steps on
 one resident batch (no input cost: the compute ceiling), as windows of
 steps closed by a host read of the loss, and report the best window.
 The framework path of the JAX bench (``DataParallelTrainer``, the
@@ -570,6 +575,250 @@ def dqn_loop(device="cuda", profile=None) -> dict:
                     cfg["train_batch_size"]))
         out["dqn_profile"] = profile(learn)
     algo.cleanup()
+    return out
+
+
+def pendulum_sac_config(device="cuda", algo="SAC"):
+    """SAC (``algo="TD3"``/``"DDPG"``: those) on Pendulum-v1 (the
+    pure-numpy env; no MuJoCo env can be installed on the card machine).
+    SAC at upstream Ray's ``rllib/tuned_examples/sac/pendulum-sac.yaml``,
+    uncut in what the JAX algorithm has: pi and Q of 256 x 256 ReLU, train
+    batch 256, fragments of 1 on one env, 256 steps before learning, a
+    buffer of 100,000 rows, tau 0.005, lr 3e-4 (``SACConfig``'s defaults;
+    the yaml's three learning rates are the JAX package's one Adam, its
+    prioritized buffer is uniform: the JAX SAC has none). TD3 and DDPG at
+    the JAX ``TD3Config``'s / ``DDPGConfig``'s defaults (the same widths,
+    batch and fragments). On ``cpu``: batch 32, 32 steps before learning,
+    a buffer of 1,000 (the tests' size; the nets stay 256 x 256)."""
+    from ray_tpu_torch.rllib.algorithms import DDPGConfig, SACConfig, TD3Config
+    dev = resolve_device(device)
+    config = {"SAC": SACConfig, "TD3": TD3Config, "DDPG": DDPGConfig}[algo]()
+    if dev.type == "cpu":
+        config.training(train_batch_size=32, learning_starts=32,
+                        replay_buffer_capacity=1000)
+    return (config.environment("Pendulum-v1")
+            .rollouts(num_workers=0, num_envs_per_worker=1)
+            .resources(device=str(dev)).debugging(seed=0))
+
+
+def _replay_loop(prefix, config, dev, timed, profile) -> dict:
+    """An off-policy algorithm through ``Algorithm.step``: iterations until
+    the buffer holds ``learning_starts`` rows, one warm-up iteration that
+    learns, then ``timed`` ones. Keys as ``dqn_loop``'s with ``prefix``;
+    the losses of every timed iteration are summarised (first, last, all
+    finite); the actions in the buffer against the Box's bounds.
+    ``profile``: a function called with one learn phase (10 updates, each
+    a replay draw and a ``learn_on_batch``)."""
+    algo = config.build()
+    policy = algo.get_policy()
+    cfg = algo.config
+    w0 = policy.get_weights()
+    t0 = time.perf_counter()
+    fill = 0
+    while len(algo.replay) < cfg["learning_starts"]:
+        algo.step()
+        fill += 1
+    warm = algo.step()
+    warmup_s = time.perf_counter() - t0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    before = kernels.launch_counts()
+    t0 = time.perf_counter()
+    runs = [algo.step() for _ in range(timed)]
+    timed_s = time.perf_counter() - t0
+    launches = _launches_since(before)
+    losses = [r["learner/critic_loss"] for r in runs]
+    steps = sum(r["num_env_steps_sampled_this_iter"] for r in runs)
+    acts = algo.replay._cols["actions"][:len(algo.replay)]
+    totals = {k: float(sum(r["timers"][k] for r in runs))
+              for k in runs[0]["timers"]}
+    out = {
+        f"{prefix}_platform": dev.type,
+        f"{prefix}_device_kind": _device_kind(dev),
+        f"{prefix}_env": cfg["env"],
+        f"{prefix}_hidden": policy.model.pi_net[0].out_features,
+        f"{prefix}_train_batch_size": cfg["train_batch_size"],
+        f"{prefix}_replay_capacity": cfg["replay_buffer_capacity"],
+        f"{prefix}_fill_iters": fill, f"{prefix}_iters_timed": timed,
+        f"{prefix}_warmup_s": warmup_s,
+        f"{prefix}_env_steps_per_sec": _median(runs, "env_steps_per_sec"),
+        f"{prefix}_env_steps_per_sec_whole": steps / timed_s,
+        **{f"{prefix}_{k}": _median(runs, k, "timers")
+           for k in runs[0]["timers"]},
+        f"{prefix}_split": {k: v / sum(totals.values())
+                            for k, v in totals.items()},
+        f"{prefix}_critic_loss": [losses[0], losses[-1]],
+        f"{prefix}_losses_finite": bool(np.all(np.isfinite(losses))),
+        f"{prefix}_replay_size": [warm["replay_size"],
+                                  runs[-1]["replay_size"]],
+        f"{prefix}_action_range": [float(acts.min()), float(acts.max())],
+        f"{prefix}_action_bounds": [float(policy.low.min()),
+                                    float(policy.high.max())],
+        f"{prefix}_episode_reward_mean": runs[-1]["episode_reward_mean"],
+        f"{prefix}_weights_moved": _moved(w0, policy.get_weights()),
+        f"{prefix}_launches": launches,
+    }
+    if dev.type == "cuda":
+        out[f"{prefix}_max_memory_allocated_bytes"] = (
+            torch.cuda.max_memory_allocated(dev))
+    if profile is not None:
+        def learn():
+            for _ in range(10):
+                policy.learn_on_batch(algo.replay.sample(
+                    cfg["train_batch_size"]))
+        out[f"{prefix}_profile"] = profile(learn)
+    algo.cleanup()
+    return out
+
+
+def sac_loop(device="cuda", profile=None, timed=None) -> dict:
+    """SAC-Pendulum throughput through ``Algorithm.step``
+    (``pendulum_sac_config``): one env step and one 256-row update an
+    iteration; 1,000 timed iterations on ``cuda`` (one yaml iteration:
+    its ``min_sample_timesteps_per_iteration`` 1000), 16 on ``cpu``.
+    Keys ``sac_*`` (``_replay_loop``)."""
+    dev = resolve_device(device)
+    timed = timed or (1000 if dev.type == "cuda" else 16)
+    return _replay_loop("sac", pendulum_sac_config(dev), dev, timed, profile)
+
+
+def ddpg_loop(algo="TD3", device="cuda", profile=None, timed=None) -> dict:
+    """TD3 (or DDPG) on Pendulum-v1 at the JAX config's defaults, as
+    ``sac_loop``: keys ``td3_*`` / ``ddpg_*``."""
+    dev = resolve_device(device)
+    timed = timed or (1000 if dev.type == "cuda" else 16)
+    return _replay_loop(algo.lower(), pendulum_sac_config(dev, algo), dev,
+                        timed, profile)
+
+
+def write_pendulum_dataset(path, episodes=500, steps=200, seed=0) -> int:
+    """The offline Pendulum set, written by the port's ``JsonWriter`` to
+    ``path`` as one batch: ``episodes`` episodes (reset seeds 0, 1, ...)
+    of up to ``steps`` steps of the JAX package's test fixture's noisy PD
+    law (``tests/test_rllib_algos4.py``'s ``pendulum_dataset``), torque
+    clip(-8 theta - 2 theta_dot + N(0, 0.4), -2, 2) from
+    ``np.random.default_rng(seed)``. Returns the number of rows."""
+    from ray_tpu_torch.rllib.env import PendulumEnv
+    from ray_tpu_torch.rllib.offline import JsonWriter
+    from ray_tpu_torch.rllib.sample_batch import SampleBatch
+    rng = np.random.default_rng(seed)
+    env = PendulumEnv({"seed": seed})
+    cols = {k: [] for k in ("obs", "actions", "rewards", "dones", "new_obs")}
+    for ep in range(episodes):
+        obs, _ = env.reset(seed=ep)
+        for _ in range(steps):
+            cos_th, sin_th, thdot = obs
+            th = np.arctan2(sin_th, cos_th)
+            a = np.clip(-8.0 * th - 2.0 * thdot + rng.normal(0, 0.4), -2, 2)
+            nobs, r, term, trunc, _ = env.step(np.array([a], np.float32))
+            for k, v in zip(cols, (obs, [a], r, term or trunc, nobs)):
+                cols[k].append(v)
+            obs = nobs
+            if term or trunc:
+                break
+    dtypes = {"dones": bool}
+    writer = JsonWriter(path)
+    writer.write(SampleBatch({k: np.asarray(v, dtypes.get(k, np.float32))
+                              for k, v in cols.items()}))
+    writer.close()
+    return len(cols["obs"])
+
+
+def offline_config(algo, input_path, device="cuda"):
+    """CQL, CRR, MARWIL or BC on ``input_path`` with Pendulum-v1's spaces
+    at the JAX configs' defaults: batch 256, 10 learn steps an iteration,
+    CQL's 200 BC steps, SAC's 256 x 256 nets (CQL, CRR) and the 256 x 256
+    tanh MLP (MARWIL, BC). On ``cpu``: batch 32, 5 learn steps an
+    iteration, 5 BC steps (the nets stay 256 x 256)."""
+    from ray_tpu_torch.rllib.algorithms import (BCConfig, CQLConfig,
+                                                CRRConfig, MARWILConfig)
+    dev = resolve_device(device)
+    config = {"CQL": CQLConfig, "CRR": CRRConfig, "MARWIL": MARWILConfig,
+              "BC": BCConfig}[algo]()
+    if dev.type == "cpu":
+        config.training(train_batch_size=32, num_iters_per_step=5,
+                        bc_iters=5)
+    return (config.environment("Pendulum-v1")
+            .offline_data(input_path=input_path)
+            .resources(device=str(dev)).debugging(seed=0))
+
+
+def offline_loop(algo="CQL", device="cuda", profile=None, data_dir=None,
+                 timed=None) -> dict:
+    """Offline learn-step throughput through ``Algorithm.step``: the
+    Pendulum set (``write_pendulum_dataset``: 500 episodes x 200 steps =
+    100,000 rows on ``cuda``, 4 x 200 on ``cpu``) written to a temporary
+    directory (or read from ``data_dir``, written there before) and read
+    back through the algorithm (``offline_config``); one warm-up
+    iteration, then ``timed`` ones (CQL 25 on ``cuda``, so that it passes
+    its 200 BC steps and switches over; the others 3; on ``cpu`` CQL 2,
+    the others 1). Keys ``offline_*``: learn steps/s (median over the
+    timed iterations), the draw / learn split, the losses, weights that
+    moved, CQL's learn steps beside its ``bc_iters``, launches (read, not
+    zeroed), peak memory. ``profile``: a function called with
+    one iteration."""
+    import tempfile
+    dev = resolve_device(device)
+    cuda = dev.type == "cuda"
+    timed = timed or ((25 if algo == "CQL" else 3) if cuda
+                      else (2 if algo == "CQL" else 1))
+    out = {"offline_algo": algo, "offline_platform": dev.type,
+           "offline_device_kind": _device_kind(dev)}
+    with tempfile.TemporaryDirectory() as tmp:
+        if data_dir is None:
+            t0 = time.perf_counter()
+            out["offline_rows"] = write_pendulum_dataset(
+                tmp, episodes=500 if cuda else 4)
+            out["offline_write_s"] = time.perf_counter() - t0
+            data_dir = tmp
+        t0 = time.perf_counter()
+        algo_obj = offline_config(algo, data_dir, dev).build()
+        out["offline_read_s"] = time.perf_counter() - t0
+    policy = algo_obj.get_policy()
+    cfg = algo_obj.config
+    w0 = policy.get_weights()
+    t0 = time.perf_counter()
+    algo_obj.step()
+    out["offline_warmup_s"] = time.perf_counter() - t0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    before = kernels.launch_counts()
+    runs, secs = [], []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        runs.append(algo_obj.step())
+        secs.append(time.perf_counter() - t0)
+    launches = _launches_since(before)
+    per_iter = cfg["num_iters_per_step"]
+    losses = [r["learner/total_loss"] for r in runs]
+    totals = {k: float(sum(r["timers"][k] for r in runs))
+              for k in runs[0]["timers"]}
+    out.update({
+        "offline_rows": algo_obj._data.count,
+        "offline_train_batch_size": cfg["train_batch_size"],
+        "offline_learn_steps_per_iter": per_iter,
+        "offline_iters_timed": timed,
+        "offline_learn_steps_per_sec": float(np.median(
+            [per_iter / s for s in secs])),
+        **{f"offline_{k}": _median(runs, k, "timers")
+           for k in runs[0]["timers"]},
+        "offline_split": {k: v / sum(totals.values())
+                          for k, v in totals.items()},
+        "offline_total_loss": [losses[0], losses[-1]],
+        "offline_losses_finite": bool(np.all(np.isfinite(losses))),
+        "offline_timesteps_total": runs[-1]["timesteps_total"],
+        "offline_weights_moved": _moved(w0, policy.get_weights()),
+        "offline_launches": launches,
+    })
+    if algo == "CQL":
+        out["offline_learn_steps_total"] = runs[-1]["learn_steps_total"]
+        out["offline_bc_iters"] = cfg["bc_iters"]
+    if cuda:
+        out["offline_max_memory_allocated_bytes"] = (
+            torch.cuda.max_memory_allocated(dev))
+    if profile is not None:
+        out["offline_profile"] = profile(algo_obj.training_step)
+    algo_obj.cleanup()
     return out
 
 

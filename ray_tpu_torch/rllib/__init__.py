@@ -3,9 +3,10 @@
 Counterpart of ``ray_tpu/rllib`` (reference analogue: rllib/ —
 Algorithm, RolloutWorker/WorkerSet, SampleBatch, policies): the old
 stack (``Algorithm`` -> the WorkerSet's local ``RolloutWorker`` -> a
-``TorchPolicy``: PPO, IMPALA/APPO, DQN/SimpleQ with the replay buffers,
-PG/A2C) and the new one (``RLModule`` / ``PPOLearner`` / a local
-``LearnerGroup``). The policy's forward, the loss, the backward and Adam
+``TorchPolicy`` or a standalone policy: PPO, IMPALA/APPO, DQN/SimpleQ
+with the replay buffers, PG/A2C, SAC, DDPG/TD3; offline from JSON
+datasets: BC/MARWIL, CQL, CRR) and the new one (``RLModule`` /
+``PPOLearner`` / a local ``LearnerGroup``). The policy's forward, the loss, the backward and Adam
 run on ``config["device"]`` ("cuda" unless the caller asks for "cpu");
 env stepping, connectors and GAE stay numpy on the host, as in the JAX
 package. Remote rollout workers and learners, evaluation workers and
@@ -37,8 +38,13 @@ from ray_tpu_torch.rllib.replay_buffers import (PrioritizedReplayBuffer,
 from ray_tpu_torch.rllib.rollout_worker import (RolloutWorker, WorkerSet,
                                                 synchronous_parallel_sample)
 from ray_tpu_torch.rllib.algorithm import Algorithm, AlgorithmConfig
-from ray_tpu_torch.rllib.algorithms import (DQN, DQNConfig, IMPALA,
-                                            IMPALAConfig, PPO, PPOConfig)
+from ray_tpu_torch.rllib.offline import JsonReader, JsonWriter
+from ray_tpu_torch.rllib.algorithms import (BC, CQL, CRR, DDPG, DQN, MARWIL,
+                                            PPO, SAC, TD3, BCConfig,
+                                            CQLConfig, CRRConfig, DDPGConfig,
+                                            DQNConfig, IMPALA, IMPALAConfig,
+                                            MARWILConfig, PPOConfig,
+                                            SACConfig, TD3Config)
 
 __all__ = [
     "SampleBatch", "MultiAgentBatch", "convert_ma_batch_to_sample_batch",
@@ -48,7 +54,10 @@ __all__ = [
     "ReplayBuffer", "PrioritizedReplayBuffer",
     "RolloutWorker", "WorkerSet", "synchronous_parallel_sample",
     "Algorithm", "AlgorithmConfig", "PPO", "PPOConfig", "DQN",
-    "DQNConfig", "IMPALA", "IMPALAConfig",
+    "DQNConfig", "IMPALA", "IMPALAConfig", "SAC", "SACConfig", "DDPG",
+    "DDPGConfig", "TD3", "TD3Config", "BC", "BCConfig", "MARWIL",
+    "MARWILConfig", "CQL", "CQLConfig", "CRR", "CRRConfig", "JsonReader",
+    "JsonWriter",
     "MultiAgentEnv", "MultiAgentCartPole",
     "Connector", "ConnectorPipeline", "FlattenObsConnector",
     "MeanStdObsConnector", "ClipActionConnector", "LambdaConnector",

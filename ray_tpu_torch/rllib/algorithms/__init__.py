@@ -1,5 +1,6 @@
-"""The port's RL algorithms: PPO, IMPALA/APPO, DQN/SimpleQ, PG/A2C and
-A3C (ROADMAP.md Queue A lists the rest of ``ray_tpu/rllib/algorithms/``)."""
+"""The port's RL algorithms: PPO, IMPALA/APPO, DQN/SimpleQ, PG/A2C, A3C,
+SAC, DDPG/TD3, BC/MARWIL, CQL and CRR (ROADMAP.md Queue A lists the rest
+of ``ray_tpu/rllib/algorithms/``)."""
 
 from ray_tpu_torch.rllib.algorithms.ppo import PPO, PPOConfig, PPOPolicy
 from ray_tpu_torch.rllib.algorithms.dqn import DQN, DQNConfig, DQNPolicy
@@ -10,9 +11,19 @@ from ray_tpu_torch.rllib.algorithms.appo import APPO, APPOConfig, APPOPolicy
 from ray_tpu_torch.rllib.algorithms.pg import (A2C, A2CConfig, A2CPolicy, PG,
                                                PGConfig, PGPolicy)
 from ray_tpu_torch.rllib.algorithms.a3c import A3C, A3CConfig
+from ray_tpu_torch.rllib.algorithms.sac import SAC, SACConfig, SACPolicy
+from ray_tpu_torch.rllib.algorithms.ddpg import (DDPG, DDPGConfig,
+                                                 DDPGPolicy, TD3, TD3Config)
+from ray_tpu_torch.rllib.algorithms.bc import (BC, BCConfig, MARWIL,
+                                               MARWILConfig, MARWILPolicy)
+from ray_tpu_torch.rllib.algorithms.cql import CQL, CQLConfig, CQLPolicy
+from ray_tpu_torch.rllib.algorithms.crr import CRR, CRRConfig, CRRPolicy
 
 __all__ = ["PPO", "PPOConfig", "PPOPolicy", "DQN", "DQNConfig", "DQNPolicy",
            "SimpleQ", "SimpleQConfig", "IMPALA", "IMPALAConfig",
            "IMPALAPolicy", "APPO", "APPOConfig", "APPOPolicy", "PG",
            "PGConfig", "PGPolicy", "A2C", "A2CConfig", "A2CPolicy", "A3C",
-           "A3CConfig"]
+           "A3CConfig", "SAC", "SACConfig", "SACPolicy", "DDPG",
+           "DDPGConfig", "DDPGPolicy", "TD3", "TD3Config", "BC", "BCConfig",
+           "MARWIL", "MARWILConfig", "MARWILPolicy", "CQL", "CQLConfig",
+           "CQLPolicy", "CRR", "CRRConfig", "CRRPolicy"]

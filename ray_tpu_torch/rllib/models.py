@@ -185,25 +185,51 @@ def make_model(obs_space, action_space,
 def params_from_flax(tree: Mapping[str, Any],
                      model: Optional[nn.Module] = None
                      ) -> Dict[str, torch.Tensor]:
-    """A flax params tree of ``MLPNet`` or ``AtariCNN`` (arrays or
-    anything ``np.asarray`` takes: params, or grads of them) -> the
-    port's ``state_dict`` in f32: Dense kernels [in, out] -> [out, in],
-    conv kernels HWIO -> OIHW. The 512-wide Dense's rows are already in
-    the port's flatten order (NHWC, as flax's). With ``model`` they are
-    also loaded into it."""
+    """A flax params tree (arrays or anything ``np.asarray`` takes:
+    params, or grads of them) -> the port's ``state_dict`` in f32: Dense
+    kernels [in, out] -> [out, in], conv kernels HWIO -> OIHW. Nested
+    modules join with dots, and flax's ``nn.Sequential`` names its layers
+    ``layers_{i}``, which become ``nn.Sequential``'s ``{i}`` (SAC's and
+    DDPG's ``pi_net.layers_0`` -> ``pi_net.0``). ``MLPNet``'s and
+    ``AtariCNN``'s trees are flat; the 512-wide Dense's rows are already
+    in the port's flatten order (NHWC, as flax's). With ``model`` they
+    are also loaded into it."""
     sd: Dict[str, torch.Tensor] = {}
-    for name, sub in tree.items():
-        if isinstance(sub, Mapping):
-            k = np.asarray(sub["kernel"], np.float32)
-            k = k.transpose(3, 2, 0, 1) if k.ndim == 4 else k.T
-            sd[f"{name}.weight"] = torch.from_numpy(np.array(k, order="C"))
-            sd[f"{name}.bias"] = torch.from_numpy(
-                np.array(sub["bias"], np.float32))
-        else:
-            sd[name] = torch.from_numpy(np.array(sub, np.float32))
+
+    def walk(sub, prefix):
+        for name, v in sub.items():
+            if name.startswith("layers_"):
+                name = name[len("layers_"):]
+            key = prefix + name
+            if isinstance(v, Mapping) and "kernel" in v:
+                k = np.asarray(v["kernel"], np.float32)
+                k = k.transpose(3, 2, 0, 1) if k.ndim == 4 else k.T
+                sd[f"{key}.weight"] = torch.from_numpy(np.array(k, order="C"))
+                sd[f"{key}.bias"] = torch.from_numpy(
+                    np.array(v["bias"], np.float32))
+            elif isinstance(v, Mapping):
+                walk(v, key + ".")
+            else:
+                sd[key] = torch.from_numpy(np.array(v, np.float32))
+
+    walk(tree, "")
     if model is not None:
         model.load_state_dict(sd)
     return sd
+
+
+def load_offpolicy_from_flax(policy, params: Mapping[str, Any],
+                             target_params: Mapping[str, Any],
+                             log_alpha: Optional[float] = None):
+    """A JAX SAC, CQL or CRR policy's (``params``, ``target_params``,
+    ``log_alpha``) or a DDPG/TD3 policy's (no ``log_alpha``) flax trees
+    -> the port's policy: its ``model``, ``target_model`` and
+    ``log_alpha``, in place."""
+    params_from_flax(params, policy.model)
+    params_from_flax(target_params, policy.target_model)
+    if log_alpha is not None:
+        with torch.no_grad():
+            policy.log_alpha.fill_(float(log_alpha))
 
 
 # ---- action distributions ----

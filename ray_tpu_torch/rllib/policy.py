@@ -45,6 +45,16 @@ from ray_tpu_torch.rllib.models import (
 from ray_tpu_torch.rllib.sample_batch import SampleBatch
 
 
+def policy_device(config: Dict[str, Any]) -> torch.device:
+    """``config["device"]`` ("cuda" unless the caller asks for "cpu");
+    "cuda" becomes the current card with its index, pinned here: a
+    learner thread must not read its own current device."""
+    device = resolve_device(config.get("device", "cuda"))
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def to_device_batch(batch, device: torch.device,
                     columns: Optional[Tuple[str, ...]] = None
                     ) -> Dict[str, torch.Tensor]:
@@ -151,11 +161,7 @@ class TorchPolicy:
         self.action_space = action_space
         self.config = config
         self.discrete = isinstance(action_space, Discrete)
-        self.device = resolve_device(config.get("device", "cuda"))
-        if self.device.type == "cuda" and self.device.index is None:
-            # pinned here: a learner thread must not read its own current
-            # device
-            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.device = policy_device(config)
         seed = config.get("seed") or 0
         init_gen = torch.Generator().manual_seed(seed)
         self.model = make_model(obs_space, action_space,
