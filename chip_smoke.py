@@ -231,6 +231,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
               buffers that grew, actions inside the Box; (c) the launch
               counts, zeroed at the phase's start and read at its end,
               are empty.
+18. local algorithms — RLlib's LocalAlgorithm with its algorithms
+              (run before the summary): (b) first, the card against the
+              port's own CPU run, f32, TF32 off, at the JAX configs'
+              default widths, nets built from one seed: one R2D2 update
+              (32 sequences of 20, LSTM 64, burn-in 4, padded and
+              terminal rows), one DT update (64 windows of 24 tokens,
+              width 64, 4 heads, 2 layers, drawn from the offline
+              CartPole set), one SlateQ update (batch 128 from its
+              replay); stats and params within PPO_F32 of their scale;
+              (a) bench.r2d2_loop: R2D2 on CartPole-v1 at R2D2Config's
+              defaults, 40 timed iterations; bench.slateq_loop: SlateQ
+              at SlateQConfig's defaults (20 docs, slates of 3, 6
+              topics, batch 128), 20; bench.dt_loop: DT at DTConfig's
+              defaults on the offline CartPole set (120 episodes capped
+              at 120 steps of the JAX DT fixture's noisy heuristic,
+              written by JsonWriter and read back), 10 iterations of 20
+              learn steps; bench.bandit_loop: LinUCB and LinTS on the
+              host; R2D2's and SlateQ's learn phases and one DT
+              iteration profiled (PPO_PROFILE_GROUPS); finite losses,
+              weights that moved, replays that grew, epsilon that fell,
+              targets synced at their period (equal to the online net
+              right after); (c) the launch counts, zeroed at the
+              phase's start and read at its end, are empty.
 13. summary — nvidia-smi's card line, the kernels line (each kernel's
               launches by the path that counted them: phases 4, 5b, 6,
               8, 12 and 14; paged decode's entry also carries its Llama
@@ -1970,6 +1993,158 @@ def offpolicy_phase(name, card) -> dict:
     return res
 
 
+def r2d2_batch(b=32, t=20, obs_dim=4, seed=SEED):
+    """A fixed R2D2 batch at the default sequence shape: every fourth
+    sequence padded past a random length, 5% terminals."""
+    rng = np.random.default_rng(seed)
+    mask = np.ones((b, t), np.float32)
+    for i in range(0, b, 4):
+        mask[i, rng.integers(5, t):] = 0.0
+    return {"obs": rng.standard_normal((b, t, obs_dim)).astype(np.float32),
+            "next_obs": rng.standard_normal((b, t, obs_dim)).astype(
+                np.float32),
+            "actions": rng.integers(2, size=(b, t)).astype(np.int64),
+            "rewards": rng.standard_normal((b, t)).astype(np.float32),
+            "dones": rng.random((b, t)) < 0.05, "mask": mask}
+
+
+def local_learn_parity(device, data_dir) -> dict:
+    """Phase 18b: the card against the port's own CPU run, f32, TF32 off,
+    each algorithm at its JAX config's defaults and built from one seed
+    (the init draws on the CPU): one R2D2 update on ``r2d2_batch`` (32
+    x 20, LSTM 64); one DT update on a batch the CPU algorithm draws
+    from the CartPole set in ``data_dir`` (64 x 24 tokens, width 64, 4
+    heads, 2 layers); one SlateQ update on 128 rows of a replay filled
+    by the CPU algorithm's random slates. Stats and grads within PPO_F32
+    of their scale (``hold_learn``), and params by ``hold_step``'s rule
+    for Adam's first step: within PPO_F32 where the CPU step's |grad|
+    passes PARAM_MASK or is 0 (DT's key biases have a true grad of 0,
+    as softmax ignores a shift common to a row, but a rounding-noise
+    grad that Adam turns into a step of up to lr), the share of entries
+    left out printed."""
+    import torch
+    from ray_tpu_torch.rllib.algorithms import (DTConfig, R2D2Config,
+                                                SlateQConfig)
+    from ray_tpu_torch.rllib.policy import stats_to_host, weights_of
+
+    def build(config, dev):
+        return config.resources(device=dev).debugging(seed=SEED).build()
+
+    def run(algo, batch):
+        stats = stats_to_host(algo._update(batch))
+        return stats, weights_of(algo.model), {
+            f"grad.{n}": p.grad.detach().cpu().numpy()
+            for n, p in algo.model.named_parameters()}
+
+    out = {}
+    batch = r2d2_batch()
+    cases = [("r2d2_learn_parity",
+              lambda dev: build(R2D2Config().environment("CartPole-v1"), dev),
+              lambda algo: batch)]
+    dt_cfg = lambda: DTConfig().environment("CartPole-v1").offline_data(  # noqa: E731
+        input_path=data_dir)
+    dt_batch = build(dt_cfg(), "cpu")._sample_batch(64)
+    cases.append(("dt_learn_parity", lambda dev: build(dt_cfg(), dev),
+                  lambda algo: {k: v.to(algo.device)
+                                for k, v in dt_batch.items()}))
+    sq = build(SlateQConfig(), "cpu")
+    sq._collect(300, 1.0)
+    sq_batch = sq.replay.sample(128)
+    cases.append(("slateq_learn_parity", lambda dev: build(SlateQConfig(),
+                                                            dev),
+                  lambda algo: sq_batch))
+    for tag, make, feed in cases:
+        res = []
+        for dev in ("cpu", device):
+            algo = make(dev)
+            res.append(run(algo, feed(algo)))
+        (cs, cw, cg), (ds, dw, dg) = res
+        left = {}
+        for n, w in cw.items():
+            g = np.abs(cg[f"grad.{n}"])
+            held = (g > PARAM_MASK) | (g == 0)
+            dw[n] = np.where(held, dw[n], w)
+            if not held.all():
+                left[n] = int((~held).sum())
+        out[tag] = hold_learn(tag, [(cs, {**cw, **cg})], [(ds, {**dw, **dg})])
+        print(f"{tag}_params_left_out", json.dumps({
+            "share": sum(left.values()) / sum(w.size for w in cw.values()),
+            "by_param": left}), flush=True)
+    require(tuple(dt_batch["obs"].shape) == (64, 8, 4)
+            and tuple(batch["obs"].shape) == (32, 20, 4)
+            and sq_batch.count == 128, "local parity shapes")
+    torch.cuda.empty_cache()
+    return out
+
+
+def local_algos_phase(name, card) -> dict:
+    """Phase 18: (b) the card against the CPU (R2D2, DT and SlateQ
+    updates), (a) R2D2 on CartPole, SlateQ, DT on the offline CartPole
+    set and the bandits through bench.r2d2_loop / slateq_loop / dt_loop /
+    bandit_loop, R2D2's and SlateQ's learn phases and one DT iteration
+    profiled, (c) no launch of the port's kernels across the phase."""
+    import tempfile
+
+    import torch
+    from ray_tpu_torch import bench, kernels
+    kernels.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as data_dir:
+        bench.write_cartpole_dataset(data_dir, episodes=20)
+        local_learn_parity("cuda", data_dir)
+
+    def show(tag, r, key):
+        profile = r.pop(key, None)
+        print(tag, json.dumps({**r, "device": name, "nvidia_smi": card}),
+              flush=True)
+        if profile is not None:
+            print(tag.replace("_train", "_profile"), json.dumps(profile),
+                  flush=True)
+
+    def prof(learn):
+        return profile_step(learn, PPO_PROFILE_GROUPS)
+
+    res = {}
+    for p, loop in (("r2d2", bench.r2d2_loop), ("slateq", bench.slateq_loop)):
+        r = loop(profile=prof)
+        show(f"{p}_train", r, f"{p}_profile")
+        require(r[f"{p}_losses_finite"], f"{p}: non-finite loss {r}")
+        require(r[f"{p}_weights_moved"] > 0, f"{p}: the weights did not move")
+        require(r[f"{p}_replay_size"][1] > r[f"{p}_replay_size"][0],
+                f"{p}: the replay did not grow {r[f'{p}_replay_size']}")
+        require(r[f"{p}_epsilon"][1] < r[f"{p}_epsilon"][0],
+                f"{p}: epsilon did not fall {r[f'{p}_epsilon']}")
+        require(r[f"{p}_target_syncs"] > 0
+                and r[f"{p}_target_equals_online_after_sync"] is True,
+                f"{p}: the target never synced {r}")
+        res[p] = r
+    require(res["r2d2"]["r2d2_lstm_size"] == 64
+            and res["r2d2"]["r2d2_seq_len"] == 20
+            and res["r2d2"]["r2d2_train_batch_size"] == 32,
+            f"r2d2 widths: {res['r2d2']}")
+    require(res["slateq"]["slateq_num_docs"] == 20
+            and res["slateq"]["slateq_train_batch_size"] == 128,
+            f"slateq widths: {res['slateq']}")
+    d = bench.dt_loop(profile=prof)
+    show("dt_train", d, "dt_profile")
+    require(d["dt_embed_dim"] == 64 and d["dt_context_length"] == 8
+            and d["dt_train_batch_size"] == 64 and d["dt_episodes"] == 120,
+            f"dt widths: {d}")
+    require(d["dt_losses_finite"], f"dt: non-finite loss {d['dt_action_nll']}")
+    require(d["dt_weights_moved"] > 0, "dt: the weights did not move")
+    res["dt"] = d
+    b = bench.bandit_loop()
+    print("bandit_train", json.dumps({**b, "device": "host (numpy)",
+                                      "nvidia_smi": card}), flush=True)
+    require(all(math.isfinite(v) for k, v in b.items()
+                if k.endswith("_per_sec")), f"bandits: {b}")
+    res["bandit"] = b
+    launches = kernels.launch_counts()
+    require(launches == {}, f"local algorithms: the path launched "
+            f"{launches}")
+    torch.cuda.empty_cache()
+    return res
+
+
 def serve_streams(server, prompts, new_tokens: int):
     """One greedy stream of ``new_tokens`` per prompt, opened together
     on ``server`` and drained in turn, with the launch counts and the
@@ -2608,6 +2783,10 @@ def main() -> int:
     # 17. SAC and TD3 on Pendulum, CQL, CRR, MARWIL and BC offline: none
     # of the port's kernels
     offpolicy_phase(name, card)
+
+    # 18. LocalAlgorithm: R2D2, SlateQ, DT and the bandits: none of the
+    # port's kernels
+    local_algos_phase(name, card)
 
     # 13. summary
     def kernel_entry(case, kname, source, line, by_path):

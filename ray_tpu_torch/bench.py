@@ -26,7 +26,11 @@ run learns, syncs the target and lowers epsilon; ``sac_loop`` /
 ``ddpg_loop``: SAC and TD3 on Pendulum-v1 at 256 x 256, batch 256
 (``pendulum_sac_config``); ``offline_loop``: CQL, CRR, MARWIL or BC on a
 100,000-row Pendulum set written by ``JsonWriter`` and read back
-(``write_pendulum_dataset``, ``offline_config``); ``main`` runs the
+(``write_pendulum_dataset``, ``offline_config``); ``r2d2_loop``,
+``slateq_loop``, ``dt_loop`` and ``bandit_loop``: R2D2 on CartPole-v1,
+SlateQ on its interest-evolution simulator, DT on an offline CartPole
+set written by ``JsonWriter`` (``write_cartpole_dataset``) and LinUCB /
+LinTS on the host, each at its JAX config's defaults; ``main`` runs the
 first five. The first two time steps on
 one resident batch (no input cost: the compute ceiling), as windows of
 steps closed by a host read of the loss, and report the best window.
@@ -819,6 +823,306 @@ def offline_loop(algo="CQL", device="cuda", profile=None, data_dir=None,
     if profile is not None:
         out["offline_profile"] = profile(algo_obj.training_step)
     algo_obj.cleanup()
+    return out
+
+
+def r2d2_config(device="cuda"):
+    """R2D2 on CartPole-v1 at the JAX ``R2D2Config``'s defaults: Dense 64
+    -> LSTM 64 -> Q, sequences of 20 with a burn-in of 4, 32 sequences an
+    update, 4 updates an iteration of 64 env steps, 500 env steps before
+    learning, a target sync every 300 steps, epsilon over 5,000. On
+    ``cpu``: 4 sequences of 8 with a burn-in of 2, 64 steps before
+    learning, a target sync every 64 (the nets stay 64 wide)."""
+    from ray_tpu_torch.rllib.algorithms import R2D2Config
+    dev = resolve_device(device)
+    config = R2D2Config()
+    if dev.type == "cpu":
+        config.training(train_batch_size=4, seq_len=8, burn_in=2,
+                        learning_starts=64, target_network_update_freq=64)
+    return (config.environment("CartPole-v1")
+            .resources(device=str(dev)).debugging(seed=0))
+
+
+def slateq_config(device="cuda"):
+    """SlateQ on its interest-evolution simulator at the JAX
+    ``SlateQConfig``'s defaults: 20 documents, slates of 3, 6 topics,
+    q-net 64 x 64, batch 128, 4 updates an iteration of 200 env steps,
+    500 steps before learning, a 50,000-row buffer, a target sync every
+    500 steps. On ``cpu``: fragments of 32, batch 16, 64 steps before
+    learning, a target sync every 64."""
+    from ray_tpu_torch.rllib.algorithms import SlateQConfig
+    dev = resolve_device(device)
+    config = SlateQConfig()
+    if dev.type == "cpu":
+        config.training(rollout_fragment_length=32, train_batch_size=16,
+                        learning_starts=64, target_network_update_freq=64)
+    return config.resources(device=str(dev)).debugging(seed=0)
+
+
+def _local_loop(prefix, algo, dev, timed, profile, replay_size) -> dict:
+    """A ``LocalAlgorithm`` with a replay (R2D2, SlateQ) through
+    ``Algorithm.step``: iterations until ``replay_size(algo)`` reaches
+    ``learning_starts``, one warm-up iteration that learns, then
+    ``timed`` ones. Keys as ``_replay_loop``'s with ``prefix``, plus
+    epsilon and the replay's size before and after, the target syncs in
+    the timed iterations and whether the target equalled the online net
+    right after the last one. ``profile``: a function called with one
+    learn phase (``training_intensity`` updates, each a replay draw and
+    an ``_update``, then the stats to the host)."""
+    from ray_tpu_torch.rllib.policy import stats_to_host, weights_of
+    cfg = algo.config
+    w0 = weights_of(algo.model)
+    t0 = time.perf_counter()
+    fill = 0
+    while replay_size(algo) < cfg["learning_starts"]:
+        algo.step()
+        fill += 1
+    warm = algo.step()
+    warmup_s = time.perf_counter() - t0
+    start = (warm["epsilon"], replay_size(algo))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    before = kernels.launch_counts()
+    runs, syncs, synced_equal = [], 0, None
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        pending = algo._steps_since_target_sync
+        runs.append(algo.step())
+        if (algo._steps_since_target_sync
+                < pending + runs[-1]["num_env_steps_sampled_this_iter"]):
+            syncs += 1
+            online, target = weights_of(algo.model), weights_of(
+                algo.target_model)
+            synced_equal = all(np.array_equal(online[k], target[k])
+                               for k in online)
+    timed_s = time.perf_counter() - t0
+    launches = _launches_since(before)
+    losses = [r["learner/loss"] for r in runs]
+    steps = sum(r["num_env_steps_sampled_this_iter"] for r in runs)
+    totals = {k: float(sum(r["timers"][k] for r in runs))
+              for k in runs[0]["timers"]}
+    out = {
+        f"{prefix}_platform": dev.type,
+        f"{prefix}_device_kind": _device_kind(dev),
+        f"{prefix}_train_batch_size": cfg["train_batch_size"],
+        f"{prefix}_training_intensity": cfg["training_intensity"],
+        f"{prefix}_env_steps_per_iter": cfg["rollout_fragment_length"],
+        f"{prefix}_fill_iters": fill, f"{prefix}_iters_timed": timed,
+        f"{prefix}_warmup_s": warmup_s,
+        f"{prefix}_env_steps_per_sec": _median(runs, "env_steps_per_sec"),
+        f"{prefix}_env_steps_per_sec_whole": steps / timed_s,
+        **{f"{prefix}_{k}": _median(runs, k, "timers")
+           for k in runs[0]["timers"]},
+        f"{prefix}_split": {k: v / sum(totals.values())
+                            for k, v in totals.items()},
+        f"{prefix}_loss": [losses[0], losses[-1]],
+        f"{prefix}_losses_finite": bool(np.all(np.isfinite(losses))),
+        f"{prefix}_epsilon": [start[0], runs[-1]["epsilon"]],
+        f"{prefix}_replay_size": [start[1], replay_size(algo)],
+        f"{prefix}_target_syncs": syncs,
+        f"{prefix}_target_equals_online_after_sync": synced_equal,
+        f"{prefix}_target_network_update_freq":
+            cfg["target_network_update_freq"],
+        f"{prefix}_episode_reward_mean": runs[-1]["episode_reward_mean"],
+        f"{prefix}_weights_moved": _moved(w0, weights_of(algo.model)),
+        f"{prefix}_launches": launches,
+    }
+    if dev.type == "cuda":
+        out[f"{prefix}_max_memory_allocated_bytes"] = (
+            torch.cuda.max_memory_allocated(dev))
+    if profile is not None:
+        def learn():
+            for _ in range(cfg["training_intensity"]):
+                stats = algo._update(algo.replay.sample(
+                    cfg["train_batch_size"]))
+            return stats_to_host(stats)
+        out[f"{prefix}_profile"] = profile(learn)
+    algo.cleanup()
+    return out
+
+
+def r2d2_loop(device="cuda", profile=None, timed=None) -> dict:
+    """R2D2-CartPole throughput through ``Algorithm.step``
+    (``r2d2_config``): 40 timed iterations on ``cuda``, 2 on ``cpu``.
+    Keys ``r2d2_*`` (``_local_loop``) and the LSTM's width."""
+    dev = resolve_device(device)
+    algo = r2d2_config(dev).build()
+    out = _local_loop("r2d2", algo, dev,
+                      timed or (40 if dev.type == "cuda" else 2), profile,
+                      lambda a: a.replay.num_steps)
+    out.update(r2d2_lstm_size=algo.config["lstm_size"],
+               r2d2_seq_len=algo.config["seq_len"],
+               r2d2_burn_in=algo.config["burn_in"])
+    return out
+
+
+def slateq_loop(device="cuda", profile=None, timed=None) -> dict:
+    """SlateQ throughput through ``Algorithm.step`` (``slateq_config``):
+    20 timed iterations on ``cuda``, 2 on ``cpu``. Keys ``slateq_*``
+    (``_local_loop``) and the env's sizes."""
+    dev = resolve_device(device)
+    algo = slateq_config(dev).build()
+    out = _local_loop("slateq", algo, dev,
+                      timed or (20 if dev.type == "cuda" else 2), profile,
+                      lambda a: len(a.replay))
+    out.update(slateq_num_docs=algo.num_docs, slateq_slate_size=algo.k,
+               slateq_num_topics=algo.env.num_topics,
+               slateq_hidden=algo.config["hidden"])
+    return out
+
+
+def write_cartpole_dataset(path, episodes=120, steps=120, seed=0) -> dict:
+    """The offline CartPole set, written by the port's ``JsonWriter`` to
+    ``path`` as one batch: ``episodes`` episodes (reset seeds 0, 1, ...)
+    capped at ``steps`` steps of the JAX package's DT fixture's noisy
+    heuristic (``tests/test_rllib_dt.py``): push toward the pole's lean
+    (angle + 0.4 angular velocity), replaced by a uniform action with
+    probability 0.6 on odd episodes and 0.15 on even ones, from
+    ``np.random.default_rng(seed)``. Returns the rows and the episodes'
+    mean and best return."""
+    from ray_tpu_torch.rllib.env import CartPoleEnv
+    from ray_tpu_torch.rllib.offline import JsonWriter
+    from ray_tpu_torch.rllib.sample_batch import SampleBatch as SB
+    rng = np.random.default_rng(seed)
+    env = CartPoleEnv({"seed": seed})
+    cols = {k: [] for k in ("obs", "act", "rew", "done")}
+    rets = []
+    for ep in range(episodes):
+        o, _ = env.reset(seed=ep)
+        tot = 0.0
+        noise = 0.6 if ep % 2 else 0.15
+        for t in range(steps):
+            a = int(o[2] + 0.4 * o[3] > 0)
+            if rng.random() < noise:
+                a = int(rng.integers(2))
+            no, r, term, trunc, _ = env.step(a)
+            ended = term or trunc or t == steps - 1
+            for k, v in zip(cols, (o, a, r, ended)):
+                cols[k].append(v)
+            o = no
+            tot += r
+            if ended:
+                break
+        rets.append(tot)
+    w = JsonWriter(path)
+    w.write(SB({SB.OBS: np.asarray(cols["obs"], np.float32),
+                SB.ACTIONS: np.asarray(cols["act"], np.int64),
+                SB.REWARDS: np.asarray(cols["rew"], np.float32),
+                SB.DONES: np.asarray(cols["done"], bool)}))
+    w.close()
+    return {"rows": len(cols["obs"]), "mean_return": float(np.mean(rets)),
+            "best_return": float(np.max(rets))}
+
+
+def dt_loop(device="cuda", profile=None, timed=None) -> dict:
+    """DT learn-step throughput through ``Algorithm.step``: the JAX
+    ``DTConfig``'s defaults (context 8 = 24 tokens, width 64, 4 heads, 2
+    layers, batch 64, 20 learn steps an iteration, AdamW 1e-3 after a
+    clip at 1) on the offline CartPole set (``write_cartpole_dataset``:
+    120 episodes capped at 120 steps; 12 on ``cpu``, with batch 8 and 2
+    learn steps an iteration) written to a temporary directory and read
+    back; one warm-up iteration, then ``timed`` ones (10 on ``cuda``, 1
+    on ``cpu``). Keys ``dt_*``: learn steps/s (median over the timed
+    iterations), the draw / learn split, the NLL first and last, the
+    action accuracy, weights that moved, launches (read, not zeroed),
+    peak memory. ``profile``: a function called with one iteration."""
+    import tempfile
+    from ray_tpu_torch.rllib.algorithms import DTConfig
+    from ray_tpu_torch.rllib.policy import weights_of
+    dev = resolve_device(device)
+    cuda = dev.type == "cuda"
+    timed = timed or (10 if cuda else 1)
+    config = DTConfig()
+    if not cuda:
+        config.training(train_batch_size=8, num_iters_per_step=2)
+    out = {"dt_platform": dev.type, "dt_device_kind": _device_kind(dev)}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        data = write_cartpole_dataset(tmp, episodes=120 if cuda else 12)
+        out["dt_write_s"] = time.perf_counter() - t0
+        out.update({f"dt_data_{k}": v for k, v in data.items()})
+        algo = (config.environment("CartPole-v1")
+                .offline_data(input_path=tmp)
+                .resources(device=str(dev)).debugging(seed=0).build())
+    cfg = algo.config
+    w0 = weights_of(algo.model)
+    t0 = time.perf_counter()
+    algo.step()
+    out["dt_warmup_s"] = time.perf_counter() - t0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    before = kernels.launch_counts()
+    runs, secs = [], []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        runs.append(algo.step())
+        secs.append(time.perf_counter() - t0)
+    launches = _launches_since(before)
+    per_iter = cfg["num_iters_per_step"]
+    nll = [r["learner/action_nll"] for r in runs]
+    totals = {k: float(sum(r["timers"][k] for r in runs))
+              for k in runs[0]["timers"]}
+    out.update({
+        "dt_context_length": cfg["context_length"],
+        "dt_embed_dim": cfg["embed_dim"], "dt_num_heads": cfg["num_heads"],
+        "dt_num_layers": cfg["num_layers"],
+        "dt_train_batch_size": cfg["train_batch_size"],
+        "dt_learn_steps_per_iter": per_iter, "dt_iters_timed": timed,
+        "dt_episodes": len(algo._ep_lengths),
+        "dt_learn_steps_per_sec": float(np.median(
+            [per_iter / s for s in secs])),
+        **{f"dt_{k}": _median(runs, k, "timers") for k in runs[0]["timers"]},
+        "dt_split": {k: v / sum(totals.values()) for k, v in totals.items()},
+        "dt_action_nll": [nll[0], nll[-1]],
+        "dt_losses_finite": bool(np.all(np.isfinite(nll))),
+        "dt_action_acc": runs[-1]["learner/action_acc"],
+        "dt_target_return": algo.target_return,
+        "dt_weights_moved": _moved(w0, weights_of(algo.model)),
+        "dt_launches": launches,
+    })
+    if cuda:
+        out["dt_max_memory_allocated_bytes"] = (
+            torch.cuda.max_memory_allocated(dev))
+    if profile is not None:
+        out["dt_profile"] = profile(algo.training_step)
+    algo.cleanup()
+    return out
+
+
+def bandit_loop(timed=None) -> dict:
+    """LinUCB and LinTS at the JAX configs' defaults (8 features, 4
+    arms, 32 env steps and one exact ridge update an iteration) through
+    ``Algorithm.step``, on the host: the reference keeps them numpy and
+    so does the port, so there is no device. ``timed`` iterations (50)
+    after one warm-up; keys ``bandit_{linucb,lints}_*``: env steps/s
+    (median and whole), the mean reward of the first and the last
+    iteration."""
+    from ray_tpu_torch.rllib.algorithms import (BanditLinTSConfig,
+                                                BanditLinUCBConfig)
+    timed = timed or 50
+    out = {}
+    for name, config in (("linucb", BanditLinUCBConfig),
+                         ("lints", BanditLinTSConfig)):
+        algo = config().debugging(seed=0).build()
+        first = algo.step()
+        t0 = time.perf_counter()
+        runs = [algo.step() for _ in range(timed)]
+        timed_s = time.perf_counter() - t0
+        steps = sum(r["num_env_steps_sampled_this_iter"] for r in runs)
+        policy = algo.get_policy()
+        out.update({
+            f"bandit_{name}_env_steps_per_iter":
+                runs[-1]["num_env_steps_sampled_this_iter"],
+            f"bandit_{name}_arms": policy.k,
+            f"bandit_{name}_feature_dim": policy.d,
+            f"bandit_{name}_iters_timed": timed,
+            f"bandit_{name}_env_steps_per_sec":
+                _median(runs, "env_steps_per_sec"),
+            f"bandit_{name}_env_steps_per_sec_whole": steps / timed_s,
+            f"bandit_{name}_mean_reward": [first["learner/mean_reward"],
+                                           runs[-1]["learner/mean_reward"]],
+        })
+        algo.cleanup()
     return out
 
 

@@ -5,7 +5,8 @@ Algorithm, RolloutWorker/WorkerSet, SampleBatch, policies): the old
 stack (``Algorithm`` -> the WorkerSet's local ``RolloutWorker`` -> a
 ``TorchPolicy`` or a standalone policy: PPO, IMPALA/APPO, DQN/SimpleQ
 with the replay buffers, PG/A2C, SAC, DDPG/TD3; offline from JSON
-datasets: BC/MARWIL, CQL, CRR) and the new one (``RLModule`` /
+datasets: BC/MARWIL, CQL, CRR; the bandits; and ``LocalAlgorithm``'s
+own env loops: R2D2, SlateQ, DT) and the new one (``RLModule`` /
 ``PPOLearner`` / a local ``LearnerGroup``). The policy's forward, the loss, the backward and Adam
 run on ``config["device"]`` ("cuda" unless the caller asks for "cpu");
 env stepping, connectors and GAE stay numpy on the host, as in the JAX
@@ -37,14 +38,19 @@ from ray_tpu_torch.rllib.replay_buffers import (PrioritizedReplayBuffer,
                                                 ReplayBuffer)
 from ray_tpu_torch.rllib.rollout_worker import (RolloutWorker, WorkerSet,
                                                 synchronous_parallel_sample)
-from ray_tpu_torch.rllib.algorithm import Algorithm, AlgorithmConfig
+from ray_tpu_torch.rllib.algorithm import (Algorithm, AlgorithmConfig,
+                                           LocalAlgorithm)
 from ray_tpu_torch.rllib.offline import JsonReader, JsonWriter
-from ray_tpu_torch.rllib.algorithms import (BC, CQL, CRR, DDPG, DQN, MARWIL,
-                                            PPO, SAC, TD3, BCConfig,
-                                            CQLConfig, CRRConfig, DDPGConfig,
-                                            DQNConfig, IMPALA, IMPALAConfig,
+from ray_tpu_torch.rllib.algorithms import (BC, CQL, CRR, DDPG, DQN, DT,
+                                            MARWIL, PPO, R2D2, SAC, TD3,
+                                            BanditLinTS, BanditLinTSConfig,
+                                            BanditLinUCB, BanditLinUCBConfig,
+                                            BCConfig, CQLConfig, CRRConfig,
+                                            DDPGConfig, DQNConfig, DTConfig,
+                                            IMPALA, IMPALAConfig,
                                             MARWILConfig, PPOConfig,
-                                            SACConfig, TD3Config)
+                                            R2D2Config, SACConfig, SlateQ,
+                                            SlateQConfig, TD3Config)
 
 __all__ = [
     "SampleBatch", "MultiAgentBatch", "convert_ma_batch_to_sample_batch",
@@ -57,7 +63,9 @@ __all__ = [
     "DQNConfig", "IMPALA", "IMPALAConfig", "SAC", "SACConfig", "DDPG",
     "DDPGConfig", "TD3", "TD3Config", "BC", "BCConfig", "MARWIL",
     "MARWILConfig", "CQL", "CQLConfig", "CRR", "CRRConfig", "JsonReader",
-    "JsonWriter",
+    "JsonWriter", "LocalAlgorithm", "R2D2", "R2D2Config", "DT", "DTConfig",
+    "BanditLinUCB", "BanditLinUCBConfig", "BanditLinTS",
+    "BanditLinTSConfig", "SlateQ", "SlateQConfig",
     "MultiAgentEnv", "MultiAgentCartPole",
     "Connector", "ConnectorPipeline", "FlattenObsConnector",
     "MeanStdObsConnector", "ClipActionConnector", "LambdaConnector",

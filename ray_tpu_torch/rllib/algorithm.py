@@ -8,8 +8,10 @@ unless the caller asks for ``"cpu"``).
 
 The port samples with the local worker only: remote rollout workers and
 evaluation workers need the runtime (ROADMAP.md Queue A, A1) and raise.
-``LocalAlgorithm`` (QMIX's and R2D2's own env loops) comes with those
-algorithms.
+``LocalAlgorithm`` is the base of the algorithms that run their own env
+loop (R2D2, SlateQ, DT; QMIX's and MADDPG's ``_collect_joint``): its
+net, target and Adam live on ``config["device"]``, its epsilon and
+replay draws come from numpy in the JAX package's order.
 """
 
 from __future__ import annotations
@@ -20,9 +22,21 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
+from ray_tpu_torch.rllib.env import MultiAgentEnv
+from ray_tpu_torch.rllib.policy import host_copy, load_weights, weights_of
 from ray_tpu_torch.rllib.rollout_worker import (REMOTE_WORKERS_NEED_RUNTIME,
                                                 WorkerSet)
+from ray_tpu_torch.rllib.sample_batch import SampleBatch
 from ray_tpu_torch.tune.trainable import Trainable
+
+
+def evaluation_result(rewards) -> Dict[str, Any]:
+    """Greedy evaluation episodes' rewards -> ``evaluate``'s result."""
+    return {"evaluation": {
+        "episode_reward_mean": float(np.mean(rewards)),
+        "episode_reward_min": float(np.min(rewards)),
+        "episode_reward_max": float(np.max(rewards)),
+    }}
 
 
 class AlgorithmConfig:
@@ -185,6 +199,11 @@ class Algorithm(Trainable):
                                  window: int = 100) -> Dict[str, Any]:
         for m in self.workers.collect_metrics():
             self._episode_reward_window.extend(m["episode_rewards"])
+        return self._window_metrics(window)
+
+    def _window_metrics(self, window: int) -> Dict[str, Any]:
+        """The last ``window`` episode rewards' summary (the window is
+        cut to them)."""
         self._episode_reward_window = self._episode_reward_window[-window:]
         rw = self._episode_reward_window
         return {
@@ -219,12 +238,8 @@ class Algorithm(Trainable):
         """Greedy evaluation rollouts — delegates to the local worker's
         evaluate_episodes so single/multi-agent and connector handling
         live in ONE place (rollout_worker.py)."""
-        rewards = self.workers.local_worker.evaluate_episodes(num_episodes)
-        return {"evaluation": {
-            "episode_reward_mean": float(np.mean(rewards)),
-            "episode_reward_min": float(np.min(rewards)),
-            "episode_reward_max": float(np.max(rewards)),
-        }}
+        return evaluation_result(
+            self.workers.local_worker.evaluate_episodes(num_episodes))
 
     # ---- checkpointing (Trainable hooks) ----
 
@@ -267,3 +282,131 @@ class Algorithm(Trainable):
 
     def cleanup(self):
         self.workers.stop()
+
+
+class LocalAlgorithm(Algorithm):
+    """Base for algorithms that own their env loop instead of sampling
+    through a WorkerSet — QMIX's joint-transition collector, R2D2's
+    recurrent-state collector. Provides the shared plumbing:
+    counters, the epsilon schedule, periodic hard target sync, local
+    episode metrics, and net/target/optimizer checkpointing.
+
+    Counterpart of ``ray_tpu/rllib/algorithm.py``'s ``LocalAlgorithm``.
+    Subclasses set, in setup(), ``self.model`` (an ``nn.Module`` on the
+    device), ``self.target_model`` (its copy, or None where the method
+    has no target: DT) and ``self.optimizer`` where the JAX algorithms
+    set ``params``, ``target_params`` and ``opt_state``. Epsilon draws
+    and replay draws stay numpy (``self._np_rng``), in JAX's order."""
+
+    def _init_local_state(self):
+        self.evaluation_workers = None  # Algorithm.step expects the attr
+        self._np_rng = np.random.default_rng(self.config.get("seed"))
+        self._iteration = 0
+        self._timesteps_total = 0
+        self._steps_since_target_sync = 0
+        self._episode_reward_window: list = []
+        self._t_start = time.time()
+
+    def _epsilon(self) -> float:
+        cfg = self.config
+        frac = min(1.0, self._timesteps_total
+                   / max(1, cfg["epsilon_timesteps"]))
+        return cfg["initial_epsilon"] + frac * (
+            cfg["final_epsilon"] - cfg["initial_epsilon"])
+
+    def _maybe_sync_target(self, steps: int):
+        self._steps_since_target_sync += steps
+        if (self._steps_since_target_sync
+                >= self.config["target_network_update_freq"]):
+            self.target_model.load_state_dict(self.model.state_dict())
+            self._steps_since_target_sync = 0
+
+    def _collect_rollout_metrics(self, window: int = 100):
+        # no workers: the algorithm's own collector fills the window
+        return self._window_metrics(window)
+
+    def _collect_joint(self, act_fn, num_steps: int) -> int:
+        """Joint-transition collector shared by the cooperative
+        multi-agent algorithms (QMIX, MADDPG). ``act_fn(obs_dict)``
+        returns (env_action_dict, stored_action_array (n, ...)); rows
+        carry the TEAM reward (mean over agents), terminal-only dones
+        (TD bootstraps through time-limit truncation), and stacked
+        per-agent obs. Appends one SampleBatch to ``self.replay``."""
+        rows: Dict[str, list] = {k: [] for k in
+                                 ("obs", "actions", "rewards", "dones",
+                                  "next_obs")}
+        for _ in range(num_steps):
+            acts, stored = act_fn(self._obs)
+            nobs, rews, terms, truncs, _ = self.env.step(acts)
+            terminal = bool(terms.get("__all__"))
+            done = terminal or bool(truncs.get("__all__"))
+            team_r = float(np.mean([rews[a] for a in self.agent_ids]))
+            rows["obs"].append(
+                np.stack([self._obs[a] for a in self.agent_ids]))
+            rows["actions"].append(stored)
+            rows["rewards"].append(np.float32(team_r))
+            rows["dones"].append(terminal)
+            # on terminal, next obs may be missing for done agents:
+            # fall back to the last obs (masked out by dones in the TD)
+            rows["next_obs"].append(np.stack(
+                [nobs.get(a, self._obs[a]) for a in self.agent_ids]))
+            self._episode_reward += team_r
+            if done:
+                self._episode_reward_window.append(self._episode_reward)
+                self._episode_reward = 0.0
+                self._obs, _ = self.env.reset()
+            else:
+                self._obs = nobs
+        self.replay.add(SampleBatch(
+            {k: np.stack(v) if np.asarray(v[0]).ndim
+             else np.asarray(v) for k, v in rows.items()}))
+        return num_steps
+
+    def _eval_episodes(self, act_fn, num_episodes: int,
+                       seed_base: int = 10_000,
+                       on_reset=None) -> Dict[str, Any]:
+        """Greedy evaluation loop shared by the self-contained
+        algorithms. ``act_fn(obs)`` returns an action (or a joint
+        action dict for a MultiAgentEnv); ``on_reset()`` clears
+        per-episode acting state (LSTM carry, DT context window)."""
+        multi = isinstance(self.env, MultiAgentEnv)
+        rewards = []
+        for ep in range(num_episodes):
+            obs, _ = self.env.reset(seed=seed_base + ep)
+            if on_reset is not None:
+                on_reset()
+            total, done = 0.0, False
+            while not done:
+                obs, rews, terms, truncs, _ = self.env.step(act_fn(obs))
+                if multi:
+                    total += float(np.mean(list(rews.values())))
+                    done = bool(terms.get("__all__")
+                                or truncs.get("__all__"))
+                else:
+                    total += float(rews)
+                    done = bool(terms or truncs)
+            rewards.append(total)
+        return evaluation_result(rewards)
+
+    def save_checkpoint(self) -> Dict[str, Any]:
+        """Host copies: the online and target ``state_dict``s as numpy,
+        the optimizer's ``state_dict`` and the counters."""
+        return {
+            "params": weights_of(self.model),
+            "target_params": ({} if self.target_model is None
+                              else weights_of(self.target_model)),
+            "opt_state": host_copy(self.optimizer.state_dict()),
+            "iteration": self._iteration,
+            "timesteps_total": self._timesteps_total,
+        }
+
+    def load_checkpoint(self, state: Dict[str, Any]):
+        load_weights(self.model, state["params"])
+        if self.target_model is not None:
+            load_weights(self.target_model, state["target_params"])
+        self.optimizer.load_state_dict(host_copy(state["opt_state"]))
+        self._iteration = state.get("iteration", 0)
+        self._timesteps_total = state.get("timesteps_total", 0)
+
+    def cleanup(self):
+        pass  # no worker actors to stop

@@ -1,6 +1,7 @@
 """The port's RL algorithms: PPO, IMPALA/APPO, DQN/SimpleQ, PG/A2C, A3C,
-SAC, DDPG/TD3, BC/MARWIL, CQL and CRR (ROADMAP.md Queue A lists the rest
-of ``ray_tpu/rllib/algorithms/``)."""
+SAC, DDPG/TD3, BC/MARWIL, CQL, CRR, the bandits (LinUCB, LinTS), R2D2,
+DT and SlateQ (ROADMAP.md Queue A lists the rest of
+``ray_tpu/rllib/algorithms/``)."""
 
 from ray_tpu_torch.rllib.algorithms.ppo import PPO, PPOConfig, PPOPolicy
 from ray_tpu_torch.rllib.algorithms.dqn import DQN, DQNConfig, DQNPolicy
@@ -18,6 +19,13 @@ from ray_tpu_torch.rllib.algorithms.bc import (BC, BCConfig, MARWIL,
                                                MARWILConfig, MARWILPolicy)
 from ray_tpu_torch.rllib.algorithms.cql import CQL, CQLConfig, CQLPolicy
 from ray_tpu_torch.rllib.algorithms.crr import CRR, CRRConfig, CRRPolicy
+from ray_tpu_torch.rllib.algorithms.r2d2 import R2D2, R2D2Config
+from ray_tpu_torch.rllib.algorithms.dt import DT, DTConfig
+from ray_tpu_torch.rllib.algorithms.bandit import (BanditLinTS,
+                                                   BanditLinTSConfig,
+                                                   BanditLinUCB,
+                                                   BanditLinUCBConfig)
+from ray_tpu_torch.rllib.algorithms.slateq import SlateQ, SlateQConfig
 
 __all__ = ["PPO", "PPOConfig", "PPOPolicy", "DQN", "DQNConfig", "DQNPolicy",
            "SimpleQ", "SimpleQConfig", "IMPALA", "IMPALAConfig",
@@ -26,4 +34,7 @@ __all__ = ["PPO", "PPOConfig", "PPOPolicy", "DQN", "DQNConfig", "DQNPolicy",
            "A3CConfig", "SAC", "SACConfig", "SACPolicy", "DDPG",
            "DDPGConfig", "DDPGPolicy", "TD3", "TD3Config", "BC", "BCConfig",
            "MARWIL", "MARWILConfig", "MARWILPolicy", "CQL", "CQLConfig",
-           "CQLPolicy", "CRR", "CRRConfig", "CRRPolicy"]
+           "CQLPolicy", "CRR", "CRRConfig", "CRRPolicy", "R2D2",
+           "R2D2Config", "DT", "DTConfig", "BanditLinUCB",
+           "BanditLinUCBConfig", "BanditLinTS", "BanditLinTSConfig",
+           "SlateQ", "SlateQConfig"]

@@ -182,6 +182,10 @@ def make_model(obs_space, action_space,
         vf_share_layers=model_config.get("vf_share_layers", False))
 
 
+# flax leaf names that torch calls otherwise
+_LEAF_NAMES = {"scale": "weight", "embedding": "weight"}
+
+
 def params_from_flax(tree: Mapping[str, Any],
                      model: Optional[nn.Module] = None
                      ) -> Dict[str, torch.Tensor]:
@@ -193,7 +197,16 @@ def params_from_flax(tree: Mapping[str, Any],
     DDPG's ``pi_net.layers_0`` -> ``pi_net.0``). ``MLPNet``'s and
     ``AtariCNN``'s trees are flat; the 512-wide Dense's rows are already
     in the port's flatten order (NHWC, as flax's). With ``model`` they
-    are also loaded into it."""
+    are also loaded into it.
+
+    Also: a kernel without a bias (an LSTM cell's input kernels ``ii``,
+    ``if``, ``ig``, ``io``) gives a weight alone; ``DenseGeneral``'s
+    kernels [in..., out...] (``SelfAttention``'s ``query``/``key``/
+    ``value`` [d, heads, head_dim] with bias [heads, head_dim], its
+    ``out`` [heads, head_dim, d]) become ``Linear`` weights [prod(out),
+    prod(in)] and flat biases, the out axes being the bias's; flax's
+    ``LayerNorm`` ``scale`` and ``Embed`` ``embedding`` become
+    ``weight``."""
     sd: Dict[str, torch.Tensor] = {}
 
     def walk(sub, prefix):
@@ -203,14 +216,21 @@ def params_from_flax(tree: Mapping[str, Any],
             key = prefix + name
             if isinstance(v, Mapping) and "kernel" in v:
                 k = np.asarray(v["kernel"], np.float32)
-                k = k.transpose(3, 2, 0, 1) if k.ndim == 4 else k.T
+                if k.ndim == 4:
+                    k = k.transpose(3, 2, 0, 1)
+                else:
+                    n_out = np.ndim(v["bias"]) if "bias" in v else 1
+                    k = k.reshape(int(np.prod(k.shape[:k.ndim - n_out])),
+                                  -1).T
                 sd[f"{key}.weight"] = torch.from_numpy(np.array(k, order="C"))
-                sd[f"{key}.bias"] = torch.from_numpy(
-                    np.array(v["bias"], np.float32))
+                if "bias" in v:
+                    sd[f"{key}.bias"] = torch.from_numpy(
+                        np.array(v["bias"], np.float32).reshape(-1))
             elif isinstance(v, Mapping):
                 walk(v, key + ".")
             else:
-                sd[key] = torch.from_numpy(np.array(v, np.float32))
+                sd[prefix + _LEAF_NAMES.get(name, name)] = torch.from_numpy(
+                    np.array(v, np.float32))
 
     walk(tree, "")
     if model is not None:

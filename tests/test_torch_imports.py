@@ -60,7 +60,8 @@ def test_port_files_found():
                 "core/learner_group", "replay_buffers",
                 "execution/learner_thread", "algorithms/impala",
                 "algorithms/appo", "algorithms/dqn", "algorithms/simple_q",
-                "algorithms/pg", "algorithms/a3c"):
+                "algorithms/pg", "algorithms/a3c", "algorithms/bandit",
+                "algorithms/slateq", "algorithms/r2d2", "algorithms/dt"):
         assert f"ray_tpu_torch/rllib/{mod}.py" in rel
     assert "ray_tpu_torch/tune/trainable.py" in rel
     assert "ray_tpu_torch/air/checkpoint.py" in rel
