@@ -254,6 +254,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
               targets synced at their period (equal to the online net
               right after); (c) the launch counts, zeroed at the
               phase's start and read at its end, are empty.
+19. multi-agent and meta — RLlib's cooperative multi-agent and
+              meta-learning algorithms (run before the summary): (b)
+              first, the card against the port's own CPU run, f32, TF32
+              off, at the JAX configs' default widths, nets built from
+              one seed: one QMIX update (64 rows of CoopCartPole, 2
+              agents), one MADDPG update (128 rows of
+              MultiAgentTarget1D, 2 agents, actors and critics stacked),
+              one MAML meta-update (10 tasks x 10 episodes x 20 steps,
+              second order), one MBMPO ensemble update (4 x 256
+              bootstrap rows) and one imagination (16 episodes x 20
+              steps) with fed noise; stats and grads within PPO_F32 of
+              their scale, params by phase 18b's rule (hold_update);
+              (a) bench.qmix_loop (QMixConfig's defaults, 100 timed
+              iterations), bench.maddpg_loop (MADDPGConfig's, 50),
+              bench.maml_loop (MAMLConfig's: 4,000 env steps and one
+              meta-update an iteration, 5), bench.mbmpo_loop
+              (MBMPOConfig's: K = 4, 60 model updates, 16 real episodes,
+              4 x 2 imaginations, one meta-update an iteration, 10),
+              each with one learn phase profiled (PPO_PROFILE_GROUPS):
+              finite losses, weights that moved, replays that grew,
+              QMIX's epsilon falling and its target synced at its
+              period, MADDPG's targets moved by Polyak, MBMPO's trained
+              ensemble below the untrained one's loss on held rows of
+              the buffer, and the buffer growing; (c) the launch
+              counts, zeroed at the phase's start and read at its end,
+              are empty.
 13. summary — nvidia-smi's card line, the kernels line (each kernel's
               launches by the path that counted them: phases 4, 5b, 6,
               8, 12 and 14; paged decode's entry also carries its Llama
@@ -2008,6 +2034,29 @@ def r2d2_batch(b=32, t=20, obs_dim=4, seed=SEED):
             "dones": rng.random((b, t)) < 0.05, "mask": mask}
 
 
+def hold_update(tag, cpu, card) -> dict:
+    """One update on the card against the CPU, each (stats, weights,
+    {"grad.<name>": grad}): stats and grads within PPO_F32 of their
+    scale (``hold_learn``), params by ``hold_step``'s rule for Adam's
+    first step: within PPO_F32 where the CPU step's |grad| passes
+    PARAM_MASK or is 0 (a rounding-noise grad of a param whose true grad
+    is 0 becomes a step of up to lr), the share of entries left out
+    printed."""
+    (cs, cw, cg), (ds, dw, dg) = cpu, card
+    left = {}
+    for n, w in cw.items():
+        g = np.abs(cg[f"grad.{n}"])
+        held = (g > PARAM_MASK) | (g == 0)
+        dw[n] = np.where(held, dw[n], w)
+        if not held.all():
+            left[n] = int((~held).sum())
+    res = hold_learn(tag, [(cs, {**cw, **cg})], [(ds, {**dw, **dg})])
+    print(f"{tag}_params_left_out", json.dumps({
+        "share": sum(left.values()) / sum(w.size for w in cw.values()),
+        "by_param": left}), flush=True)
+    return res
+
+
 def local_learn_parity(device, data_dir) -> dict:
     """Phase 18b: the card against the port's own CPU run, f32, TF32 off,
     each algorithm at its JAX config's defaults and built from one seed
@@ -2058,18 +2107,7 @@ def local_learn_parity(device, data_dir) -> dict:
         for dev in ("cpu", device):
             algo = make(dev)
             res.append(run(algo, feed(algo)))
-        (cs, cw, cg), (ds, dw, dg) = res
-        left = {}
-        for n, w in cw.items():
-            g = np.abs(cg[f"grad.{n}"])
-            held = (g > PARAM_MASK) | (g == 0)
-            dw[n] = np.where(held, dw[n], w)
-            if not held.all():
-                left[n] = int((~held).sum())
-        out[tag] = hold_learn(tag, [(cs, {**cw, **cg})], [(ds, {**dw, **dg})])
-        print(f"{tag}_params_left_out", json.dumps({
-            "share": sum(left.values()) / sum(w.size for w in cw.values()),
-            "by_param": left}), flush=True)
+        out[tag] = hold_update(tag, *res)
     require(tuple(dt_batch["obs"].shape) == (64, 8, 4)
             and tuple(batch["obs"].shape) == (32, 20, 4)
             and sq_batch.count == 128, "local parity shapes")
@@ -2141,6 +2179,142 @@ def local_algos_phase(name, card) -> dict:
     launches = kernels.launch_counts()
     require(launches == {}, f"local algorithms: the path launched "
             f"{launches}")
+    torch.cuda.empty_cache()
+    return res
+
+
+def multiagent_meta_parity(device) -> dict:
+    """Phase 19b: the card against the port's own CPU run, f32, TF32 off,
+    each algorithm at its JAX config's defaults and built from one seed
+    (the init draws on the CPU): one QMIX update (64 rows, 2 agents)
+    and one MADDPG update (128 rows, 2 agents, the stacked actors and
+    critics), each on rows of a replay the CPU algorithm filled; one
+    MAML meta-update over 10 tasks (second order) on pre/post batches of
+    10 episodes x 20 steps the CPU algorithm collected; one MBMPO
+    ensemble update (4 x 256 bootstrap rows of 16 real episodes) and,
+    from the updated ensembles, one imagination (16 episodes x 20 steps,
+    member 0) with fed noise. Updates by ``hold_update``; the
+    imagination's batch and return within PPO_F32 of their scale."""
+    import torch
+    from ray_tpu_torch.rllib.algorithms import (MADDPGConfig, MAMLConfig,
+                                                MBMPOConfig, QMixConfig)
+    from ray_tpu_torch.rllib.policy import stats_to_host, weights_of
+
+    def build(config, dev):
+        return config.resources(device=dev).debugging(seed=SEED).build()
+
+    def result(stats, model):
+        return (stats_to_host(stats), weights_of(model), {
+            f"grad.{n}": p.grad.detach().cpu().numpy()
+            for n, p in model.named_parameters()})
+
+    def on(dev, batches):
+        return [{k: v.to(dev) for k, v in b.items()} for b in batches]
+
+    out = {}
+    qmix = lambda: QMixConfig().environment(  # noqa: E731
+        "CoopCartPole", env_config={"num_agents": 2})
+    maddpg = lambda: MADDPGConfig().environment(  # noqa: E731
+        "MultiAgentTarget1D", env_config={"num_agents": 2})
+    for tag, config, n, rows in (("qmix_learn_parity", qmix, 400, 64),
+                                 ("maddpg_learn_parity", maddpg, 400, 128)):
+        cpu = build(config(), "cpu")
+        cpu._collect(n, 1.0 if tag.startswith("qmix") else 0.3)
+        batch = cpu.replay.sample(rows)
+        require(batch.count == rows, f"{tag}: {batch.count} rows")
+        res = []
+        for algo in (cpu, build(config(), device)):
+            res.append(result(algo._update(batch), algo.model))
+        out[tag] = hold_update(tag, *res)
+
+    maml = build(MAMLConfig(), "cpu")
+    pre, post = [], []
+    for _ in range(maml.config["meta_batch_size"]):
+        goal = maml.env.sample_task(maml._np_rng)
+        b, _ = maml._collect_task(maml.params, goal)
+        pre.append(b)
+        post.append(maml._collect_task(maml._adapt(maml.params, b), goal)[0])
+    require(len(pre) == 10 and tuple(pre[0]["obs"].shape) == (200, 2),
+            "maml parity shapes")
+    res = []
+    for dev in ("cpu", device):
+        algo = build(MAMLConfig(), dev)
+        res.append(result(algo._meta_update(on(dev, pre), on(dev, post)),
+                          algo.model))
+    out["maml_meta_parity"] = hold_update("maml_meta_parity", *res)
+
+    algos = [build(MBMPOConfig(), dev) for dev in ("cpu", device)]
+    algos[0]._collect_real(algos[0].params, 16)
+    data = algos[0]._bootstrap()
+    require(data[0].shape == (4, 256, 2), f"mbmpo draws {data[0].shape}")
+    res = [result({"model_loss": a._model_update(*data)}, a.dynamics)
+           for a in algos]
+    out["mbmpo_model_parity"] = hold_update("mbmpo_model_parity", *res)
+    noise = np.random.default_rng(SEED).standard_normal(
+        (20, 16, 2)).astype(np.float32)
+    imag = []
+    for a in algos:
+        batch, ret = a._imagine(a.params, 0, noise=noise)
+        imag.append(({"imagined_return": float(ret),
+                      **{k: v.cpu().numpy() for k, v in batch.items()}}, {}))
+    out["mbmpo_imagine_parity"] = hold_learn("mbmpo_imagine_parity",
+                                             imag[:1], imag[1:])
+    torch.cuda.empty_cache()
+    return out
+
+
+def multiagent_meta_phase(name, card) -> dict:
+    """Phase 19: (b) the card against the CPU (QMIX, MADDPG, MAML, MBMPO),
+    (a) bench.qmix_loop / maddpg_loop / maml_loop / mbmpo_loop, each
+    with one learn phase profiled, (c) no launch of the port's kernels
+    across the phase."""
+    import torch
+    from ray_tpu_torch import bench, kernels
+    kernels.reset_launch_counts()
+    multiagent_meta_parity("cuda")
+
+    def prof(learn):
+        return profile_step(learn, PPO_PROFILE_GROUPS)
+
+    res = {}
+    for p, loop in (("qmix", bench.qmix_loop), ("maddpg", bench.maddpg_loop),
+                    ("maml", bench.maml_loop), ("mbmpo", bench.mbmpo_loop)):
+        r = loop(profile=prof)
+        profile = r.pop(f"{p}_profile")
+        print(f"{p}_train", json.dumps({**r, "device": name,
+                                        "nvidia_smi": card}), flush=True)
+        print(f"{p}_profile", json.dumps(profile), flush=True)
+        require(r[f"{p}_losses_finite"], f"{p}: non-finite loss {r}")
+        require(r[f"{p}_weights_moved"] > 0, f"{p}: the weights did not move")
+        res[p] = r
+    for p in ("qmix", "maddpg"):
+        r = res[p]
+        require(r[f"{p}_replay_size"][1] > r[f"{p}_replay_size"][0],
+                f"{p}: the replay did not grow {r[f'{p}_replay_size']}")
+    q, m = res["qmix"], res["maddpg"]
+    require(q["qmix_epsilon"][1] < q["qmix_epsilon"][0],
+            f"qmix: epsilon did not fall {q['qmix_epsilon']}")
+    require(q["qmix_target_syncs"] > 0
+            and q["qmix_target_equals_online_after_sync"] is True,
+            f"qmix: the target never synced {q}")
+    require(m["maddpg_target_moved"] > 0, "maddpg: Polyak left the targets")
+    mb = res["mbmpo"]
+    require(mb["mbmpo_model_loss"][1] < mb["mbmpo_model_loss"][0],
+            f"mbmpo: the trained ensemble's loss is not under the untrained "
+            f"one's {mb['mbmpo_model_loss']}")
+    require(mb["mbmpo_buffer_rows"][1] > mb["mbmpo_buffer_rows"][0],
+            f"mbmpo: the buffer did not grow {mb['mbmpo_buffer_rows']}")
+    require(q["qmix_agents"] == 2 and q["qmix_train_batch_size"] == 64
+            and m["maddpg_agents"] == 2
+            and m["maddpg_train_batch_size"] == 128
+            and res["maml"]["maml_tasks"] == 10
+            and res["maml"]["maml_env_steps_per_iter"] == 4000
+            and mb["mbmpo_ensemble_size"] == 4
+            and mb["mbmpo_model_train_iters"] == 60,
+            f"multi-agent / meta widths: {res}")
+    launches = kernels.launch_counts()
+    require(launches == {}, f"multi-agent and meta algorithms: the path "
+            f"launched {launches}")
     torch.cuda.empty_cache()
     return res
 
@@ -2787,6 +2961,9 @@ def main() -> int:
     # 18. LocalAlgorithm: R2D2, SlateQ, DT and the bandits: none of the
     # port's kernels
     local_algos_phase(name, card)
+
+    # 19. QMIX and MADDPG, MAML and MBMPO: none of the port's kernels
+    multiagent_meta_phase(name, card)
 
     # 13. summary
     def kernel_entry(case, kname, source, line, by_path):

@@ -30,7 +30,10 @@ run learns, syncs the target and lowers epsilon; ``sac_loop`` /
 ``slateq_loop``, ``dt_loop`` and ``bandit_loop``: R2D2 on CartPole-v1,
 SlateQ on its interest-evolution simulator, DT on an offline CartPole
 set written by ``JsonWriter`` (``write_cartpole_dataset``) and LinUCB /
-LinTS on the host, each at its JAX config's defaults; ``main`` runs the
+LinTS on the host, each at its JAX config's defaults; ``qmix_loop``,
+``maddpg_loop``, ``maml_loop`` and ``mbmpo_loop``: QMIX on CoopCartPole
+and MADDPG on MultiAgentTarget1D (2 agents each), MAML and MBMPO on the
+point-goal tasks, each at its JAX config's defaults; ``main`` runs the
 first five. The first two time steps on
 one resident batch (no input cost: the compute ceiling), as windows of
 steps closed by a host read of the loss, and report the best window.
@@ -53,6 +56,7 @@ card's dense bf16 peak, for the cards in ``_PEAK_BF16`` only.
 
 from __future__ import annotations
 
+import copy
 import itertools
 import json
 import os
@@ -860,17 +864,20 @@ def slateq_config(device="cuda"):
 
 
 def _local_loop(prefix, algo, dev, timed, profile, replay_size) -> dict:
-    """A ``LocalAlgorithm`` with a replay (R2D2, SlateQ) through
-    ``Algorithm.step``: iterations until ``replay_size(algo)`` reaches
-    ``learning_starts``, one warm-up iteration that learns, then
-    ``timed`` ones. Keys as ``_replay_loop``'s with ``prefix``, plus
-    epsilon and the replay's size before and after, the target syncs in
-    the timed iterations and whether the target equalled the online net
-    right after the last one. ``profile``: a function called with one
-    learn phase (``training_intensity`` updates, each a replay draw and
-    an ``_update``, then the stats to the host)."""
+    """A ``LocalAlgorithm`` with a replay (R2D2, SlateQ, QMIX, MADDPG)
+    through ``Algorithm.step``: iterations until ``replay_size(algo)``
+    reaches ``learning_starts``, one warm-up iteration that learns, then
+    ``timed`` ones. Keys as ``_replay_loop``'s with ``prefix``, plus the
+    replay's size before and after and how far the target moved over the
+    timed iterations; with an epsilon schedule, epsilon before and
+    after; with a hard target sync (``target_network_update_freq``), the
+    syncs in the timed iterations and whether the target equalled the
+    online net right after the last one. ``profile``: a function called
+    with one learn phase (``training_intensity`` updates, each a replay
+    draw and an ``_update``, then the stats to the host)."""
     from ray_tpu_torch.rllib.policy import stats_to_host, weights_of
     cfg = algo.config
+    hard_sync = "target_network_update_freq" in cfg
     w0 = weights_of(algo.model)
     t0 = time.perf_counter()
     fill = 0
@@ -879,17 +886,18 @@ def _local_loop(prefix, algo, dev, timed, profile, replay_size) -> dict:
         fill += 1
     warm = algo.step()
     warmup_s = time.perf_counter() - t0
-    start = (warm["epsilon"], replay_size(algo))
+    start = (warm.get("epsilon"), replay_size(algo))
+    target0 = weights_of(algo.target_model)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     before = kernels.launch_counts()
     runs, syncs, synced_equal = [], 0, None
     t0 = time.perf_counter()
     for _ in range(timed):
-        pending = algo._steps_since_target_sync
+        pending = getattr(algo, "_steps_since_target_sync", 0)
         runs.append(algo.step())
-        if (algo._steps_since_target_sync
-                < pending + runs[-1]["num_env_steps_sampled_this_iter"]):
+        if hard_sync and (algo._steps_since_target_sync < pending
+                          + runs[-1]["num_env_steps_sampled_this_iter"]):
             syncs += 1
             online, target = weights_of(algo.model), weights_of(
                 algo.target_model)
@@ -901,6 +909,7 @@ def _local_loop(prefix, algo, dev, timed, profile, replay_size) -> dict:
     steps = sum(r["num_env_steps_sampled_this_iter"] for r in runs)
     totals = {k: float(sum(r["timers"][k] for r in runs))
               for k in runs[0]["timers"]}
+    target1 = weights_of(algo.target_model)
     out = {
         f"{prefix}_platform": dev.type,
         f"{prefix}_device_kind": _device_kind(dev),
@@ -917,16 +926,20 @@ def _local_loop(prefix, algo, dev, timed, profile, replay_size) -> dict:
                             for k, v in totals.items()},
         f"{prefix}_loss": [losses[0], losses[-1]],
         f"{prefix}_losses_finite": bool(np.all(np.isfinite(losses))),
-        f"{prefix}_epsilon": [start[0], runs[-1]["epsilon"]],
         f"{prefix}_replay_size": [start[1], replay_size(algo)],
-        f"{prefix}_target_syncs": syncs,
-        f"{prefix}_target_equals_online_after_sync": synced_equal,
-        f"{prefix}_target_network_update_freq":
-            cfg["target_network_update_freq"],
+        f"{prefix}_target_moved": _moved(target0, target1),
         f"{prefix}_episode_reward_mean": runs[-1]["episode_reward_mean"],
         f"{prefix}_weights_moved": _moved(w0, weights_of(algo.model)),
         f"{prefix}_launches": launches,
     }
+    if start[0] is not None:
+        out[f"{prefix}_epsilon"] = [start[0], runs[-1]["epsilon"]]
+    if hard_sync:
+        out.update({
+            f"{prefix}_target_syncs": syncs,
+            f"{prefix}_target_equals_online_after_sync": synced_equal,
+            f"{prefix}_target_network_update_freq":
+                cfg["target_network_update_freq"]})
     if dev.type == "cuda":
         out[f"{prefix}_max_memory_allocated_bytes"] = (
             torch.cuda.max_memory_allocated(dev))
@@ -968,6 +981,222 @@ def slateq_loop(device="cuda", profile=None, timed=None) -> dict:
     out.update(slateq_num_docs=algo.num_docs, slateq_slate_size=algo.k,
                slateq_num_topics=algo.env.num_topics,
                slateq_hidden=algo.config["hidden"])
+    return out
+
+
+def qmix_config(device="cuda"):
+    """QMIX on CoopCartPole with 2 agents at the JAX ``QMixConfig``'s
+    defaults: agent net 64 x 64, mixer embedding 32, double-Q, 64 env
+    steps and 2 updates of 64 rows an iteration past 500 rows, a target
+    sync every 400 steps, epsilon over 8,000, a 50,000-row buffer. On
+    ``cpu``: 64 rows before learning, batch 16, a target sync every 64."""
+    from ray_tpu_torch.rllib.algorithms import QMixConfig
+    dev = resolve_device(device)
+    config = QMixConfig()
+    if dev.type == "cpu":
+        config.training(learning_starts=64, train_batch_size=16,
+                        target_network_update_freq=64)
+    return (config.environment("CoopCartPole", env_config={"num_agents": 2})
+            .resources(device=str(dev)).debugging(seed=0))
+
+
+def maddpg_config(device="cuda"):
+    """MADDPG on MultiAgentTarget1D with 2 agents at the JAX
+    ``MADDPGConfig``'s defaults: actors and centralized critics 64 x 64,
+    stacked over the agents; 50 env steps and 2 updates of 128 rows an
+    iteration past 500 rows, Polyak tau 0.01, exploration noise 0.3. On
+    ``cpu``: 50 rows before learning, batch 16."""
+    from ray_tpu_torch.rllib.algorithms import MADDPGConfig
+    dev = resolve_device(device)
+    config = MADDPGConfig()
+    if dev.type == "cpu":
+        config.training(learning_starts=50, train_batch_size=16)
+    return (config.environment("MultiAgentTarget1D",
+                               env_config={"num_agents": 2})
+            .resources(device=str(dev)).debugging(seed=0))
+
+
+def qmix_loop(device="cuda", profile=None, timed=None) -> dict:
+    """QMIX throughput through ``Algorithm.step`` (``qmix_config``): 100
+    timed iterations on ``cuda``, 2 on ``cpu``. Keys ``qmix_*``
+    (``_local_loop``) and the agents and widths."""
+    dev = resolve_device(device)
+    algo = qmix_config(dev).build()
+    out = _local_loop("qmix", algo, dev,
+                      timed or (100 if dev.type == "cuda" else 2), profile,
+                      lambda a: len(a.replay))
+    out.update(qmix_agents=algo.n_agents,
+               qmix_agent_hidden=algo.config["agent_hidden"],
+               qmix_mixer_embed=algo.config["mixer_embed"])
+    return out
+
+
+def maddpg_loop(device="cuda", profile=None, timed=None) -> dict:
+    """MADDPG throughput through ``Algorithm.step`` (``maddpg_config``):
+    50 timed iterations on ``cuda``, 2 on ``cpu``. Keys ``maddpg_*``
+    (``_local_loop``: no epsilon, no hard sync; ``maddpg_target_moved``
+    is Polyak's) and the agents."""
+    dev = resolve_device(device)
+    algo = maddpg_config(dev).build()
+    out = _local_loop("maddpg", algo, dev,
+                      timed or (50 if dev.type == "cuda" else 2), profile,
+                      lambda a: len(a.replay))
+    out.update(maddpg_agents=algo.n, maddpg_tau=algo.config["tau"])
+    return out
+
+
+def _meta_loop(prefix, algo, dev, timed, profile, gather,
+               rows=None) -> dict:
+    """MAML or MBMPO through ``Algorithm.step``: one warm-up iteration,
+    then ``timed`` ones. Keys ``{prefix}_*``: env steps/s (median and
+    whole), meta-updates/s (one an iteration: the median of 1 / the
+    iteration's time), the timers' medians and split, the meta-loss
+    first and last, weights that moved, launches (read, not zeroed),
+    peak memory; with ``rows(algo)`` (a real buffer), its rows after
+    the warm-up and after the timed iterations. ``profile``: a function
+    called with one learn phase, a meta-update on the pre/post batches
+    that ``gather(algo)`` collects after the timed iterations."""
+    from ray_tpu_torch.rllib.policy import stats_to_host, weights_of
+    w0 = weights_of(algo.model)
+    t0 = time.perf_counter()
+    warm = algo.step()
+    warmup_s = time.perf_counter() - t0
+    rows0 = rows(algo) if rows else None
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    before = kernels.launch_counts()
+    runs, secs = [], []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        runs.append(algo.step())
+        secs.append(time.perf_counter() - t0)
+    launches = _launches_since(before)
+    losses = [r["learner/meta_loss"] for r in runs]
+    steps = sum(r["num_env_steps_sampled_this_iter"] for r in runs)
+    totals = {k: float(sum(r["timers"][k] for r in runs))
+              for k in runs[0]["timers"]}
+    out = {
+        f"{prefix}_platform": dev.type,
+        f"{prefix}_device_kind": _device_kind(dev),
+        f"{prefix}_env_steps_per_iter":
+            runs[-1]["num_env_steps_sampled_this_iter"],
+        f"{prefix}_iters_timed": timed, f"{prefix}_warmup_s": warmup_s,
+        f"{prefix}_env_steps_per_sec": _median(runs, "env_steps_per_sec"),
+        f"{prefix}_env_steps_per_sec_whole": steps / sum(secs),
+        f"{prefix}_meta_updates_per_sec": float(np.median(
+            [1.0 / s for s in secs])),
+        **{f"{prefix}_{k}": _median(runs, k, "timers")
+           for k in runs[0]["timers"]},
+        f"{prefix}_split": {k: v / sum(totals.values())
+                            for k, v in totals.items()},
+        f"{prefix}_meta_loss": [warm["learner/meta_loss"], losses[-1]],
+        f"{prefix}_losses_finite": bool(np.all(np.isfinite(
+            losses + [r["learner/grad_norm"] for r in runs]))),
+        f"{prefix}_weights_moved": _moved(w0, weights_of(algo.model)),
+        f"{prefix}_launches": launches,
+        "warm": warm, "runs": runs,
+    }
+    if rows:
+        out[f"{prefix}_buffer_rows"] = [rows0, rows(algo)]
+    if dev.type == "cuda":
+        out[f"{prefix}_max_memory_allocated_bytes"] = (
+            torch.cuda.max_memory_allocated(dev))
+    if profile is not None:
+        pre, post = gather(algo)
+        out[f"{prefix}_profile"] = profile(
+            lambda: stats_to_host(algo._meta_update(pre, post)))
+    return out
+
+
+def maml_loop(device="cuda", profile=None, timed=None) -> dict:
+    """MAML at the JAX ``MAMLConfig``'s defaults on the point-goal task
+    family: policy 64 x 64 tanh, 10 tasks x 10 episodes x 20 steps x
+    (pre + post) = 4,000 env steps, 10 inner adaptations and one
+    second-order meta-update an iteration; 5 timed iterations on
+    ``cuda``, 1 on ``cpu`` (2 tasks x 2 episodes). Keys ``maml_*``
+    (``_meta_loop``) and the adaptation gap of the first and last
+    iteration."""
+    from ray_tpu_torch.rllib.algorithms import MAMLConfig
+    dev = resolve_device(device)
+    config = MAMLConfig()
+    if dev.type == "cpu":
+        config.training(meta_batch_size=2, episodes_per_task=2)
+    algo = config.resources(device=str(dev)).debugging(seed=0).build()
+    cfg = algo.config
+
+    def gather(a):
+        pre_b, post_b = [], []
+        for _ in range(cfg["meta_batch_size"]):
+            goal = a.env.sample_task(a._np_rng)
+            pre, _ = a._collect_task(a.params, goal)
+            post, _ = a._collect_task(a._adapt(a.params, pre), goal)
+            pre_b.append(pre)
+            post_b.append(post)
+        return pre_b, post_b
+
+    out = _meta_loop("maml", algo, dev, timed or (5 if dev.type == "cuda"
+                                                  else 1), profile, gather)
+    warm, runs = out.pop("warm"), out.pop("runs")
+    out.update(maml_tasks=cfg["meta_batch_size"],
+               maml_episodes_per_task=cfg["episodes_per_task"],
+               maml_hidden=cfg["hidden"],
+               maml_adaptation_gap=[warm["adaptation_gap"],
+                                    runs[-1]["adaptation_gap"]])
+    algo.cleanup()
+    return out
+
+
+def mbmpo_loop(device="cuda", profile=None, timed=None) -> dict:
+    """MBMPO at the JAX ``MBMPOConfig``'s defaults on the point-goal
+    dynamics: an ensemble of K = 4 dynamics models 64 x 64 (stacked),
+    an iteration of 16 real episodes of 20 steps, 60 model updates of 4
+    x 256 bootstrap rows, 4 x 2 imaginations of 16 episodes x 20 steps,
+    4 adaptations and one second-order meta-update; 10 timed iterations
+    on ``cuda``, 1 on ``cpu`` (5 model updates, 2 real and 4 imagined
+    episodes). Keys ``mbmpo_*`` (``_meta_loop``): the model loss of the
+    untrained and of the final ensemble on one bootstrap draw of the
+    final buffer (``mbmpo_model_loss``), the last update's loss of the
+    warm-up and of the last iteration (``mbmpo_model_fit_loss``), the
+    real and imagined rewards of the last iteration."""
+    from ray_tpu_torch.rllib.algorithms import MBMPOConfig
+    dev = resolve_device(device)
+    config = MBMPOConfig()
+    if dev.type == "cpu":
+        config.training(model_train_iters=5, real_episodes_per_iter=2,
+                        imagined_episodes=4)
+    algo = config.resources(device=str(dev)).debugging(seed=0).build()
+    cfg = algo.config
+    untrained = copy.deepcopy(algo.dynamics)
+
+    def gather(a):
+        pre_b, post_b = [], []
+        for k in range(cfg["ensemble_size"]):
+            pre, _ = a._imagine(a.params, k)
+            post, _ = a._imagine(a._adapt(a.params, pre), k)
+            pre_b.append(pre)
+            post_b.append(post)
+        return pre_b, post_b
+
+    out = _meta_loop("mbmpo", algo, dev, timed or (10 if dev.type == "cuda"
+                                                   else 1), profile, gather,
+                     rows=lambda a: len(a._buf_obs))
+    warm, runs = out.pop("warm"), out.pop("runs")
+    n = len(algo._buf_obs)
+    idx = np.random.default_rng(1).integers(
+        0, n, size=(cfg["ensemble_size"], min(n, 256)))
+    held = (algo._buf_obs[idx], algo._buf_act[idx], algo._buf_next[idx])
+    with torch.no_grad():
+        held_loss = [float(algo._model_loss(d, *held))
+                     for d in (untrained, algo.dynamics)]
+    out.update(mbmpo_ensemble_size=cfg["ensemble_size"],
+               mbmpo_hidden=cfg["hidden"],
+               mbmpo_model_train_iters=cfg["model_train_iters"],
+               mbmpo_model_loss=held_loss,
+               mbmpo_model_fit_loss=[warm["model_loss"],
+                                     runs[-1]["model_loss"]],
+               mbmpo_real_reward_mean=runs[-1]["real_reward_mean"],
+               mbmpo_imagined_reward_mean=runs[-1]["imagined_reward_mean"])
+    algo.cleanup()
     return out
 
 

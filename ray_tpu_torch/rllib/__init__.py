@@ -6,12 +6,14 @@ stack (``Algorithm`` -> the WorkerSet's local ``RolloutWorker`` -> a
 ``TorchPolicy`` or a standalone policy: PPO, IMPALA/APPO, DQN/SimpleQ
 with the replay buffers, PG/A2C, SAC, DDPG/TD3; offline from JSON
 datasets: BC/MARWIL, CQL, CRR; the bandits; and ``LocalAlgorithm``'s
-own env loops: R2D2, SlateQ, DT) and the new one (``RLModule`` /
-``PPOLearner`` / a local ``LearnerGroup``). The policy's forward, the loss, the backward and Adam
-run on ``config["device"]`` ("cuda" unless the caller asks for "cpu");
-env stepping, connectors and GAE stay numpy on the host, as in the JAX
+own env loops: R2D2, SlateQ, DT, the cooperative multi-agent QMIX and
+MADDPG, the meta-learners MAML and MBMPO) and the new one
+(``RLModule`` / ``PPOLearner`` / a local ``LearnerGroup``). The
+policy's forward, the loss, the backward and Adam run on
+``config["device"]`` ("cuda" unless the caller asks for "cpu"); env
+stepping, connectors and GAE stay numpy on the host, as in the JAX
 package. Remote rollout workers and learners, evaluation workers and
-multi-agent raise ``NotImplementedError``.
+the multi-agent worker raise ``NotImplementedError``.
 """
 
 from ray_tpu_torch.rllib.sample_batch import (MultiAgentBatch, SampleBatch,
@@ -28,8 +30,9 @@ from ray_tpu_torch.rllib.connectors import (ClipActionConnector, Connector,
                                             LambdaConnector,
                                             MeanStdObsConnector,
                                             ResizeObsConnector)
-from ray_tpu_torch.rllib.models import (AtariCNN, MLPNet, make_model,
-                                        params_from_flax)
+from ray_tpu_torch.rllib.models import (AtariCNN, MLPNet, StackedMLP,
+                                        make_model, params_from_flax,
+                                        stacked_params_from_flax)
 from ray_tpu_torch.rllib.policy import TorchPolicy
 from ray_tpu_torch.rllib.core import (Learner, LearnerGroup, MultiRLModule,
                                       PPOLearner, RLModule, RLModuleSpec)
@@ -47,8 +50,10 @@ from ray_tpu_torch.rllib.algorithms import (BC, CQL, CRR, DDPG, DQN, DT,
                                             BanditLinUCB, BanditLinUCBConfig,
                                             BCConfig, CQLConfig, CRRConfig,
                                             DDPGConfig, DQNConfig, DTConfig,
-                                            IMPALA, IMPALAConfig,
-                                            MARWILConfig, PPOConfig,
+                                            IMPALA, IMPALAConfig, MADDPG,
+                                            MADDPGConfig, MAML, MAMLConfig,
+                                            MARWILConfig, MBMPO, MBMPOConfig,
+                                            PPOConfig, QMix, QMixConfig,
                                             R2D2Config, SACConfig, SlateQ,
                                             SlateQConfig, TD3Config)
 
@@ -65,7 +70,9 @@ __all__ = [
     "MARWILConfig", "CQL", "CQLConfig", "CRR", "CRRConfig", "JsonReader",
     "JsonWriter", "LocalAlgorithm", "R2D2", "R2D2Config", "DT", "DTConfig",
     "BanditLinUCB", "BanditLinUCBConfig", "BanditLinTS",
-    "BanditLinTSConfig", "SlateQ", "SlateQConfig",
+    "BanditLinTSConfig", "SlateQ", "SlateQConfig", "QMix", "QMixConfig",
+    "MADDPG", "MADDPGConfig", "MAML", "MAMLConfig", "MBMPO", "MBMPOConfig",
+    "StackedMLP", "stacked_params_from_flax",
     "MultiAgentEnv", "MultiAgentCartPole",
     "Connector", "ConnectorPipeline", "FlattenObsConnector",
     "MeanStdObsConnector", "ClipActionConnector", "LambdaConnector",

@@ -1,7 +1,7 @@
 """The port's RL algorithms: PPO, IMPALA/APPO, DQN/SimpleQ, PG/A2C, A3C,
 SAC, DDPG/TD3, BC/MARWIL, CQL, CRR, the bandits (LinUCB, LinTS), R2D2,
-DT and SlateQ (ROADMAP.md Queue A lists the rest of
-``ray_tpu/rllib/algorithms/``)."""
+DT, SlateQ, QMIX, MADDPG, MAML and MBMPO (ROADMAP.md Queue A lists the
+rest of ``ray_tpu/rllib/algorithms/``)."""
 
 from ray_tpu_torch.rllib.algorithms.ppo import PPO, PPOConfig, PPOPolicy
 from ray_tpu_torch.rllib.algorithms.dqn import DQN, DQNConfig, DQNPolicy
@@ -26,6 +26,10 @@ from ray_tpu_torch.rllib.algorithms.bandit import (BanditLinTS,
                                                    BanditLinUCB,
                                                    BanditLinUCBConfig)
 from ray_tpu_torch.rllib.algorithms.slateq import SlateQ, SlateQConfig
+from ray_tpu_torch.rllib.algorithms.qmix import QMix, QMixConfig
+from ray_tpu_torch.rllib.algorithms.maddpg import MADDPG, MADDPGConfig
+from ray_tpu_torch.rllib.algorithms.maml import MAML, MAMLConfig
+from ray_tpu_torch.rllib.algorithms.mbmpo import MBMPO, MBMPOConfig
 
 __all__ = ["PPO", "PPOConfig", "PPOPolicy", "DQN", "DQNConfig", "DQNPolicy",
            "SimpleQ", "SimpleQConfig", "IMPALA", "IMPALAConfig",
@@ -37,4 +41,5 @@ __all__ = ["PPO", "PPOConfig", "PPOPolicy", "DQN", "DQNConfig", "DQNPolicy",
            "CQLPolicy", "CRR", "CRRConfig", "CRRPolicy", "R2D2",
            "R2D2Config", "DT", "DTConfig", "BanditLinUCB",
            "BanditLinUCBConfig", "BanditLinTS", "BanditLinTSConfig",
-           "SlateQ", "SlateQConfig"]
+           "SlateQ", "SlateQConfig", "QMix", "QMixConfig", "MADDPG",
+           "MADDPGConfig", "MAML", "MAMLConfig", "MBMPO", "MBMPOConfig"]

@@ -206,7 +206,8 @@ def params_from_flax(tree: Mapping[str, Any],
     ``out`` [heads, head_dim, d]) become ``Linear`` weights [prod(out),
     prod(in)] and flat biases, the out axes being the bias's; flax's
     ``LayerNorm`` ``scale`` and ``Embed`` ``embedding`` become
-    ``weight``."""
+    ``weight``. A tree stacked on a leading member axis (MADDPG's
+    agents, MBMPO's ensemble) goes through ``stacked_params_from_flax``."""
     sd: Dict[str, torch.Tensor] = {}
 
     def walk(sub, prefix):
@@ -231,6 +232,108 @@ def params_from_flax(tree: Mapping[str, Any],
             else:
                 sd[prefix + _LEAF_NAMES.get(name, name)] = torch.from_numpy(
                     np.array(v, np.float32))
+
+    walk(tree, "")
+    if model is not None:
+        model.load_state_dict(sd)
+    return sd
+
+
+class StackedLinear(nn.Module):
+    """``m`` Dense layers of one shape side by side: ``weight`` [m, in,
+    out] (flax's kernel layout with the member axis in front), ``bias``
+    [m, out]. x [m, B, in] -> [m, B, out] in one batched product."""
+
+    def __init__(self, m: int, in_features: int, out_features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(m, in_features, out_features))
+        self.bias = nn.Parameter(torch.zeros(m, out_features))
+
+    def forward(self, x, detach: bool = False):
+        w, b = self.weight, self.bias
+        if detach:
+            w, b = w.detach(), b.detach()
+        return torch.baddbmm(b[:, None, :], x, w)
+
+    def member(self, k: int, x):
+        """Member ``k`` alone on x [B, in]."""
+        return torch.addmm(self.bias[k], x, self.weight[k])
+
+
+class StackedMLP(nn.Module):
+    """``m`` MLPs of one shape stacked on a leading axis, as a flax tree
+    that ``jax.vmap`` inits or ``jnp.stack`` joins: ``Dense_0`` ..
+    ``Dense_{L-1}`` (``StackedLinear``), ReLU between them, ``out``
+    (None or a function) after the last; one batched product a layer for
+    all ``m`` members. x [m, B, sizes[0]] -> [m, B, sizes[-1]]; x [B,
+    sizes[0]] is shared by every member. ``detach`` computes with the
+    params cut from the graph (the gradient still reaches x)."""
+
+    def __init__(self, m: int, sizes: Sequence[int], out=None):
+        super().__init__()
+        self.m, self.out, self.depth = m, out, len(sizes) - 1
+        for i in range(self.depth):
+            setattr(self, f"Dense_{i}",
+                    StackedLinear(m, sizes[i], sizes[i + 1]))
+
+    def _layers(self):
+        return [getattr(self, f"Dense_{i}") for i in range(self.depth)]
+
+    def _run(self, x, step):
+        for i, layer in enumerate(self._layers()):
+            x = step(layer, x)
+            if i < self.depth - 1:
+                x = F.relu(x)
+        return x if self.out is None else self.out(x)
+
+    def forward(self, x, detach: bool = False):
+        if x.ndim == 2:
+            x = x.expand(self.m, *x.shape)
+        return self._run(x, lambda layer, h: layer(h, detach))
+
+    def member(self, k: int, x):
+        """Member ``k`` alone on x [B, sizes[0]]."""
+        return self._run(x, lambda layer, h: layer.member(k, h))
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator):
+        """flax ``Dense``'s init for every member: lecun-normal kernels
+        (fan-in ``in``), zero biases."""
+        for layer in self._layers():
+            m, fan_in, fan_out = layer.weight.shape
+            std = math.sqrt(1.0 / fan_in) / .87962566103423978
+            for k in range(m):
+                layer.weight[k].copy_(
+                    _truncated_normal((fan_in, fan_out), generator) * std)
+            layer.bias.zero_()
+        return self
+
+
+def stacked_params_from_flax(tree: Mapping[str, Any],
+                             model: Optional[nn.Module] = None
+                             ) -> Dict[str, torch.Tensor]:
+    """A flax params tree stacked on a leading member axis (MADDPG's
+    per-agent actors and critics, MBMPO's dynamics ensemble) -> the
+    ``state_dict`` of ``StackedMLP``s in f32: kernels [m, in, out] and
+    biases [m, out] copied as they stand, nested modules joined with
+    dots. Raises on a kernel that is not 3-D with a 2-D bias. With
+    ``model`` they are also loaded into it."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def walk(sub, prefix):
+        for name, v in sub.items():
+            key = prefix + name
+            if isinstance(v, Mapping) and "kernel" in v:
+                k, b = np.asarray(v["kernel"]), np.asarray(v.get("bias"))
+                if k.ndim != 3 or b.ndim != 2:
+                    raise ValueError(f"{key}: kernel {k.shape} and bias "
+                                     f"{b.shape} are not stacked Dense")
+                sd[f"{key}.weight"] = torch.from_numpy(np.array(k, np.float32))
+                sd[f"{key}.bias"] = torch.from_numpy(np.array(b, np.float32))
+            elif isinstance(v, Mapping):
+                walk(v, key + ".")
+            else:
+                sd[key] = torch.from_numpy(np.array(v, np.float32))
 
     walk(tree, "")
     if model is not None:

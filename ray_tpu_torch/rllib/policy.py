@@ -119,16 +119,23 @@ def backward_grads(params: List[torch.nn.Parameter], loss) -> List:
     return [p.grad for p in params]
 
 
-def clip_and_step(optimizer: torch.optim.Optimizer, grads: List,
-                  clip: Optional[float]) -> torch.Tensor:
-    """The global norm of ``grads`` (before clipping), optax's
-    ``clip_by_global_norm(clip)`` in place where ``clip`` is set, then
-    ``optimizer.step()``. Returns the norm."""
+def clip_by_global_norm(grads: List, clip: Optional[float]) -> torch.Tensor:
+    """The global norm of ``grads`` (before clipping), and optax's
+    ``clip_by_global_norm(clip)`` in place where ``clip`` is set.
+    Returns the norm."""
     norm = torch.nn.utils.get_total_norm(grads)
     if clip:
         scale = torch.where(norm < clip, torch.ones_like(norm), clip / norm)
         for g in grads:
             g.mul_(scale)
+    return norm
+
+
+def clip_and_step(optimizer: torch.optim.Optimizer, grads: List,
+                  clip: Optional[float]) -> torch.Tensor:
+    """``clip_by_global_norm(grads, clip)``, then ``optimizer.step()``.
+    Returns the norm before clipping."""
+    norm = clip_by_global_norm(grads, clip)
     optimizer.step()
     return norm
 

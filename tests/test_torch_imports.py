@@ -61,7 +61,9 @@ def test_port_files_found():
                 "execution/learner_thread", "algorithms/impala",
                 "algorithms/appo", "algorithms/dqn", "algorithms/simple_q",
                 "algorithms/pg", "algorithms/a3c", "algorithms/bandit",
-                "algorithms/slateq", "algorithms/r2d2", "algorithms/dt"):
+                "algorithms/slateq", "algorithms/r2d2", "algorithms/dt",
+                "algorithms/qmix", "algorithms/maddpg", "algorithms/maml",
+                "algorithms/mbmpo"):
         assert f"ray_tpu_torch/rllib/{mod}.py" in rel
     assert "ray_tpu_torch/tune/trainable.py" in rel
     assert "ray_tpu_torch/air/checkpoint.py" in rel
