@@ -280,6 +280,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
               the buffer, and the buffer growing; (c) the launch
               counts, zeroed at the phase's start and read at its end,
               are empty.
+20. model-based, planning and multi-agent — RLlib's Dreamer, AlphaZero,
+              AlphaStar and the multi-agent worker with multi-agent PPO
+              (run before the summary): (b) first, the card against the
+              port's own CPU run, f32, TF32 off, nets built from one
+              seed: one Dreamer update at DreamerConfig's defaults (24 x
+              16 sequences a CPU Dreamer collected on Pendulum, horizon
+              10, fed noise), one AlphaZero update of 256 rows of CPU
+              self-play (TicTacToe; and Connect4's 84-wide obs), one
+              AlphaStar update on one game's trajectory, and the first
+              minibatch step (128 rows) of each policy's learn phase of
+              multi-agent PPO on one CPU sample (512 env steps of
+              MultiAgentCartPole, 2 policies of 256 x 256); each by
+              phase 18b's rule (hold_update); (a) bench.dreamer_loop
+              (DreamerConfig's defaults: prefill 1,000, then 200 env
+              steps + 20 updates an iteration, 5 timed),
+              bench.alphazero_loop (24 games x 25 sims, 8 x 256 SGD, 3
+              timed), bench.alphastar_loop (64 matches an iteration, 10
+              timed, the 10th snapshotting main), bench.ma_ppo_loop
+              (512 / 128 x 6, 2 policies, 5 timed), each with one learn
+              phase profiled (PPO_PROFILE_GROUPS): finite losses,
+              weights that moved, the widths, Dreamer's reconstruction
+              loss on a held batch falling across the timed window,
+              AlphaStar's snapshot inside the window and apart from
+              main after the next update, both policies in multi-agent
+              PPO's learner info; (c) the launch counts, zeroed at the
+              phase's start and read at its end, are empty.
 13. summary — nvidia-smi's card line, the kernels line (each kernel's
               launches by the path that counted them: phases 4, 5b, 6,
               8, 12 and 14; paged decode's entry also carries its Llama
@@ -2319,6 +2345,181 @@ def multiagent_meta_phase(name, card) -> dict:
     return res
 
 
+def model_based_parity(device) -> dict:
+    """Phase 20b: the card against the port's own CPU run, f32, TF32 off,
+    each algorithm built from one seed (the init draws on the CPU): one
+    Dreamer update at ``DreamerConfig``'s defaults on 24 x 16 sequences
+    that a CPU Dreamer collected on Pendulum (1,000 steps of noise 1.0),
+    the update's Gaussian draws fed from numpy; one AlphaZero update of
+    256 rows drawn from CPU self-play (TicTacToe at the defaults; Connect4
+    from 2 games of 8 sims, its 84-wide obs); one AlphaStar update of
+    main on its trajectory of one CPU game against the main exploiter;
+    the first minibatch step (128 rows, the learn phase's order) of each
+    policy of multi-agent PPO on one CPU sample of 512 env steps at
+    ``bench.ma_ppo_config``'s widths. Each by ``hold_update``."""
+    import torch
+    from ray_tpu_torch import bench
+    from ray_tpu_torch.rllib import synchronous_parallel_sample
+    from ray_tpu_torch.rllib.algorithms import (AlphaStarConfig,
+                                                AlphaZeroConfig,
+                                                DreamerConfig, PPOConfig)
+    from ray_tpu_torch.rllib.algorithms.alpha_star import MAIN
+    from ray_tpu_torch.rllib.policy import stats_to_host, weights_of
+
+    def build(config, dev):
+        return config.resources(device=dev).debugging(seed=SEED).build()
+
+    def result(stats, nets):
+        """(stats, weights, grads) of ``nets`` {prefix: module}."""
+        w, g = {}, {}
+        for pre, net in nets.items():
+            w.update({pre + k: v for k, v in weights_of(net).items()})
+            g.update({f"grad.{pre}{n}": p.grad.detach().cpu().numpy()
+                      for n, p in net.named_parameters()})
+        return stats_to_host(stats), w, g
+
+    out = {}
+    rng = np.random.default_rng(SEED)
+    cpu = build(DreamerConfig(), "cpu")
+    cpu._collect(1000, 1.0)
+    batch = cpu._sample_sequences()
+    cfg = cpu.config
+    T, B, H = cfg["seq_len"], cfg["batch_size"], cfg["imagine_horizon"]
+    require(batch["obs"].shape == (24, 16, 3) and H == 10,
+            f"dreamer parity shapes {batch['obs'].shape}")
+    noise = {k: rng.standard_normal(shape).astype(np.float32)
+             for k, shape in (("obs", (T, B, 8)), ("act", (H, B * T, 1)),
+                              ("latent", (H, B * T, 8)))}
+    res = []
+    for dev in ("cpu", device):
+        algo = build(DreamerConfig(), dev)
+        stats = algo._update(batch, {k: torch.from_numpy(v)
+                                     for k, v in noise.items()})
+        res.append(result(stats, {f"{k}.": getattr(algo, k)
+                                  for k in ("wm", "actor", "value")}))
+    out["dreamer_learn_parity"] = hold_update("dreamer_learn_parity", *res)
+
+    for game, over in (("tictactoe", {}),
+                       ("connect4", {"games_per_iteration": 2,
+                                     "num_sims": 8})):
+        cpu = build(AlphaZeroConfig().environment(game).training(**over),
+                    "cpu")
+        for _ in range(cpu.config["games_per_iteration"]):
+            cpu._replay.extend(cpu._self_play_game()[0])
+        idx = rng.integers(0, len(cpu._replay), 256)
+        rows = [np.stack([cpu._replay[i][j] for i in idx]) for j in (0, 1)]
+        z = np.asarray([cpu._replay[i][2] for i in idx], np.float32)
+        require(rows[0].shape == (256, 18 if game == "tictactoe" else 84),
+                f"alphazero parity shapes {rows[0].shape}")
+        res = []
+        for dev in ("cpu", device):
+            algo = build(AlphaZeroConfig().environment(game).training(
+                **over), dev)
+            res.append(result(algo._update(rows[0], rows[1], z),
+                              {"": algo.model}))
+        tag = f"alphazero_{game}_learn_parity"
+        out[tag] = hold_update(tag, *res)
+
+    cpu = build(AlphaStarConfig(), "cpu")
+    _, traj, _ = cpu._play_game(cpu.league[MAIN].params,
+                                cpu.league["main_exploiter_0"].params)
+    obs = np.stack([o for o, _ in traj])
+    acts = np.array([a for _, a in traj], np.int64)
+    rets = np.full(len(traj), 1.0, np.float32)
+    res = []
+    for dev in ("cpu", device):
+        algo = build(AlphaStarConfig(), dev)
+        net = algo.league[MAIN].params
+        loss = algo._update(net, algo._opt_states[MAIN], obs, acts, rets)
+        res.append(result({"loss": loss}, {"": net}))
+    out["alphastar_learn_parity"] = hold_update("alphastar_learn_parity",
+                                                *res)
+
+    full = dict(bench.ma_ppo_config(device).to_dict(), device="cpu")
+    cpu = PPOConfig().update_from_dict(full).build()
+    sample = synchronous_parallel_sample(cpu.workers, max_env_steps=512)
+    require(sample.env_steps() >= 512 and len(sample.policy_batches) == 2,
+            f"ma_ppo parity sample {sample.env_steps()}")
+    algos = [cpu, PPOConfig().update_from_dict(
+        dict(full, device=device)).build()]
+    for pid, b in sorted(sample.policy_batches.items()):
+        mb = next(iter(b.minibatches(
+            128, rng=np.random.default_rng(full["seed"]))))
+        res = []
+        for algo in algos:
+            pol = algo.get_policy(pid)
+            res.append(result({k: torch.tensor(v) for k, v in
+                               pol.learn_on_batch(mb).items()},
+                              {"": pol.model}))
+        tag = f"ma_ppo_{pid}_learn_parity"
+        out[tag] = hold_update(tag, *res)
+    for algo in algos:
+        algo.cleanup()
+    torch.cuda.empty_cache()
+    return out
+
+
+def model_based_phase(name, card) -> dict:
+    """Phase 20: (b) the card against the CPU (Dreamer, AlphaZero,
+    AlphaStar, multi-agent PPO), (a) bench.dreamer_loop /
+    alphazero_loop / alphastar_loop / ma_ppo_loop, each with one learn
+    phase profiled, (c) no launch of the port's kernels across the
+    phase."""
+    import torch
+    from ray_tpu_torch import bench, kernels
+    kernels.reset_launch_counts()
+    model_based_parity("cuda")
+
+    def prof(learn):
+        return profile_step(learn, PPO_PROFILE_GROUPS)
+
+    res = {}
+    for p, loop in (("dreamer", bench.dreamer_loop),
+                    ("alphazero", bench.alphazero_loop),
+                    ("alphastar", bench.alphastar_loop),
+                    ("ma_ppo", bench.ma_ppo_loop)):
+        r = loop(profile=prof)
+        profile = r.pop(f"{p}_profile")
+        print(f"{p}_train", json.dumps({**r, "device": name,
+                                        "nvidia_smi": card}), flush=True)
+        print(f"{p}_profile", json.dumps(profile), flush=True)
+        require(r[f"{p}_losses_finite"], f"{p}: non-finite loss {r}")
+        require(r[f"{p}_weights_moved"] > 0, f"{p}: the weights did not move")
+        res[p] = r
+    d, z, a, m = (res[k] for k in ("dreamer", "alphazero", "alphastar",
+                                   "ma_ppo"))
+    require(d["dreamer_recon_loss"][1] < d["dreamer_recon_loss"][0],
+            f"dreamer: the held batch's reconstruction loss did not fall "
+            f"{d['dreamer_recon_loss']}")
+    require(a["alphastar_num_historical"][0] == 0
+            and a["alphastar_num_historical"][1] >= 1,
+            f"alphastar: no snapshot in the timed window "
+            f"{a['alphastar_num_historical']}")
+    require(a["alphastar_snapshot_gap"] > 0,
+            "alphastar: the snapshot followed main")
+    require(m["ma_ppo_policies"] == ["pol_a", "pol_b"],
+            f"ma_ppo: learner info {m['ma_ppo_policies']}")
+    require((d["dreamer_deter_size"], d["dreamer_stoch_size"],
+             d["dreamer_hidden"], d["dreamer_batch_size"],
+             d["dreamer_seq_len"], d["dreamer_imagine_horizon"],
+             d["dreamer_prefill_steps"], d["dreamer_env_steps_per_iter"],
+             d["dreamer_updates_per_iter"])
+            == (64, 8, 64, 24, 16, 10, 1000, 200, 20)
+            and (z["alphazero_games_per_iter"], z["alphazero_num_sims"],
+                 z["alphazero_train_batch_size"], z["alphazero_sgd_iters"],
+                 z["alphazero_hidden"]) == (24, 25, 256, 8, 128)
+            and (a["alphastar_matches_per_iter"], a["alphastar_hidden"],
+                 a["alphastar_snapshot_interval"]) == (64, 64, 10)
+            and (m["ma_ppo_train_batch_size"], m["ma_ppo_sgd_minibatch_size"],
+                 m["ma_ppo_num_sgd_iter"]) == (512, 128, 6),
+            f"model-based / multi-agent widths: {res}")
+    launches = kernels.launch_counts()
+    require(launches == {}, f"model-based and multi-agent algorithms: the "
+            f"path launched {launches}")
+    torch.cuda.empty_cache()
+    return res
+
+
 def serve_streams(server, prompts, new_tokens: int):
     """One greedy stream of ``new_tokens`` per prompt, opened together
     on ``server`` and drained in turn, with the launch counts and the
@@ -2964,6 +3165,10 @@ def main() -> int:
 
     # 19. QMIX and MADDPG, MAML and MBMPO: none of the port's kernels
     multiagent_meta_phase(name, card)
+
+    # 20. Dreamer, AlphaZero, AlphaStar and multi-agent PPO: none of the
+    # port's kernels
+    model_based_phase(name, card)
 
     # 13. summary
     def kernel_entry(case, kname, source, line, by_path):

@@ -33,8 +33,11 @@ set written by ``JsonWriter`` (``write_cartpole_dataset``) and LinUCB /
 LinTS on the host, each at its JAX config's defaults; ``qmix_loop``,
 ``maddpg_loop``, ``maml_loop`` and ``mbmpo_loop``: QMIX on CoopCartPole
 and MADDPG on MultiAgentTarget1D (2 agents each), MAML and MBMPO on the
-point-goal tasks, each at its JAX config's defaults; ``main`` runs the
-first five. The first two time steps on
+point-goal tasks, each at its JAX config's defaults; ``dreamer_loop``,
+``alphazero_loop``, ``alphastar_loop`` and ``ma_ppo_loop``: Dreamer on
+Pendulum-v1, AlphaZero and AlphaStar's league on TicTacToe, each at its
+JAX config's defaults, and PPO with two policies on MultiAgentCartPole
+(``ma_ppo_config``); ``main`` runs the first five. The first two time steps on
 one resident batch (no input cost: the compute ceiling), as windows of
 steps closed by a host read of the loss, and report the best window.
 The framework path of the JAX bench (``DataParallelTrainer``, the
@@ -1352,6 +1355,369 @@ def bandit_loop(timed=None) -> dict:
                                            runs[-1]["learner/mean_reward"]],
         })
         algo.cleanup()
+    return out
+
+
+def _timed_iters(algo, dev, timed, step=None):
+    """One warm-up iteration, then ``timed`` ones, each through
+    ``step`` (``algo.step``): (warm-up result, the timed results, their
+    host seconds, the warm-up's seconds, the kernels' launches in the
+    timed ones, read and not zeroed). Peak memory restarts after the
+    warm-up."""
+    step = step or algo.step
+    t0 = time.perf_counter()
+    warm = step()
+    warmup_s = time.perf_counter() - t0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    before = kernels.launch_counts()
+    runs, secs = [], []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        runs.append(step())
+        secs.append(time.perf_counter() - t0)
+    return warm, runs, secs, warmup_s, _launches_since(before)
+
+
+def _loop_keys(prefix, dev, runs, secs, warmup_s, launches, steps_key):
+    """The keys every one of the later loops reports: the device, the
+    timed iterations, env steps/s (the median of steps / the
+    iteration's host time, and the whole window's), the timers' medians
+    and their split, launches, peak memory."""
+    totals = {k: float(sum(r["timers"][k] for r in runs))
+              for k in runs[0]["timers"]}
+    steps = [r[steps_key] for r in runs]
+    out = {
+        f"{prefix}_platform": dev.type,
+        f"{prefix}_device_kind": _device_kind(dev),
+        f"{prefix}_iters_timed": len(runs), f"{prefix}_warmup_s": warmup_s,
+        f"{prefix}_env_steps_per_iter": steps[-1],
+        f"{prefix}_env_steps_per_sec": float(np.median(
+            [n / s for n, s in zip(steps, secs)])),
+        f"{prefix}_env_steps_per_sec_whole": sum(steps) / sum(secs),
+        **{f"{prefix}_{k}": _median(runs, k, "timers")
+           for k in runs[0]["timers"]},
+        f"{prefix}_split": {k: v / sum(totals.values())
+                            for k, v in totals.items()},
+        f"{prefix}_launches": launches,
+    }
+    if dev.type == "cuda":
+        out[f"{prefix}_max_memory_allocated_bytes"] = (
+            torch.cuda.max_memory_allocated(dev))
+    return out
+
+
+def dreamer_config(device="cuda"):
+    """Dreamer on Pendulum-v1 at the JAX ``DreamerConfig``'s defaults:
+    RSSM deter 64, stoch 8, hidden 64; 24 sequences of 16 steps an
+    update, imagination horizon 10; 1,000 prefill steps (noise 1.0),
+    then 200 env steps (noise 0.3) and 20 updates an iteration. On
+    ``cpu``: widths 16 / 4 / 16, 4 sequences of 8, horizon 4, 200
+    prefill steps (one whole episode), then 50 env steps and 2 updates."""
+    from ray_tpu_torch.rllib.algorithms import DreamerConfig
+    dev = resolve_device(device)
+    config = DreamerConfig()
+    if dev.type == "cpu":
+        config.training(deter_size=16, stoch_size=4, hidden=16, batch_size=4,
+                        seq_len=8, imagine_horizon=4, prefill_steps=200,
+                        rollout_fragment_length=50,
+                        train_steps_per_iteration=2)
+    return config.resources(device=str(dev)).debugging(seed=0)
+
+
+def dreamer_loop(device="cuda", profile=None, timed=None) -> dict:
+    """Dreamer throughput through ``Algorithm.step`` (``dreamer_config``):
+    the prefill iteration, one warm-up iteration (``dreamer_warmup_s``),
+    then ``timed`` ones (5 on ``cuda``, 1 on ``cpu``). Keys
+    ``dreamer_*`` (``_loop_keys``),
+    updates/s (an iteration's updates over its learn time, median), the
+    reported losses of the warm-up and the last iteration, the
+    reconstruction loss of one held sequence batch (drawn after the
+    warm-up, fixed noise) under the world model before and after the
+    timed window (``dreamer_recon_loss``), finite losses, weights that
+    moved, the widths. ``profile``: a function called with one learn
+    phase (``train_steps_per_iteration`` updates on sequence draws, then
+    the stats to the host)."""
+    from ray_tpu_torch.rllib.policy import stats_to_host
+    dev = resolve_device(device)
+    algo = dreamer_config(dev).build()
+    cfg = algo.config
+    w0 = algo._weights()
+    warm = algo.step()
+    held = algo._sample_sequences()
+    held_noise = algo._draw_noise("update")
+
+    @torch.no_grad()
+    def recon():
+        obs = torch.as_tensor(held["obs"], device=algo.device)
+        feat, _ = algo.wm.observe(obs, torch.as_tensor(
+            held["prev_actions"], device=algo.device), held_noise["obs"])
+        return float(torch.mean(torch.sum((algo.wm.decode(feat) - obs) ** 2,
+                                          -1)))
+
+    recon0 = recon()
+    _, runs, secs, warmup_s, launches = _timed_iters(
+        algo, dev, timed or (5 if dev.type == "cuda" else 1))
+    out = _loop_keys("dreamer", dev, runs, secs, warmup_s, launches,
+                     "num_env_steps_sampled_this_iter")
+    names = ("model_loss", "recon_loss", "reward_loss", "kl", "actor_loss",
+             "value_loss")
+    last = runs[-1]
+    n_upd = cfg["train_steps_per_iteration"]
+    out.update({
+        "dreamer_env": cfg["env"], "dreamer_deter_size": cfg["deter_size"],
+        "dreamer_stoch_size": cfg["stoch_size"],
+        "dreamer_hidden": cfg["hidden"],
+        "dreamer_batch_size": cfg["batch_size"],
+        "dreamer_seq_len": cfg["seq_len"],
+        "dreamer_imagine_horizon": cfg["imagine_horizon"],
+        "dreamer_prefill_steps": cfg["prefill_steps"],
+        "dreamer_updates_per_iter": n_upd,
+        "dreamer_updates_per_sec": float(np.median(
+            [n_upd / (r["timers"]["learn_time_ms"] / 1e3) for r in runs])),
+        "dreamer_losses": {k: [warm[f"learner/{k}"], last[f"learner/{k}"]]
+                           for k in names},
+        "dreamer_losses_finite": bool(np.all(np.isfinite(
+            [r[f"learner/{k}"] for r in [warm] + runs for k in names]))),
+        "dreamer_recon_loss": [recon0, recon()],
+        "dreamer_episodes": last["num_episodes"],
+        "dreamer_episode_reward_mean": last["episode_reward_mean"],
+        "dreamer_weights_moved": max(
+            _moved(w0[k], w) for k, w in algo._weights().items()),
+    })
+    if profile is not None:
+        def learn():
+            for _ in range(n_upd):
+                stats = algo._update(algo._sample_sequences())
+            return stats_to_host(stats)
+        out["dreamer_profile"] = profile(learn)
+    algo.cleanup()
+    return out
+
+
+def alphazero_loop(device="cuda", profile=None, timed=None) -> dict:
+    """AlphaZero on TicTacToe at the JAX ``AlphaZeroConfig``'s defaults:
+    24 self-play games of 25 PUCT simulations an iteration (one net
+    evaluation of one position a node, read back to the host), then 8
+    Adam steps of 256 replay rows, net 128 x 128; one warm-up iteration,
+    then ``timed`` ones (3 on ``cuda``, 1 on ``cpu``, where the games are
+    4 of 8 simulations and the steps 2 of 32 rows). Keys ``alphazero_*``
+    (``_loop_keys``: env steps are the positions played), net
+    evaluations/s over the search time, the total loss of the warm-up
+    and the last iteration, finite losses, weights that moved, the
+    replay's size. ``profile``: a function called with one learn phase
+    (``sgd_iters`` updates on replay draws, then the stats)."""
+    from ray_tpu_torch.rllib.algorithms import AlphaZeroConfig
+    from ray_tpu_torch.rllib.policy import stats_to_host, weights_of
+    dev = resolve_device(device)
+    config = AlphaZeroConfig()
+    if dev.type == "cpu":
+        config.training(games_per_iteration=4, num_sims=8, sgd_iters=2,
+                        train_batch_size=32)
+    algo = config.resources(device=str(dev)).debugging(seed=0).build()
+    cfg = algo.config
+    w0 = weights_of(algo.model)
+    evals = []
+
+    def step():
+        e0 = algo.evaluations
+        r = algo.step()
+        evals.append(algo.evaluations - e0)
+        return r
+
+    warm, runs, secs, warmup_s, launches = _timed_iters(
+        algo, dev, timed or (3 if dev.type == "cuda" else 1), step)
+    out = _loop_keys("alphazero", dev, runs, secs, warmup_s, launches,
+                     "num_env_steps_sampled_this_iter")
+    losses = [r["learner/total_loss"] for r in [warm] + runs]
+    out.update({
+        "alphazero_env": cfg["env"],
+        "alphazero_games_per_iter": cfg["games_per_iteration"],
+        "alphazero_num_sims": cfg["num_sims"],
+        "alphazero_train_batch_size": cfg["train_batch_size"],
+        "alphazero_sgd_iters": cfg["sgd_iters"],
+        "alphazero_hidden": cfg["hidden"],
+        "alphazero_evals_per_iter": evals[-1],
+        "alphazero_evals_per_sec": float(np.median(
+            [n / (r["timers"]["search_time_ms"] / 1e3)
+             for n, r in zip(evals[1:], runs)])),
+        "alphazero_total_loss": [losses[0], losses[-1]],
+        "alphazero_losses_finite": bool(np.all(np.isfinite(losses))),
+        "alphazero_replay_size": runs[-1]["replay_size"],
+        "alphazero_weights_moved": _moved(w0, weights_of(algo.model)),
+    })
+    if profile is not None:
+        def learn():
+            n = len(algo._replay)
+            for _ in range(cfg["sgd_iters"]):
+                idx = algo._np_rng.integers(
+                    0, n, min(cfg["train_batch_size"], n))
+                stats = algo._update(
+                    np.stack([algo._replay[i][0] for i in idx]),
+                    np.stack([algo._replay[i][1] for i in idx]),
+                    np.asarray([algo._replay[i][2] for i in idx],
+                               np.float32))
+            return stats_to_host(stats)
+        out["alphazero_profile"] = profile(learn)
+    algo.cleanup()
+    return out
+
+
+def alphastar_loop(device="cuda", profile=None, timed=None) -> dict:
+    """AlphaStar's league on TicTacToe at the JAX ``AlphaStarConfig``'s
+    defaults: main, one main exploiter, one league exploiter (nets 64 x
+    64, an Adam each), 64 matches an iteration (PFSP matchmaking, one
+    REINFORCE update per game), a snapshot of main every 10 iterations,
+    then 4 + 20 evaluation games against a random player; one warm-up
+    iteration, then ``timed`` ones (10 on ``cuda``, so that the 10th
+    iteration's snapshot falls inside the window and the 11th updates
+    main after it; 2 on ``cpu`` with 8 matches and a snapshot every 2
+    iterations). Keys ``alphastar_*`` (``_loop_keys``: env steps are
+    games), games/s, the league before and after, how far main moved
+    from the newest snapshot by the end (``alphastar_snapshot_gap``),
+    each learner's last loss, finite losses, weights that moved (main),
+    the win rate against a random player. ``profile``: a function called
+    with one learn phase (one update of each learner on a game it plays
+    against itself, then the losses to the host)."""
+    from ray_tpu_torch.rllib.algorithms import AlphaStarConfig
+    from ray_tpu_torch.rllib.algorithms.alpha_star import HISTORICAL, MAIN
+    from ray_tpu_torch.rllib.policy import stats_to_host, weights_of
+    dev = resolve_device(device)
+    cuda = dev.type == "cuda"
+    config = AlphaStarConfig()
+    if not cuda:
+        config.training(matches_per_iter=8, snapshot_interval=2)
+    algo = config.resources(device=str(dev)).debugging(seed=0).build()
+    cfg = algo.config
+    w0 = weights_of(algo.model)
+    warm, runs, secs, warmup_s, launches = _timed_iters(
+        algo, dev, timed or (10 if cuda else 2))
+    out = _loop_keys("alphastar", dev, runs, secs, warmup_s, launches,
+                     "episodes_this_iter")
+    hist = sorted((p for p in algo.league.values()
+                   if p.ptype == HISTORICAL),
+                  key=lambda p: int(p.pid.rsplit("_", 1)[-1]))
+    losses = stats_to_host(algo.last_losses)
+    main = weights_of(algo.league[MAIN].params)
+    out.update({
+        "alphastar_env": cfg["env"], "alphastar_hidden": cfg["hidden"],
+        "alphastar_matches_per_iter": cfg["matches_per_iter"],
+        "alphastar_snapshot_interval": cfg["snapshot_interval"],
+        "alphastar_games_per_sec": out["alphastar_env_steps_per_sec"],
+        "alphastar_league_size": [warm["league_size"],
+                                  runs[-1]["league_size"]],
+        "alphastar_num_historical": [warm["num_historical"],
+                                     runs[-1]["num_historical"]],
+        "alphastar_snapshot_gap": (_moved(weights_of(hist[-1].params), main)
+                                   if hist else None),
+        "alphastar_last_losses": losses,
+        "alphastar_losses_finite": bool(np.all(np.isfinite(
+            list(losses.values())))),
+        "alphastar_weights_moved": _moved(w0, main),
+        "alphastar_main_vs_random_win_rate":
+            runs[-1]["main_vs_random_win_rate"],
+    })
+    if profile is not None:
+        def learn():
+            for pid, p in algo.league.items():
+                if p.learnable:
+                    out_a, ta, _ = algo._play_game(p.params, p.params)
+                    algo._learn_from(pid, ta, out_a)
+            return stats_to_host(algo.last_losses)
+        out["alphastar_profile"] = profile(learn)
+    algo.cleanup()
+    return out
+
+
+def ma_ppo_config(device="cuda"):
+    """PPO on MultiAgentCartPole with 2 agents and 2 policies (agent_0
+    -> pol_a, agent_1 -> pol_b) at tests/test_rllib_multiagent.py:59's
+    settings: fragments of 64, a train batch of 512 env steps, minibatch
+    128 x 6 epochs, lr 4e-3, seed 1, the default 256 x 256 tanh nets. On
+    ``cpu``: fragments of 32, a batch of 64, minibatch 32 x 1, nets 32
+    x 32."""
+    from ray_tpu_torch.rllib.algorithms import PPOConfig
+    dev = resolve_device(device)
+    config = (PPOConfig().environment("MultiAgentCartPole",
+                                      env_config={"num_agents": 2})
+              .rollouts(num_workers=0, rollout_fragment_length=64)
+              .training(train_batch_size=512, sgd_minibatch_size=128,
+                        num_sgd_iter=6, lr=4e-3)
+              .multi_agent(policies={"pol_a": {}, "pol_b": {}},
+                           policy_mapping_fn=_ma_mapping))
+    if dev.type == "cpu":
+        config.rollouts(rollout_fragment_length=32).training(
+            train_batch_size=64, sgd_minibatch_size=32, num_sgd_iter=1,
+            model={"fcnet_hiddens": [32, 32]})
+    return config.resources(device=str(dev)).debugging(seed=1)
+
+
+def _ma_mapping(aid, **_kw):
+    return "pol_a" if aid == "agent_0" else "pol_b"
+
+
+def ma_ppo_loop(device="cuda", profile=None, timed=None) -> dict:
+    """Multi-agent PPO throughput through ``Algorithm.step``
+    (``ma_ppo_config``): one warm-up iteration, then ``timed`` ones (5
+    on ``cuda``, 1 on ``cpu``). Keys ``ma_ppo_*`` (``_loop_keys``), agent
+    steps/s (the agents' rows of each iteration's samples over its host
+    time, median), the policies in the learner info, each policy's total
+    loss of the warm-up and the last iteration, finite losses, weights
+    that moved (both policies), the episode reward. ``profile``: a
+    function called with one learn phase (``_sgd_epochs`` of each policy
+    on a fresh train batch)."""
+    from ray_tpu_torch.rllib import synchronous_parallel_sample
+    dev = resolve_device(device)
+    algo = ma_ppo_config(dev).build()
+    cfg = algo.config
+    lw = algo.workers.local_worker
+    w0 = lw.get_weights()
+    agent_steps = []
+    sample = lw.sample
+
+    def counting():
+        b = sample()
+        agent_steps[-1] += b.agent_steps()
+        return b
+
+    lw.sample = counting
+
+    def step():
+        agent_steps.append(0)
+        return algo.step()
+
+    warm, runs, secs, warmup_s, launches = _timed_iters(
+        algo, dev, timed or (5 if dev.type == "cuda" else 1), step)
+    out = _loop_keys("ma_ppo", dev, runs, secs, warmup_s, launches,
+                     "num_env_steps_sampled_this_iter")
+    pids = sorted(lw.policy_map)
+    losses = {pid: [r["info"]["learner"][pid]["total_loss"]
+                    for r in [warm] + runs] for pid in pids}
+    w1 = lw.get_weights()
+    out.update({
+        "ma_ppo_env": cfg["env"], "ma_ppo_agents": 2,
+        "ma_ppo_train_batch_size": cfg["train_batch_size"],
+        "ma_ppo_sgd_minibatch_size": cfg["sgd_minibatch_size"],
+        "ma_ppo_num_sgd_iter": cfg["num_sgd_iter"],
+        "ma_ppo_agent_steps_per_iter": agent_steps[-1],
+        "ma_ppo_agent_steps_per_sec": float(np.median(
+            [n / s for n, s in zip(agent_steps[1:], secs)])),
+        "ma_ppo_policies": sorted(runs[-1]["info"]["learner"]),
+        "ma_ppo_total_loss": {pid: [v[0], v[-1]]
+                              for pid, v in losses.items()},
+        "ma_ppo_losses_finite": bool(np.all(np.isfinite(
+            [x for v in losses.values() for x in v]))),
+        "ma_ppo_weights_moved": min(_moved(w0[pid], w1[pid])
+                                    for pid in pids),
+        "ma_ppo_episode_reward_mean": runs[-1]["episode_reward_mean"],
+    })
+    if profile is not None:
+        batch = synchronous_parallel_sample(
+            algo.workers, max_env_steps=cfg["train_batch_size"])
+        out["ma_ppo_profile"] = profile(lambda: {
+            pid: algo._sgd_epochs(lw.policy_map[pid], b)
+            for pid, b in batch.policy_batches.items()})
+    algo.cleanup()
     return out
 
 

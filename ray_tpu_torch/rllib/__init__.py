@@ -7,13 +7,15 @@ stack (``Algorithm`` -> the WorkerSet's local ``RolloutWorker`` -> a
 with the replay buffers, PG/A2C, SAC, DDPG/TD3; offline from JSON
 datasets: BC/MARWIL, CQL, CRR; the bandits; and ``LocalAlgorithm``'s
 own env loops: R2D2, SlateQ, DT, the cooperative multi-agent QMIX and
-MADDPG, the meta-learners MAML and MBMPO) and the new one
-(``RLModule`` / ``PPOLearner`` / a local ``LearnerGroup``). The
+MADDPG, the meta-learners MAML and MBMPO, the model-based and planning
+Dreamer, AlphaZero and AlphaStar; the multi-agent worker, which PPO
+trains policy by policy) and the new one (``RLModule`` / ``PPOLearner``
+/ a local ``LearnerGroup``). The
 policy's forward, the loss, the backward and Adam run on
 ``config["device"]`` ("cuda" unless the caller asks for "cpu"); env
 stepping, connectors and GAE stay numpy on the host, as in the JAX
-package. Remote rollout workers and learners, evaluation workers and
-the multi-agent worker raise ``NotImplementedError``.
+package. Remote rollout workers and learners and evaluation workers
+raise ``NotImplementedError``.
 """
 
 from ray_tpu_torch.rllib.sample_batch import (MultiAgentBatch, SampleBatch,
@@ -32,6 +34,7 @@ from ray_tpu_torch.rllib.connectors import (ClipActionConnector, Connector,
                                             ResizeObsConnector)
 from ray_tpu_torch.rllib.models import (AtariCNN, MLPNet, StackedMLP,
                                         make_model, params_from_flax,
+                                        policy_map_from_flax,
                                         stacked_params_from_flax)
 from ray_tpu_torch.rllib.policy import TorchPolicy
 from ray_tpu_torch.rllib.core import (Learner, LearnerGroup, MultiRLModule,
@@ -39,13 +42,17 @@ from ray_tpu_torch.rllib.core import (Learner, LearnerGroup, MultiRLModule,
 from ray_tpu_torch.rllib.postprocessing import compute_advantages
 from ray_tpu_torch.rllib.replay_buffers import (PrioritizedReplayBuffer,
                                                 ReplayBuffer)
-from ray_tpu_torch.rllib.rollout_worker import (RolloutWorker, WorkerSet,
+from ray_tpu_torch.rllib.rollout_worker import (MultiAgentRolloutWorker,
+                                                RolloutWorker, WorkerSet,
                                                 synchronous_parallel_sample)
 from ray_tpu_torch.rllib.algorithm import (Algorithm, AlgorithmConfig,
                                            LocalAlgorithm)
 from ray_tpu_torch.rllib.offline import JsonReader, JsonWriter
 from ray_tpu_torch.rllib.algorithms import (BC, CQL, CRR, DDPG, DQN, DT,
                                             MARWIL, PPO, R2D2, SAC, TD3,
+                                            AlphaStar, AlphaStarConfig,
+                                            AlphaZero, AlphaZeroConfig,
+                                            Dreamer, DreamerConfig,
                                             BanditLinTS, BanditLinTSConfig,
                                             BanditLinUCB, BanditLinUCBConfig,
                                             BCConfig, CQLConfig, CRRConfig,
@@ -63,7 +70,8 @@ __all__ = [
     "VectorEnv", "make_env", "MLPNet", "AtariCNN", "make_model",
     "params_from_flax", "TorchPolicy", "compute_advantages",
     "ReplayBuffer", "PrioritizedReplayBuffer",
-    "RolloutWorker", "WorkerSet", "synchronous_parallel_sample",
+    "RolloutWorker", "MultiAgentRolloutWorker", "WorkerSet",
+    "synchronous_parallel_sample",
     "Algorithm", "AlgorithmConfig", "PPO", "PPOConfig", "DQN",
     "DQNConfig", "IMPALA", "IMPALAConfig", "SAC", "SACConfig", "DDPG",
     "DDPGConfig", "TD3", "TD3Config", "BC", "BCConfig", "MARWIL",
@@ -72,7 +80,9 @@ __all__ = [
     "BanditLinUCB", "BanditLinUCBConfig", "BanditLinTS",
     "BanditLinTSConfig", "SlateQ", "SlateQConfig", "QMix", "QMixConfig",
     "MADDPG", "MADDPGConfig", "MAML", "MAMLConfig", "MBMPO", "MBMPOConfig",
-    "StackedMLP", "stacked_params_from_flax",
+    "StackedMLP", "stacked_params_from_flax", "policy_map_from_flax",
+    "Dreamer", "DreamerConfig",
+    "AlphaZero", "AlphaZeroConfig", "AlphaStar", "AlphaStarConfig",
     "MultiAgentEnv", "MultiAgentCartPole",
     "Connector", "ConnectorPipeline", "FlattenObsConnector",
     "MeanStdObsConnector", "ClipActionConnector", "LambdaConnector",

@@ -6,8 +6,9 @@ of ``ray_tpu/rllib/algorithm.py``: Algorithm subclasses the port's
 ``tune.Trainable``; the policy lives on ``config["device"]`` (``"cuda"``
 unless the caller asks for ``"cpu"``).
 
-The port samples with the local worker only: remote rollout workers and
-evaluation workers need the runtime (ROADMAP.md Queue A, A1) and raise.
+The port samples with the local worker only (a ``MultiAgentRolloutWorker``
+for a multi-agent config): remote rollout workers and evaluation workers
+need the runtime (ROADMAP.md Queue A, A1) and raise.
 ``LocalAlgorithm`` is the base of the algorithms that run their own env
 loop (R2D2, SlateQ, DT; QMIX's and MADDPG's ``_collect_joint``): its
 net, target and Adam live on ``config["device"]``, its epsilon and
@@ -214,10 +215,14 @@ class Algorithm(Trainable):
         }
 
     def get_policy(self, policy_id: Optional[str] = None):
-        if policy_id not in (None, "default_policy"):
-            raise KeyError(f"no policy {policy_id!r}: the port's worker "
-                           "holds one policy, 'default_policy'")
-        return self.workers.local_worker.policy
+        """The local worker's policy, or ``policy_map[policy_id]`` (a
+        single-agent worker's map holds its one policy as
+        ``"default_policy"``)."""
+        lw = self.workers.local_worker
+        if policy_id is None:
+            return lw.policy
+        return getattr(lw, "policy_map",
+                       {"default_policy": lw.policy})[policy_id]
 
     def compute_single_action(self, obs, explore: bool = False,
                               policy_id: Optional[str] = None):

@@ -1,7 +1,7 @@
 """The port's RL algorithms: PPO, IMPALA/APPO, DQN/SimpleQ, PG/A2C, A3C,
 SAC, DDPG/TD3, BC/MARWIL, CQL, CRR, the bandits (LinUCB, LinTS), R2D2,
-DT, SlateQ, QMIX, MADDPG, MAML and MBMPO (ROADMAP.md Queue A lists the
-rest of ``ray_tpu/rllib/algorithms/``)."""
+DT, SlateQ, QMIX, MADDPG, MAML, MBMPO, Dreamer, AlphaZero and AlphaStar
+(ROADMAP.md Queue A lists the rest of ``ray_tpu/rllib/algorithms/``)."""
 
 from ray_tpu_torch.rllib.algorithms.ppo import PPO, PPOConfig, PPOPolicy
 from ray_tpu_torch.rllib.algorithms.dqn import DQN, DQNConfig, DQNPolicy
@@ -30,6 +30,11 @@ from ray_tpu_torch.rllib.algorithms.qmix import QMix, QMixConfig
 from ray_tpu_torch.rllib.algorithms.maddpg import MADDPG, MADDPGConfig
 from ray_tpu_torch.rllib.algorithms.maml import MAML, MAMLConfig
 from ray_tpu_torch.rllib.algorithms.mbmpo import MBMPO, MBMPOConfig
+from ray_tpu_torch.rllib.algorithms.dreamer import Dreamer, DreamerConfig
+from ray_tpu_torch.rllib.algorithms.alpha_zero import (AlphaZero,
+                                                       AlphaZeroConfig)
+from ray_tpu_torch.rllib.algorithms.alpha_star import (AlphaStar,
+                                                       AlphaStarConfig)
 
 __all__ = ["PPO", "PPOConfig", "PPOPolicy", "DQN", "DQNConfig", "DQNPolicy",
            "SimpleQ", "SimpleQConfig", "IMPALA", "IMPALAConfig",
@@ -42,4 +47,6 @@ __all__ = ["PPO", "PPOConfig", "PPOPolicy", "DQN", "DQNConfig", "DQNPolicy",
            "R2D2Config", "DT", "DTConfig", "BanditLinUCB",
            "BanditLinUCBConfig", "BanditLinTS", "BanditLinTSConfig",
            "SlateQ", "SlateQConfig", "QMix", "QMixConfig", "MADDPG",
-           "MADDPGConfig", "MAML", "MAMLConfig", "MBMPO", "MBMPOConfig"]
+           "MADDPGConfig", "MAML", "MAMLConfig", "MBMPO", "MBMPOConfig",
+           "Dreamer", "DreamerConfig", "AlphaZero", "AlphaZeroConfig",
+           "AlphaStar", "AlphaStarConfig"]

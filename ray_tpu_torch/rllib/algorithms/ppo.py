@@ -5,8 +5,10 @@ and ppo_torch_policy.py (loss). Counterpart of
 ``ray_tpu/rllib/algorithms/ppo.py`` with the same loss, defaults and
 minibatch order (``np.random.default_rng(seed + iteration)`` through
 ``SampleBatch.minibatches``): every minibatch is one
-loss -> backward -> clip -> Adam step on the policy's device. Single
-agent: the port's WorkerSet refuses a multi-agent config.
+loss -> backward -> clip -> Adam step on the policy's device. With a
+multi-agent config the worker's ``MultiAgentBatch`` is trained policy by
+policy (``policies_to_train``, or every policy; empty batches skipped),
+each with its own minibatch order from ``seed + iteration``, as JAX's.
 
 ``training_step`` also reports ``timers``: the host seconds of one
 iteration spent sampling (env steps, connectors, the policy's forwards),
@@ -25,7 +27,7 @@ import torch
 from ray_tpu_torch.rllib.algorithm import Algorithm, AlgorithmConfig
 from ray_tpu_torch.rllib.policy import TorchPolicy
 from ray_tpu_torch.rllib.rollout_worker import synchronous_parallel_sample
-from ray_tpu_torch.rllib.sample_batch import SampleBatch
+from ray_tpu_torch.rllib.sample_batch import MultiAgentBatch, SampleBatch
 
 
 class PPOPolicy(TorchPolicy):
@@ -130,16 +132,30 @@ class PPO(Algorithm):
         t1 = time.perf_counter()
         sampled_steps = train_batch.count
         self._timesteps_total += sampled_steps
-        # 2. minibatch SGD epochs on the local (learner) policy
-        stats = self._sgd_epochs(lw.policy, train_batch)
+        # 2. minibatch SGD epochs on the local (learner) policy/policies
+        if isinstance(train_batch, MultiAgentBatch):
+            to_train = lw.policies_to_train or list(lw.policy_map)
+            learner_info: Dict[str, Dict[str, float]] = {}
+            for pid in to_train:
+                b = train_batch.policy_batches.get(pid)
+                if b is None or b.count == 0:
+                    continue
+                learner_info[pid] = self._sgd_epochs(lw.policy_map[pid], b)
+            flat = {f"learner/{pid}/{k}": v
+                    for pid, st in learner_info.items()
+                    for k, v in st.items()}
+        else:
+            stats = self._sgd_epochs(lw.policy, train_batch)
+            learner_info = {"default_policy": stats}
+            flat = {f"learner/{k}": v for k, v in stats.items()}
         t2 = time.perf_counter()
         # 3. broadcast new weights to rollout workers (ppo.py:345)
         self.workers.sync_weights()
         post = lw.postprocess_s - post0
         return {
             "num_env_steps_sampled_this_iter": sampled_steps,
-            "info": {"learner": {"default_policy": stats}},
-            **{f"learner/{k}": v for k, v in stats.items()},
+            "info": {"learner": learner_info},
+            **flat,
             "timers": {"sample_time_ms": (t1 - t0 - post) * 1e3,
                        "postprocess_time_ms": post * 1e3,
                        "learn_time_ms": (t2 - t1) * 1e3},

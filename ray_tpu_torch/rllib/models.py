@@ -239,6 +239,18 @@ def params_from_flax(tree: Mapping[str, Any],
     return sd
 
 
+def policy_map_from_flax(trees: Mapping[str, Mapping[str, Any]],
+                         policy_map: Mapping[str, Any]
+                         ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A JAX multi-agent worker's params by policy id ({pid: flax tree},
+    as ``{pid: policy.params}``) -> each port policy's ``model`` in
+    ``policy_map`` (``MultiAgentRolloutWorker.policy_map``), through
+    ``params_from_flax``, strictly: a key left over or missing raises.
+    Returns the state dicts by policy id."""
+    return {pid: params_from_flax(tree, policy_map[pid].model)
+            for pid, tree in trees.items()}
+
+
 class StackedLinear(nn.Module):
     """``m`` Dense layers of one shape side by side: ``weight`` [m, in,
     out] (flax's kernel layout with the member axis in front), ``bias``

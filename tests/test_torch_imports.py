@@ -63,7 +63,8 @@ def test_port_files_found():
                 "algorithms/pg", "algorithms/a3c", "algorithms/bandit",
                 "algorithms/slateq", "algorithms/r2d2", "algorithms/dt",
                 "algorithms/qmix", "algorithms/maddpg", "algorithms/maml",
-                "algorithms/mbmpo"):
+                "algorithms/mbmpo", "algorithms/dreamer",
+                "algorithms/alpha_zero", "algorithms/alpha_star"):
         assert f"ray_tpu_torch/rllib/{mod}.py" in rel
     assert "ray_tpu_torch/tune/trainable.py" in rel
     assert "ray_tpu_torch/air/checkpoint.py" in rel

@@ -654,8 +654,8 @@ def test_init_laws():
 # ---- what the port refuses ----
 
 
-def test_remote_and_multi_agent_paths_raise():
-    """Remote rollout workers, evaluation workers and multi-agent raise
+def test_remote_eval_and_cardless_paths_raise():
+    """Remote rollout workers and evaluation workers raise
     NotImplementedError (they never sample locally in their place); a
     cuda policy without a card raises instead of running on the CPU."""
     base = TR.PPOConfig().environment("CartPole-v1").resources(device="cpu")
@@ -666,10 +666,6 @@ def test_remote_and_multi_agent_paths_raise():
         TR.PPOConfig().update_from_dict(dict(
             base.to_dict(), evaluation_interval=1,
             evaluation_num_workers=1)).build()
-    with pytest.raises(NotImplementedError, match="multi-agent"):
-        (TR.PPOConfig().environment("MultiAgentCartPole")
-         .resources(device="cpu")
-         .multi_agent(policies={"a": None}).build())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             TPPO.PPOPolicy(TE.Box(-1, 1, (4,)), TE.Discrete(2), {})
