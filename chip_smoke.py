@@ -306,11 +306,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
               main after the next update, both policies in multi-agent
               PPO's learner info; (c) the launch counts, zeroed at the
               phase's start and read at its end, are empty.
+21. checkpoints and disaggregation — (a) GPT-2 small at 16 x 1024
+              through make_causal_lm_trainer: 2 steps, an async save
+              (AsyncCheckpointer over a CheckpointManager), 2 steps
+              while it writes; a fresh init from another seed restored
+              by restore_spmd_state runs the same 2 batches: losses and
+              grad norms within CKPT_RESUME_REL (0: bit-equal) of the
+              uninterrupted run's, params and moments byte-equal to the
+              saved state; 3 saves leave 2 committed, verified steps;
+              12 launches of each whole-kv kernel a step; then
+              bench.ckpt_loop (sync against async saves between real
+              steps). (b) bench.disagg_loop on phase 4's prompts and
+              weights: two LLMServers, __llm_prefill__ then
+              __llm_adopt__; each prompt alone gives the unified
+              server's tokens exactly; concurrently, each stream equals
+              phase 4's or leaves it at a near-tie (NEAR_TIE_FACTOR),
+              every handoff adopted, no decode step on the prefill
+              server and the paged-decode kernel on every layer of the
+              decode server's every step, both pools back at 0 used
+              pages, a frame with a flipped byte re-prefilled (adopted
+              False) to the tokens of its prompt alone.
 13. summary — nvidia-smi's card line, the kernels line (each kernel's
               launches by the path that counted them: phases 4, 5b, 6,
-              8, 12 and 14; paged decode's entry also carries its Llama
-              serve case, the streaming kernels' the ring's), then the
-              device line, last.
+              8, 12, 14 and 21; paged decode's entry also carries its
+              Llama serve case, the streaming kernels' the ring's), then
+              the device line, last.
 
 Exits non-zero without printing a result when CUDA is absent or when
 the repository's package is not beside this script.
@@ -407,6 +427,22 @@ MOE_RTOL, MOE_ATOL = 1e-4, 1e-5
 # bias to the rounded bf16 output, oneDNN before rounding, so the rms
 # bound is above BF16_RATIO's)
 PPO_F32 = 1e-5
+# phase 21a: the two GPT-2 small steps after a restore against the same
+# two steps of the uninterrupted run: loss and grad_norm within
+# CKPT_RESUME_REL relative. 0 asks for bit-equality: the restored
+# params, moments and step are the saved bytes, and every kernel of the
+# step is deterministic (no atomics; csrc/whole_attention.cu:42).
+CKPT_RESUME_REL = 0.0
+# phase 21b: a concurrent disaggregated stream may leave phase 4's where
+# the two runs' batches round differently (cuBLAS picks its bf16 GEMM
+# kernels by the batch's rows; the two runs batch differently). Where one
+# does, at its first differing token the f32 model's logit margin
+# between the two tokens must be within NEAR_TIE_FACTOR times the bf16
+# model's largest logit error there: each run's bf16 logits sit within
+# that error of the f32 ones, so two of them can swap two tokens only
+# that close. Each prompt alone (one row in every step of both runs)
+# must give the same tokens exactly.
+NEAR_TIE_FACTOR = 2.0
 ATARI_BF16_RATIO = (3.0, 1.5)
 # the PPO learn phase's groups: cuDNN's convs, the products (the
 # 7,744 x 512 Dense and the heads), Adam's foreach kernels, the
@@ -2520,6 +2556,199 @@ def model_based_phase(name, card) -> dict:
     return res
 
 
+def same_bytes(a, b) -> bool:
+    """Tensors of one dtype and shape with the same bytes."""
+    import torch
+    if b is None:
+        return False
+    b = b.to(a.device)
+    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.detach().reshape(-1).view(torch.uint8),
+        b.detach().reshape(-1).view(torch.uint8)))
+
+
+def checkpoint_phase(name, card) -> dict:
+    """Phase 21a: GPT-2 small at 16 x 1024 through
+    make_causal_lm_trainer: 2 steps, an async save of the state, 2 more
+    steps while the writer runs; a fresh init from another seed restored
+    from the manager runs the same 2 batches: losses and grad norms
+    within CKPT_RESUME_REL of the uninterrupted run's, params and
+    moments byte-equal to the state at the save, step 2; 3 saves leave 2
+    committed steps (num_to_keep 2), each verified; the whole-kv kernels
+    launched 12 times each a step (phase 6's). Then bench.ckpt_loop."""
+    import shutil
+    import tempfile
+
+    import torch
+    from ray_tpu_torch import bench, kernels
+    from ray_tpu_torch.checkpoint import AsyncCheckpointer, CheckpointManager
+    from ray_tpu_torch.models.gpt2 import GPT2Config
+    from ray_tpu_torch.train import spmd
+
+    cfg = GPT2Config.small()
+    require(cfg == bench.gpt2_train_shape(torch.device("cuda"))[0],
+            "phase 21a's config is not phase 6's")
+    trainer = spmd.make_causal_lm_trainer(cfg)
+    rng = np.random.default_rng(SEED + 21)
+    batches = [spmd.put_batch(trainer, {"input_ids": t, "labels": t})
+               for t in (rng.integers(0, cfg.vocab_size, (16, 1024))
+                         for _ in range(5))]
+
+    def run(st, bs):
+        out = []
+        for b in bs:
+            st, m = trainer.step(st, b)
+            out.append({k: float(v) for k, v in m.items()})
+        return out
+
+    root = tempfile.mkdtemp(prefix="ckpt_phase21_")
+    try:
+        kernels.reset_launch_counts()
+        state = trainer.init(SEED)
+        first = run(state, batches[:2])
+        mgr = CheckpointManager(root, num_to_keep=2)
+        ck = AsyncCheckpointer(mgr)
+        saved = spmd.gather_state(state)        # on the card
+        ck.save(state["step"], state)
+        ref = run(state, batches[2:4])          # the writer runs
+        overlapped = ck.in_flight()
+        ck.wait()
+        save = ck.stats[-1].as_dict()
+        t0 = time.perf_counter()
+        restored = spmd.restore_spmd_state(trainer.init(SEED + 1),
+                                           manager=mgr)
+        restore_s = time.perf_counter() - t0
+        require(restored["step"] == 2, f"restored step {restored['step']}")
+        back = spmd.gather_state(restored)
+        bad = [n for n in saved["model"]
+               if not same_bytes(saved["model"][n], back["model"][n])]
+        bad += [f"{n}/{k}" for n, st in saved["opt"].items()
+                for k, v in st.items()
+                if not same_bytes(v, back["opt"][n].get(k))]
+        require(not bad and set(saved["opt"]) == set(back["opt"]),
+                f"restored state differs from the saved one: {bad[:5]}")
+        del saved, back
+        got = run(restored, batches[2:4])
+        gap = max(abs(g[k] - r[k]) / abs(r[k]) for g, r in zip(got, ref)
+                  for k in r)
+        require(gap <= CKPT_RESUME_REL,
+                f"resumed steps {got} against uninterrupted {ref}")
+        ck.save(state["step"], state)           # step 4
+        run(restored, batches[4:5])
+        ck.save(restored["step"], restored)     # step 5
+        ck.finalize()
+        committed = mgr.committed_steps()
+        require(committed == [4, 5], f"committed steps {committed}")
+        require(all(mgr.verify_step(s) for s in committed),
+                "a committed step failed verification")
+        counts = kernels.launch_counts()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    n_steps = 7
+    for kname in ("whole_attention_forward", "whole_attention_backward",
+                  "attention_delta"):
+        require(counts.get(kname, 0) == cfg.n_layer * n_steps,
+                f"{kname} launched {counts.get(kname, 0)} times in "
+                f"{n_steps} steps of {cfg.n_layer} layers")
+    res = {"model": "gpt2-small", "batch": 16, "seq_len": 1024,
+           "losses": [m["loss"] for m in first + ref],
+           "resumed": got, "uninterrupted": ref, "resume_rel_gap": gap,
+           "bit_equal": gap == 0.0, "save": save,
+           "write_overlapped_two_steps": overlapped, "restore_s": restore_s,
+           "committed": committed, "launches": counts, "steps": n_steps,
+           "device": name, "nvidia_smi": card}
+    print("checkpoint", json.dumps(res), flush=True)
+    del state, restored, trainer, batches
+    torch.cuda.empty_cache()
+    c = bench.ckpt_loop()
+    print("ckpt_loop", json.dumps({**c, "device": name, "nvidia_smi": card}),
+          flush=True)
+    require(c["ckpt_async_blocked_ms_per_save"]
+            < c["ckpt_sync_blocked_ms_per_save"],
+            f"async saves blocked no less than sync ones: {c}")
+    torch.cuda.empty_cache()
+    return {"checkpoint": res, "ckpt_loop": c}
+
+
+def near_tie(prompt, want, got) -> dict:
+    """Where stream ``got`` first leaves ``want`` (both greedy from
+    ``prompt`` through phase 4's GPT-2 small): the position, the two
+    tokens, the f32 model's logit margin between them there and the bf16
+    model's largest logit error against it there (one-row forwards of
+    the prompt and the common tokens)."""
+    import torch
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.serve.llm.model_runner import build_model
+    j = next(i for i, (a, b) in enumerate(zip(want, got)) if a != b)
+    cfg, m16 = build_model("gpt2", gpt2.GPT2Config.small(), seed=SEED)
+    m32 = gpt2.GPT2(dataclasses.replace(cfg, dtype=torch.float32,
+                                        attention_backend="reference"))
+    m32.load_state_dict(m16.state_dict())
+    m32 = m32.cuda().eval()
+    ids = torch.as_tensor([prompt + want[:j]], device="cuda")
+    with torch.no_grad():
+        l32 = m32(ids)[0, -1].double()
+        l16 = m16(ids)[0, -1].double()
+    out = {"position": j, "phase4_token": want[j], "disagg_token": got[j],
+           "margin_f32": abs(float(l32[want[j]] - l32[got[j]])),
+           "bf16_err": float((l16 - l32).abs().max())}
+    del m16, m32
+    torch.cuda.empty_cache()
+    return out
+
+
+def disagg_phase(name, card, unified) -> dict:
+    """Phase 21b: bench.disagg_loop on phase 4's prompts and weights
+    (GPT-2 small, 64 greedy tokens): two LLMServers, the prefill one's
+    __llm_prefill__ then the decode one's __llm_adopt__. Each prompt
+    alone gives the same tokens through the two hops as unified; run
+    concurrently, each stream's tokens equal ``unified``'s (phase 4's)
+    or leave them at a near-tie (NEAR_TIE_FACTOR); every handoff
+    adopted; the prefill server decodes no step and the
+    paged-decode kernel takes every layer of the decode server's every
+    decode step; both pools end at 0 used pages; the corrupted frame is
+    re-prefilled (adopted False) to the tokens of its prompt alone."""
+    import torch
+    from ray_tpu_torch import bench
+    r = bench.disagg_loop(prompts=unified["prompts"], new_tokens=64)
+    want = unified["tokens"]
+    differ = [i for i, t in enumerate(r["disagg_tokens"]) if t != want[i]]
+    unified_differ = [i for i, t in enumerate(r["disagg_unified_tokens"])
+                      if t != want[i]]
+    solo_differ = [i for i, (a, b) in enumerate(zip(
+        r["disagg_solo_tokens"], r["disagg_solo_unified_tokens"])) if a != b]
+    ties = [near_tie(unified["prompts"][i], want[i], r["disagg_tokens"][i])
+            for i in differ]
+    steps, launches = r["disagg_decode_steps"], r["disagg_paged_decode_launches"]
+    res = {k: v for k, v in r.items() if not k.endswith("tokens")}
+    res.update({"prompts_differing_from_phase4": differ,
+                "divergences": ties,
+                "unified_rerun_differing_from_phase4": unified_differ,
+                "solo_differing": solo_differ,
+                "device": name, "nvidia_smi": card})
+    print("disagg", json.dumps(res), flush=True)
+    require(not solo_differ and all(r["disagg_solo_adopted"]),
+            f"alone, the two hops gave other tokens than unified on prompts "
+            f"{solo_differ} (adopted {r['disagg_solo_adopted']})")
+    for t in ties:
+        require(t["margin_f32"] <= NEAR_TIE_FACTOR * t["bf16_err"],
+                f"a disaggregated stream left phase 4's at no near-tie: {t}")
+    require(all(r["disagg_adopted"]), f"handoffs not adopted: "
+            f"{r['disagg_adopted']}")
+    require(steps["prefill"] == 0 and steps["decode"] > 0
+            and launches == r["disagg_n_layer"] * steps["decode"],
+            f"paged_attention_decode launched {launches} times over "
+            f"{steps} decode steps of {r['disagg_n_layer']} layers")
+    require(r["disagg_pages_used_at_end"] == {"prefill": 0, "decode": 0},
+            f"pages left in use: {r['disagg_pages_used_at_end']}")
+    require(not r["disagg_reprefill_adopted"]
+            and r["disagg_reprefill_tokens"]
+            == r["disagg_solo_unified_tokens"][0],
+            "the corrupted frame was not re-prefilled to the same tokens")
+    torch.cuda.empty_cache()
+    return res
+
+
 def serve_streams(server, prompts, new_tokens: int):
     """One greedy stream of ``new_tokens`` per prompt, opened together
     on ``server`` and drained in turn, with the launch counts and the
@@ -2927,6 +3156,7 @@ def main() -> int:
         results, wall, launches, steps = serve_streams(server, prompts, 64)
     finally:
         server.engine.stop()
+    phase4 = {"prompts": prompts, "tokens": [t for t, _ in results]}
     require(steps > 0 and launches == cfg.n_layer * steps,
             f"paged_attention_decode launched {launches} times over "
             f"{steps} decode steps of {cfg.n_layer} layers")
@@ -3170,6 +3400,11 @@ def main() -> int:
     # port's kernels
     model_based_phase(name, card)
 
+    # 21. (a) checkpoints of GPT-2 small's trainer: save, restore,
+    # resume; (b) prefill/decode disaggregation of phase 4's streams
+    ckpt = checkpoint_phase(name, card)
+    disagg = disagg_phase(name, card, phase4)
+
     # 13. summary
     def kernel_entry(case, kname, source, line, by_path):
         """``by_path``: {path: launches of ``kname`` in its counted
@@ -3191,7 +3426,8 @@ def main() -> int:
 
     gpt2_paths = (("gpt2_train", train_counts),
                   ("mesh_gpt2_train", mesh_counts["gpt2_train"]),
-                  ("pipelined_train", pipe_counts))
+                  ("pipelined_train", pipe_counts),
+                  ("checkpoint_train", ckpt["checkpoint"]["launches"]))
     streaming_paths = (("llama_train", llama_counts),
                        ("mesh_gpt2_exact", mesh_counts["gpt2_exact"]),
                        ("ring_schedule", ring["launches"]),
@@ -3204,7 +3440,9 @@ def main() -> int:
         {**kernel_entry({**main_case, "library_ms": None},
                         "paged_attention_decode", "paged_decode.cu", 803,
                         {"serve": launches,
-                         "llama_serve": llama_serve_res["kernel_launches"]}),
+                         "llama_serve": llama_serve_res["kernel_launches"],
+                         "disagg_decode":
+                             disagg["disagg_paged_decode_launches"]}),
          "llama_serve_case": {k: llama_case[k] for k in (
              "case", "max_abs_err", "ms", "plain_ms", "bound_ms",
              "bound_by")}},

@@ -1,4 +1,5 @@
-"""ray_tpu_torch.air — the dict form of AIR's Checkpoint (what the
-class-API Trainable needs)."""
+"""ray_tpu_torch.air — AIR's Checkpoint (dict and directory forms) and
+the sharded train-state checkpoint."""
 
-from ray_tpu_torch.air.checkpoint import Checkpoint  # noqa: F401
+from ray_tpu_torch.air.checkpoint import (Checkpoint,  # noqa: F401
+                                          ShardedCheckpoint)

@@ -222,6 +222,21 @@ def resnet_loop(device="cuda", make_feed=None, profile=None) -> dict:
     return out
 
 
+def gpt2_train_shape(dev: torch.device):
+    """(config, batch per chip, sequence length) of the GPT-2 loops: on
+    ``cuda`` GPT-2 small (flash attention, bf16) at 16 x 1024; on
+    ``cpu`` a tiny GPT-2 (2 layers, 64 wide, plain attention, f32) at
+    2 x 32."""
+    from ray_tpu_torch.models.gpt2 import GPT2Config
+    if dev.type == "cuda":
+        return GPT2Config(vocab_size=50257, n_positions=1024, n_embd=768,
+                          n_layer=12, n_head=12, attention_backend="flash",
+                          dtype=torch.bfloat16), 16, 1024
+    return GPT2Config(vocab_size=256, n_positions=64, n_embd=64, n_layer=2,
+                      n_head=4, attention_backend="reference",
+                      dtype=torch.float32), 2, 32
+
+
 def gpt2_loop(device="cuda", profile=None, config=None) -> dict:
     """GPT-2 small train-step throughput, ``bench.py:gpt2_loop``'s keys.
 
@@ -231,23 +246,16 @@ def gpt2_loop(device="cuda", profile=None, config=None) -> dict:
     warm-up step, 1 window of 2. Seeded tokens, repeated. ``config``
     (a ``GPT2Config``) replaces the model's configuration (the batch
     and the windows stay). ``profile``: see ``_timed_run``."""
-    from ray_tpu_torch.models.gpt2 import GPT2Config
     from ray_tpu_torch.parallel.mesh import MeshSpec
     from ray_tpu_torch.train.spmd import make_causal_lm_trainer, put_batch
 
     dev = resolve_device(device)
     n_dev = _n_chips()
+    cfg, batch, seq = gpt2_train_shape(dev)
+    batch *= n_dev
     if dev.type == "cuda":
-        cfg = GPT2Config(vocab_size=50257, n_positions=1024, n_embd=768,
-                         n_layer=12, n_head=12, attention_backend="flash",
-                         dtype=torch.bfloat16)
-        batch, seq = 16 * n_dev, 1024
         windows, per_window, warmup = 6, 5, 2
     else:
-        cfg = GPT2Config(vocab_size=256, n_positions=64, n_embd=64,
-                         n_layer=2, n_head=4, attention_backend="reference",
-                         dtype=torch.float32)
-        batch, seq = 2 * n_dev, 32
         windows, per_window, warmup = 1, 2, 1
     cfg = config or cfg
 
@@ -1719,6 +1727,280 @@ def ma_ppo_loop(device="cuda", profile=None, timed=None) -> dict:
             for pid, b in batch.policy_batches.items()})
     algo.cleanup()
     return out
+
+
+def ckpt_loop(device="cuda", saves: int = 2) -> dict:
+    """Checkpoint microbench on the GPT-2 trainer's real state: the JAX
+    package's ``bench.py:_ckpt_bench_main`` (how long the train step is
+    blocked per save, sync against async), with real steps in place of
+    its sleep and the trainer state in place of a numpy tree.
+
+    The trainer of ``gpt2_loop`` (``gpt2_train_shape``) takes 2 warm-up
+    steps and 5 timed ones (each closed by a host read of the loss: the
+    step time without a write). Then, for each mode (``sync``:
+    ``async_=False``, the write and commit inline; ``async``), ``saves``
+    times: a step, a save of the state into a fresh
+    ``CheckpointManager`` (fsync on, num_to_keep 2, in a temporary
+    directory removed after), then steps until the write has landed (at
+    most 80: on the card a write and commit take ~5.5 s), each timed; an async step that ends
+    with the write still in flight counts as a step with a write in
+    flight. Reports per mode the blocked, snapshot, write and commit ms
+    a save (means; blocked also save by save: the first one allocates
+    the checkpointer's pinned staging buffers), bytes a save,
+    ``blocked_frac_vs_sync`` and the step times (medians) without a
+    write and with one in flight."""
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch.checkpoint import AsyncCheckpointer, CheckpointManager
+    from ray_tpu_torch.train.spmd import make_causal_lm_trainer, put_batch
+
+    dev = resolve_device(device)
+    cfg, batch, seq = gpt2_train_shape(dev)
+    trainer = make_causal_lm_trainer(cfg, device=dev)
+    state = trainer.init(0)
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, seq), dtype=np.int32)
+    resident = put_batch(trainer, {"input_ids": tokens, "labels": tokens})
+
+    def step() -> float:
+        t0 = time.perf_counter()
+        float(trainer.step(state, resident)[1]["loss"])
+        return (time.perf_counter() - t0) * 1e3
+
+    for _ in range(2):
+        step()
+    out = {"ckpt_model": "gpt2", "ckpt_n_layer": cfg.n_layer,
+           "ckpt_batch": batch, "ckpt_seq_len": seq, "ckpt_saves": saves,
+           "ckpt_step_ms_no_write": float(np.median([step()
+                                                     for _ in range(5)])),
+           "ckpt_device_kind": _device_kind(dev)}
+    in_flight_ms = []
+    for mode in ("sync", "async"):
+        base = tempfile.mkdtemp(prefix=f"ckpt_bench_{mode}_")
+        try:
+            mgr = CheckpointManager(base, num_to_keep=2)
+            ck = AsyncCheckpointer(mgr, async_=mode == "async")
+            for _ in range(saves):
+                step()
+                saved = state["step"]
+                ck.save(saved, state)
+                for _ in range(80):
+                    if not ck.in_flight():
+                        break
+                    ms = step()
+                    if ck.in_flight():
+                        in_flight_ms.append(ms)
+            ck.finalize()
+            if mgr.latest_committed() != saved:
+                raise RuntimeError(f"{mode}: step {saved} is not the "
+                                   "latest committed")
+            for k in ("blocked_ms", "snapshot_ms", "write_ms", "commit_ms"):
+                out[f"ckpt_{mode}_{k}_per_save"] = float(np.mean(
+                    [getattr(st, k) for st in ck.stats]))
+            # the first save also allocates the pinned staging buffers
+            out[f"ckpt_{mode}_blocked_ms_by_save"] = [st.blocked_ms
+                                                      for st in ck.stats]
+            out["ckpt_bytes_per_save"] = ck.stats[-1].bytes
+            out["ckpt_files_per_save"] = ck.stats[-1].files
+        finally:
+            shutil.rmtree(base, ignore_errors=True)
+    out["ckpt_blocked_frac_vs_sync"] = (
+        out["ckpt_async_blocked_ms_per_save"]
+        / max(out["ckpt_sync_blocked_ms_per_save"], 1e-9))
+    out["ckpt_step_ms_write_in_flight"] = (
+        float(np.median(in_flight_ms)) if in_flight_ms else None)
+    out["ckpt_steps_with_write_in_flight"] = len(in_flight_ms)
+    return out
+
+
+def _time_calls(obj, name: str, sink: list):
+    """Wrap ``obj.name`` (a bound method) so that each call appends its
+    host milliseconds to ``sink``."""
+    fn = getattr(obj, name)
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            sink.append((time.perf_counter() - t0) * 1e3)
+    setattr(obj, name, timed)
+
+
+def serve_prompts(vocab_size: int, n: int = 16, lo: int = 64,
+                  hi: int = 768):
+    """``n`` seeded prompts of ``lo``-``hi`` tokens."""
+    rng = np.random.RandomState(0)
+    return [rng.randint(0, vocab_size, size=k).tolist()
+            for k in rng.randint(lo, hi + 1, size=n)]
+
+
+def disagg_loop(device="cuda", prompts=None, new_tokens: int = 64) -> dict:
+    """Prefill/decode disaggregation on one card: two ``LLMServer``s of
+    the same GPT-2 (weights from seed 0), one in the prefill role
+    (``__llm_prefill__``) and one in the decode role
+    (``__llm_adopt__``), against the decode server alone (unified).
+
+    On ``cuda`` GPT-2 small behind chip_smoke.py phase 4's engine
+    (16 running, 1,025 pages of 16, max_seq_len 1024) and, unless
+    given, ``serve_prompts``' 16 prompts of 64-768 tokens; on ``cpu``
+    the tiny GPT-2, 4 prompts of 5-40. Each prompt asks for
+    ``new_tokens`` greedy tokens. Runs: (1) unified: every prompt opened
+    on the decode server at once, then drained; (2) disaggregated: one
+    thread a prompt, each the two hops and then a drain of its stream on
+    the decode server; (3) the first prompt once more with one byte of
+    its frame flipped, which the decode server re-prefills; (4) each
+    prompt alone, unified on the decode server and then through the
+    two hops (one row in every prefill and decode step, so both runs
+    compute the same shapes and must give the same tokens). Reports the
+    handoff bytes a request; export, ship (pickle + CRC), receive (CRC +
+    unpickle) and import ms (medians); TTFT: the unified engine's, the
+    decode engine's (adoption to first token) and the client's (the
+    prefill hop's start to the adoption's return), for runs (1)-(2) and
+    alone (4); tokens/s of runs (1) and (2); each server's decode steps,
+    the paged-decode launches of run (2) and each pool's used pages at
+    the end; the tokens of every run."""
+    import threading
+
+    from ray_tpu_torch.serve.llm import LLMServer
+
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        from ray_tpu_torch.models.gpt2 import GPT2Config
+        model_config = {"config": GPT2Config.small(), "seed": 0}
+        engine_config = {"max_running": 16, "max_seq_len": 1024,
+                         "block_size": 16, "num_blocks": 1025}
+        default = (16, 64, 768)
+    else:
+        model_config = {"seed": 0, "device": "cpu"}
+        engine_config = {"max_running": 4, "max_seq_len": 256,
+                         "block_size": 8, "num_blocks": 96}
+        default = (4, 5, 40)
+    servers = [LLMServer("gpt2", model_config, engine_config)
+               for _ in range(2)]
+    pre, dec = servers
+    vocab = dec.adapter.vocab_size
+    if prompts is None:
+        prompts = serve_prompts(vocab, *default)
+
+    def drain(server, sid):
+        toks, cursor = [], 0
+        while True:
+            chunk = server.__llm_next__(sid, cursor, max_wait_s=60.0)
+            toks += chunk["tokens"]
+            cursor = chunk["cursor"]
+            if chunk["done"]:
+                if chunk.get("error"):
+                    raise RuntimeError(f"stream failed: {chunk}")
+                return toks, chunk
+
+    def payload(p):
+        return {"tokens": p, "max_new_tokens": new_tokens}
+
+    timers = {k: [] for k in ("export", "ship", "receive", "import")}
+    try:
+        # (1) unified, on the decode server
+        t0 = time.perf_counter()
+        sids = [dec.__llm_open__(payload(p))["stream_id"] for p in prompts]
+        unified = [drain(dec, sid) for sid in sids]
+        unified_s = time.perf_counter() - t0
+        # (2) disaggregated
+        _time_calls(pre.adapter, "export_kv", timers["export"])
+        _time_calls(pre._get_shipper(), "ship", timers["ship"])
+        _time_calls(dec._get_shipper(), "receive", timers["receive"])
+        _time_calls(dec.adapter, "import_kv", timers["import"])
+        pre.adapter.decode_steps = dec.adapter.decode_steps = 0
+        kernels.reset_launch_counts()
+        rows = [None] * len(prompts)
+        errors = []
+
+        def request(i):
+            try:
+                t0 = time.perf_counter()
+                h = pre.__llm_prefill__(payload(prompts[i]))
+                t1 = time.perf_counter()
+                r = dec.__llm_adopt__(h)
+                t2 = time.perf_counter()
+                toks, chunk = drain(dec, r["stream_id"])
+                rows[i] = {"tokens": toks, "adopted": r["adopted"],
+                           "bytes": h["kv"]["n"], "prefill_s": t1 - t0,
+                           "client_ttft_s": t2 - t0,
+                           "decode_ttft_s": chunk["ttft_s"],
+                           "done_s": time.perf_counter() - start}
+            except BaseException as e:   # raised below, in the caller
+                errors.append(e)
+
+        start = time.perf_counter()
+        threads = [threading.Thread(target=request, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        disagg_s = time.perf_counter() - start
+        if errors:
+            raise errors[0]
+        launches = kernels.launch_counts().get("paged_attention_decode", 0)
+        steps = {"prefill": pre.adapter.decode_steps,
+                 "decode": dec.adapter.decode_steps}
+        # (3) a corrupted frame: the decode side re-prefills
+        h = pre.__llm_prefill__(payload(prompts[0]))
+        body = bytearray(h["kv"]["b"])
+        body[len(body) // 2] ^= 0xFF
+        h["kv"]["b"] = bytes(body)
+        r = dec.__llm_adopt__(h)
+        reprefill = drain(dec, r["stream_id"])[0]
+        # (4) each prompt alone: unified, then the two hops
+        solo = {"unified": [], "disagg": [], "unified_ttft_s": [],
+                "client_ttft_s": [], "adopted": []}
+        for p in prompts:
+            toks, chunk = drain(dec, dec.__llm_open__(payload(p))
+                                ["stream_id"])
+            solo["unified"].append(toks)
+            solo["unified_ttft_s"].append(chunk["ttft_s"])
+            t0 = time.perf_counter()
+            a = dec.__llm_adopt__(pre.__llm_prefill__(payload(p)))
+            solo["client_ttft_s"].append(time.perf_counter() - t0)
+            solo["adopted"].append(a["adopted"])
+            solo["disagg"].append(drain(dec, a["stream_id"])[0])
+        pages = {"prefill": pre.engine.metrics()["kv_blocks_used"],
+                 "decode": dec.engine.metrics()["kv_blocks_used"]}
+    finally:
+        for s in servers:
+            s.engine.stop()
+    n_tok = sum(len(r["tokens"]) for r in rows)
+    return {
+        "disagg_device_kind": _device_kind(dev),
+        "disagg_requests": len(prompts), "disagg_new_tokens": new_tokens,
+        "disagg_prompt_tokens": [len(p) for p in prompts],
+        "disagg_handoff_bytes": [r["bytes"] for r in rows],
+        "disagg_handoff_bytes_mean": float(np.mean([r["bytes"]
+                                                    for r in rows])),
+        **{f"disagg_{k}_ms_median": float(np.median(v))
+           for k, v in timers.items()},
+        "disagg_calls": {k: len(v) for k, v in timers.items()},
+        "disagg_unified_ttft_s": [c["ttft_s"] for _, c in unified],
+        "disagg_decode_ttft_s": [r["decode_ttft_s"] for r in rows],
+        "disagg_client_ttft_s": [r["client_ttft_s"] for r in rows],
+        "disagg_prefill_hop_s": [r["prefill_s"] for r in rows],
+        "disagg_unified_tokens_per_s": n_tok / unified_s,
+        "disagg_tokens_per_s": n_tok / disagg_s,
+        "disagg_unified_wall_s": unified_s, "disagg_wall_s": disagg_s,
+        "disagg_decode_steps": steps, "disagg_paged_decode_launches": launches,
+        "disagg_n_layer": dec.adapter.n_layers,
+        "disagg_adopted": [r["adopted"] for r in rows],
+        "disagg_pages_used_at_end": pages,
+        "disagg_tokens": [r["tokens"] for r in rows],
+        "disagg_unified_tokens": [t for t, _ in unified],
+        "disagg_reprefill_adopted": r["adopted"],
+        "disagg_reprefill_tokens": reprefill,
+        "disagg_solo_unified_ttft_s": solo["unified_ttft_s"],
+        "disagg_solo_client_ttft_s": solo["client_ttft_s"],
+        "disagg_solo_adopted": solo["adopted"],
+        "disagg_solo_tokens": solo["disagg"],
+        "disagg_solo_unified_tokens": solo["unified"],
+    }
 
 
 def main(device="cuda"):

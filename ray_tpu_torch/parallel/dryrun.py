@@ -287,6 +287,61 @@ def _tiny_gpt2(spec, **kw):
     return GPT2(cfg)
 
 
+def checkpoint_batch(vocab_size: int, shape=(4, 32)):
+    """The two global batches of ``checkpoint_case`` (tokens as their
+    own labels)."""
+    rng = np.random.default_rng(11)
+    return [{"input_ids": t, "labels": t}
+            for t in (rng.integers(0, vocab_size, shape) for _ in range(2))]
+
+
+def checkpoint_case(kind: str, root: str,
+                    spec: Dict[str, int]) -> Dict[str, Any]:
+    """Save and restore on ``MeshSpec(**spec)`` over the process group:
+    ``GPT2Config.tiny()`` in f32 through the causal-LM trainer
+    (``kind="causal_lm"``; batches [4, 32]) or the pipelined one
+    (``"pipelined"``; [2, 2, 16]), from ``init(0)``: a step, an async
+    save into ``CheckpointManager(root)`` (every rank its blocks, rank 0
+    commits after a barrier: ``commit_gang_step``), a second step. For
+    the pipelined trainer a fresh ``init(5)`` is then restored at the
+    same mesh and takes the second step again (``resumed``). Returns
+    the steps' metrics and, for the causal LM, the whole state at the
+    save (``saved``, numpy)."""
+    from ray_tpu_torch.checkpoint import CheckpointManager
+    from ray_tpu_torch.models.gpt2 import GPT2Config
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+    from ray_tpu_torch.train import spmd
+
+    cfg = GPT2Config.tiny()
+    mesh_spec = MeshSpec(**spec)
+    if kind == "causal_lm":
+        tr = spmd.make_causal_lm_trainer(cfg, spec=mesh_spec, device="cpu")
+        shape = (4, 32)
+    else:
+        tr = spmd.make_pipelined_lm_trainer(cfg, spec=mesh_spec,
+                                            device="cpu")
+        shape = (2, 2, 16)
+    batches = [spmd.put_batch(tr, b)
+               for b in checkpoint_batch(cfg.vocab_size, shape)]
+
+    def step(state, b):
+        return {k: float(v) for k, v in tr.step(state, b)[1].items()}
+
+    state = tr.init(0)
+    metrics = [step(state, batches[0])]
+    saved = _numpy(spmd.gather_state(state))
+    mgr = CheckpointManager(root)
+    ck = spmd.make_async_checkpointer(manager=mgr)
+    ck.save(state["step"], state)
+    spmd.commit_gang_step(ck, state["step"])
+    metrics.append(step(state, batches[1]))
+    ck.finalize()
+    if kind == "causal_lm":
+        return {"metrics": metrics, "saved": saved}
+    restored = spmd.restore_spmd_state(tr.init(5), manager=mgr)
+    return {"metrics": metrics, "resumed": [step(restored, batches[1])]}
+
+
 def ring_case(q, k, v, do, causal: bool,
               spec: Dict[str, int]) -> Dict[str, np.ndarray]:
     """``ring_attention_sharded`` on the whole [b, h, s, d] inputs over

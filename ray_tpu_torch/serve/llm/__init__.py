@@ -7,6 +7,7 @@ paged KV cache, with GPT-2 or Llama in PyTorch behind it.
   spec_decode                    toy / torch drafts + greedy verify
   model_runner                   ToyAdapter / TorchModelAdapter (gpt2, llama)
   deployment.LLMServer           the deployment callable
+  disagg.KVShipper               prefill -> decode KV handoff (inline)
 
 Typical use::
 
@@ -19,6 +20,7 @@ Typical use::
 """
 
 from ray_tpu_torch.serve.llm.deployment import ByteTokenizer, LLMServer
+from ray_tpu_torch.serve.llm.disagg import KVShipError, KVShipper
 from ray_tpu_torch.serve.llm.engine import (EngineConfig, LLMEngine,
                                             SamplingParams)
 from ray_tpu_torch.serve.llm.kv_cache import OutOfKVBlocksError, PagedKVCache
@@ -33,5 +35,5 @@ __all__ = [
     "PagedKVCache", "OutOfKVBlocksError", "ToyAdapter",
     "TorchModelAdapter", "make_adapter", "ByteTokenizer",
     "RadixPrefixCache", "TorchDraft", "ToyDraft", "greedy_verify",
-    "make_draft",
+    "make_draft", "KVShipper", "KVShipError",
 ]

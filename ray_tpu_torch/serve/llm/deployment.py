@@ -9,6 +9,11 @@ through the replica request methods:
   ``__llm_next__(sid, cursor, w)`` cursor poll -> token delta
   ``__llm_cancel__(sid)``          abandon a stream
   ``__llm_metrics__()``            engine metrics + token ledger
+  ``__llm_prefill__(payload)``     disagg hop 1: prompt + first token,
+                                   returns a KV handoff descriptor
+  ``__llm_adopt__(handoff)``       disagg hop 2: rebind the shipped KV
+                                   (or re-prefill on a torn frame) ->
+                                   {"stream_id", "adopted"}
 
 Serve integration hooks:
 
@@ -19,9 +24,17 @@ Serve integration hooks:
   ``__serve_drain_exempt__``  stream polls stay answerable while
                              draining
 
-Not ported yet (ROADMAP.md Queue A item 7): the disaggregation hops
-``__llm_prefill__`` / ``__llm_adopt__`` (they need the KV shipper) and
-the token-ledger flush at shutdown.
+A replica takes a role by the hop it is sent: a prefill replica gets
+``__llm_prefill__``, a decode replica ``__llm_adopt__`` with the
+descriptor the first returned (the router's two-hop admission waits
+for the runtime; a caller drives both hops)::
+
+    handoff = prefill_server.__llm_prefill__({"tokens": p,
+                                              "max_new_tokens": 64})
+    sid = decode_server.__llm_adopt__(handoff)["stream_id"]
+
+Not ported yet (ROADMAP.md Queue A, A7b): the engine's trace spans
+and the token-ledger flush at shutdown.
 
 Payload schema (dict): ``prompt`` (str, byte-tokenized) or ``tokens``
 (list[int]); optional ``max_new_tokens``, ``temperature``, ``seed``,
@@ -31,11 +44,17 @@ Payload schema (dict): ``prompt`` (str, byte-tokenized) or ``tokens``
 from __future__ import annotations
 
 import dataclasses
+import logging
+import time
 from typing import Any, Dict, List, Optional, Union
 
+from ray_tpu_torch.serve.llm.disagg import KVShipError, KVShipper
 from ray_tpu_torch.serve.llm.engine import (EngineConfig, LLMEngine,
                                             SamplingParams)
 from ray_tpu_torch.serve.llm.model_runner import make_adapter
+
+
+logger = logging.getLogger(__name__)
 
 
 class ByteTokenizer:
@@ -77,6 +96,12 @@ class LLMServer:
         self.engine = LLMEngine(self.adapter, cfg)
         self.tokenizer = ByteTokenizer(self.adapter.vocab_size)
         self.model = model
+        self._shipper: Optional[KVShipper] = None
+
+    def _get_shipper(self) -> KVShipper:
+        if self._shipper is None:
+            self._shipper = KVShipper()
+        return self._shipper
 
     # ------------------------------------------------------------ intake
 
@@ -146,6 +171,92 @@ class LLMServer:
 
     def __llm_cancel__(self, stream_id: str):
         return {"cancelled": self.engine.cancel(stream_id)}
+
+    # -------------------------------------- disaggregation (disagg.py)
+
+    def __llm_prefill__(self, payload=None, __rtpu_request_id__=None):
+        """Disagg hop 1 (prefill replica): run prompt + ONE token,
+        snapshot the prompt's KV pages, and return a handoff
+        descriptor for a decode replica. The descriptor always
+        includes the prompt + sampling so the decode side can
+        re-prefill if the KV frame is lost."""
+        payload = payload or {}
+        sampling = (SamplingParams.from_payload(payload)
+                    if isinstance(payload, dict) else SamplingParams())
+        tokens = self._tokens_of(payload)
+        sid = self.engine.prefill_export(
+            tokens, sampling, request_id=__rtpu_request_id__)
+        cursor = 0
+        while True:
+            chunk = self.engine.poll(sid, cursor, max_wait_s=30.0)
+            cursor = chunk["cursor"]
+            if chunk["done"]:
+                break
+        if chunk.get("error"):
+            raise RuntimeError(f"prefill failed: {chunk['error']}")
+        export = self.engine.take_export(sid) or {}
+        first = export.get("first_token")
+        if first is None:
+            raise RuntimeError("prefill produced no first token")
+        handoff: Dict[str, Any] = {
+            "prompt": tokens,
+            "first_token": int(first),
+            "n_prompt": len(tokens),
+            "sampling": sampling.to_payload(),
+            "t_ship_start": time.time(),
+        }
+        terminal = (sampling.max_new_tokens <= 1
+                    or (sampling.stop_token is not None
+                        and int(first) == sampling.stop_token))
+        if not terminal and export.get("kv") is not None:
+            handoff["kv"] = self._get_shipper().ship({"kv": export["kv"]})
+        return handoff
+
+    def __llm_adopt__(self, handoff=None, __rtpu_request_id__=None):
+        """Disagg hop 2 (decode replica): verify the KV frame, rebind
+        its pages into this replica's pool, and continue decoding from
+        the prefill replica's first token. Any fault — no frame, a CRC
+        or length mismatch, a lane this side cannot fetch, a blob that
+        does not fit the adapter — falls back to a local re-prefill:
+        greedy decode is deterministic, so the stream gives the tokens
+        the handoff would have given in the same batch (bf16 rounding
+        differs between batchings, and may swap near-tied tokens);
+        ``adopted: False`` says which path ran."""
+        handoff = handoff or {}
+        rid = __rtpu_request_id__
+        prompt = [int(t) for t in handoff.get("prompt") or []]
+        sampling = SamplingParams.from_payload(
+            dict(handoff.get("sampling") or {}))
+        first = handoff.get("first_token")
+        terminal = (sampling.max_new_tokens <= 1
+                    or (sampling.stop_token is not None and first is not None
+                        and int(first) == sampling.stop_token))
+        if terminal and first is not None:
+            sid = self.engine.adopt_request(
+                prompt, int(first), None, sampling, request_id=rid)
+            return {"stream_id": sid, "adopted": True}
+        blob = None
+        desc = handoff.get("kv")
+        if desc is not None and first is not None:
+            try:
+                frame = self._get_shipper().receive(desc)
+            except KVShipError:
+                frame = None
+            blob = (frame or {}).get("kv")
+        if blob is not None:
+            try:
+                sid = self.engine.adopt_request(
+                    prompt, int(first), blob, sampling, request_id=rid,
+                    lane=desc.get("lane", "inline"),
+                    t_ship_start=handoff.get("t_ship_start"))
+                return {"stream_id": sid, "adopted": True}
+            except Exception:
+                logger.warning("kv ship: adoption failed, re-prefilling",
+                               exc_info=True)
+        # fallback: deterministic re-prefill on this (decode) replica;
+        # sheds retriably if this replica is saturated
+        sid = self.engine.add_request(prompt, sampling, request_id=rid)
+        return {"stream_id": sid, "adopted": False}
 
     def __llm_metrics__(self):
         m = self.engine.metrics()

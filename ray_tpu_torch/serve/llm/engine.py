@@ -1,8 +1,8 @@
 """Continuous-batching LLM engine: one per serve replica.
 
 Counterpart of ``ray_tpu/serve/llm/engine.py``, copied as plain Python
-without the prefill/decode disaggregation entry points and the trace
-spans (both wait for the serve runtime's port; ROADMAP.md Queue A).
+without the trace spans (they wait for the serve runtime's port;
+ROADMAP.md Queue A, A7b).
 
 Reference analogue: vLLM's LLMEngine/Scheduler. The serve data plane's
 adaptive micro-batching flushes a *window* of requests into one call — right for
@@ -37,6 +37,13 @@ Two fleet-efficiency features compose as engine flags
   batched ``decode_window`` step, greedy accept/reject keeps the
   output token-identical to sequential greedy decode.
 
+Prefill/decode disaggregation (``disagg.py``): a *prefill* replica runs
+a prompt and exactly one token (``prefill_export``) and snapshots the
+prompt's KV pages as the sequence retires (``take_export``); a *decode*
+replica rebinds them into its own pages and enters the decode batch
+mid-flight (``adopt_request``), so a long prompt never stalls its
+in-flight decode streams.
+
 Tokens stream out through per-sequence cursors (``poll``), which the
 replica exposes as ``__llm_next__`` and the router/proxy turn into
 handle iterators and SSE (docs/LLM_SERVING.md).
@@ -50,6 +57,7 @@ kill (KV-aware graceful drain).
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import random
 import threading
@@ -118,6 +126,9 @@ class Sequence:
     error: Optional[str] = None
     # fleet features
     cached_tokens: int = 0          # prompt tokens skipped at prefill
+    export_kv: bool = False         # prefill-role: snapshot KV on finish
+    adopted: bool = False           # decode-role: arrived via handoff
+    import_lane: Optional[str] = None
     draft_proposed: int = 0
     draft_accepted: int = 0
     # phase timestamps for TTFT/ITL telemetry
@@ -125,6 +136,8 @@ class Sequence:
     t_alloc: Optional[float] = None
     t_first_token: Optional[float] = None
     t_finish: Optional[float] = None
+    t_import_start: Optional[float] = None
+    t_import_end: Optional[float] = None
     rng: Optional[random.Random] = None
 
     @property
@@ -178,6 +191,8 @@ class LLMEngine:
         self._total_cache_hit = 0       # finalized (ledger-consistent)
         self._total_draft = 0
         self._total_accepted = 0
+        # prefill-role KV snapshots awaiting pickup (__llm_prefill__)
+        self._exports: Dict[str, Dict[str, Any]] = {}
         # per-request token ledger:
         # (rid, n_tokens, finish_reason, n_prompt, n_cached) — the
         # server half of the game-day per-token reconciliation
@@ -190,7 +205,8 @@ class LLMEngine:
 
     def add_request(self, prompt_tokens: List[int],
                     sampling: Optional[SamplingParams] = None,
-                    request_id: Optional[str] = None) -> str:
+                    request_id: Optional[str] = None,
+                    _export_kv: bool = False) -> str:
         """Enqueue a sequence; returns its stream id. Sheds retriably
         (``ReplicaOverloadedError``) when draining, when the waiting
         queue is full, or when the request can never fit the pool —
@@ -224,6 +240,7 @@ class LLMEngine:
             seq_id = f"seq-{self._seq_counter}"
             seq = Sequence(seq_id, request_id, list(prompt_tokens),
                            sampling)
+            seq.export_kv = _export_kv
             if sampling.temperature > 0:
                 seq.rng = random.Random(
                     (hash(request_id or seq_id) & 0xFFFFFFFF)
@@ -234,6 +251,140 @@ class LLMEngine:
             self._total_prompt += n_prompt
             self._work_cv.notify_all()
             return seq_id
+
+    # ---- prefill/decode disaggregation (disagg.py) --
+
+    def prefill_export(self, prompt_tokens: List[int],
+                       sampling: Optional[SamplingParams] = None,
+                       request_id: Optional[str] = None) -> str:
+        """Prefill-role entry: run the prompt and exactly ONE decode
+        step, snapshotting the prompt's KV pages on finish for
+        shipment to a decode replica (``take_export``)."""
+        sampling = sampling or SamplingParams()
+        one = dataclasses.replace(sampling, max_new_tokens=1)
+        return self.add_request(prompt_tokens, one, request_id,
+                                _export_kv=True)
+
+    def take_export(self, seq_id: str,
+                    max_wait_s: float = 5.0) -> Optional[Dict[str, Any]]:
+        """The snapshot of a finished ``prefill_export`` sequence
+        (``{"prompt", "first_token", "kv", "finish_reason",
+        "cached_tokens"}``), or None after ``max_wait_s``."""
+        # the poller can observe ``done`` a beat before _retire stages
+        # the snapshot — wait it out (bounded)
+        deadline = time.time() + max(0.0, max_wait_s)
+        with self._lock:
+            while seq_id not in self._exports:
+                remaining = deadline - time.time()
+                if remaining <= 0:
+                    break
+                self._out_cv.wait(timeout=min(remaining, 0.25))
+            return self._exports.pop(seq_id, None)
+
+    def adopt_request(self, prompt_tokens: List[int], first_token: int,
+                      kv_blob: Optional[Dict[str, Any]],
+                      sampling: Optional[SamplingParams] = None,
+                      request_id: Optional[str] = None,
+                      lane: str = "inline",
+                      t_ship_start: Optional[float] = None) -> str:
+        """Decode-role entry: rebind a shipped prompt KV snapshot into
+        freshly allocated pages and enter the decode batch mid-flight —
+        the first token is pollable immediately (disagg's TTFT win).
+
+        Raises ``ReplicaOverloadedError`` (retriable) when the pool or
+        batch is full, and whatever ``import_kv`` raises on a blob
+        mismatch — the deployment falls back to plain ``add_request``
+        (re-prefill) in both cases."""
+        sampling = sampling or SamplingParams()
+        n_prompt = len(prompt_tokens)
+        if n_prompt == 0:
+            raise ValueError("empty prompt")
+        stop = sampling.stop_token
+        terminal = None
+        if stop is not None and int(first_token) == stop:
+            terminal = "stop"
+        elif sampling.max_new_tokens <= 1:
+            terminal = "length"
+        with self._lock:
+            if self._draining or self._stopped:
+                self._total_shed += 1
+                raise ReplicaOverloadedError(
+                    "llm-engine(draining)", len(self._waiting),
+                    self.config.max_waiting)
+            self._seq_counter += 1
+            seq_id = f"seq-{self._seq_counter}"
+            seq = Sequence(seq_id, request_id, list(prompt_tokens),
+                           sampling)
+            seq.adopted = True
+            seq.cached_tokens = n_prompt    # zero prefill work here
+            seq.import_lane = lane
+            if sampling.temperature > 0:
+                seq.rng = random.Random(
+                    (hash(request_id or seq_id) & 0xFFFFFFFF)
+                    ^ sampling.seed)
+            self._seqs[seq_id] = seq
+            self._total_requests += 1
+            self._total_prompt += n_prompt
+        if terminal is not None:
+            # the prefill replica's single token already ended the
+            # stream — no pages, no import, just a finished cursor
+            with self._lock:
+                now = time.time()
+                seq.tokens = [int(first_token)]
+                seq.t_first_token = now
+                seq.t_finish = now
+                seq.status = FINISHED
+                seq.finish_reason = terminal
+                self._total_generated += 1
+                self._out_cv.notify_all()
+            self._finalize(seq)
+            return seq_id
+        if kv_blob is None:
+            raise ValueError("adopt_request needs a KV blob")
+        budget = seq.budget_tokens()
+        if n_prompt + sampling.max_new_tokens > self.config.max_seq_len:
+            with self._lock:
+                self._seqs.pop(seq_id, None)
+            raise ValueError("prompt + max_new_tokens exceeds max_seq_len")
+        try:
+            try:
+                self.cache.allocate(seq_id, budget)
+            except OutOfKVBlocksError:
+                if self.prefix_cache is None:
+                    raise
+                self.prefix_cache.evict(self.cache.blocks_for(budget))
+                self.cache.allocate(seq_id, budget)
+        except OutOfKVBlocksError as e:
+            with self._lock:
+                self._seqs.pop(seq_id, None)
+                self._total_shed += 1
+            raise ReplicaOverloadedError(
+                "llm-engine(kv)", len(self._running),
+                self.config.max_running) from e
+        t_imp0 = time.time()
+        try:
+            self.adapter.import_kv(seq_id, n_prompt, kv_blob)
+        except Exception:
+            self.cache.free(seq_id)
+            with self._lock:
+                self._seqs.pop(seq_id, None)
+            raise
+        with self._lock:
+            now = time.time()
+            seq.t_alloc = t_imp0
+            seq.t_import_start = t_ship_start or t_imp0
+            seq.t_import_end = now
+            seq.tokens = [int(first_token)]
+            seq.t_first_token = now
+            self._ttft.append(now - seq.t_arrival)
+            self._total_generated += 1
+            self._rate_win.append((now, 1))
+            self._hit_win.append((now, n_prompt))
+            seq.status = RUNNING
+            self._running.append(seq_id)
+            self._work_cv.notify_all()
+            self._out_cv.notify_all()
+        return seq_id
 
     def poll(self, seq_id: str, cursor: int = 0,
              max_wait_s: float = 10.0) -> Dict[str, Any]:
@@ -636,16 +787,41 @@ class LLMEngine:
 
     def _retire(self, finished: List[Sequence]):
         for seq in finished:
+            if seq.export_kv:
+                self._maybe_export(seq)
             self.adapter.release(seq.seq_id)
             self.cache.free(seq.seq_id)
             self._finalize(seq)
+
+    def _maybe_export(self, seq: Sequence):
+        """Prefill-role finish: snapshot the prompt's KV pages BEFORE
+        release/free recycles them; ``__llm_prefill__`` picks the
+        snapshot up via ``take_export``."""
+        try:
+            blob = self.adapter.export_kv(seq.seq_id, len(seq.prompt))
+        except Exception:
+            blob = None
+        with self._lock:
+            self._exports[seq.seq_id] = {
+                "prompt": list(seq.prompt),
+                "first_token": seq.tokens[0] if seq.tokens else None,
+                "kv": blob,
+                "finish_reason": seq.finish_reason,
+                "cached_tokens": seq.cached_tokens,
+            }
+            while len(self._exports) > 128:
+                self._exports.pop(next(iter(self._exports)))
+            self._out_cv.notify_all()
 
     def _finalize(self, seq: Sequence):
         with self._lock:
             self._total_finished += 1
             self._total_cache_hit += seq.cached_tokens
+            reason = seq.finish_reason
+            if seq.export_kv and reason == "length":
+                reason = "handoff"   # generation continues elsewhere
             self._token_ledger.append(
-                (seq.request_id, len(seq.tokens), seq.finish_reason,
+                (seq.request_id, len(seq.tokens), reason,
                  len(seq.prompt), seq.cached_tokens))
 
     def _fail_all(self, err: Exception):

@@ -257,10 +257,11 @@ def _zero_grads(state):
 def gather_state(state) -> Dict[str, Any]:
     """The whole params and buffers (``"model"``, a state_dict) and the
     optimizer's per-param state (``"opt"``: {param name: {key: tensor}})
-    of a trainer state, on every rank. A param held in ``pieces`` (a
-    pipeline's stage) comes stacked on a new leading axis, one row per
-    rank of the piece's axis. A collective on the mesh route: every
-    rank calls it."""
+    of a trainer state, on every rank, as copies (AdamW steps its
+    moments and its ``step`` scalars in place). A param held in
+    ``pieces`` (a pipeline's stage) comes stacked on a new leading
+    axis, one row per rank of the piece's axis. A collective on the
+    mesh route: every rank calls it."""
     ms: _MeshState = state["mesh_state"]
 
     def whole(n, t):
@@ -275,6 +276,7 @@ def gather_state(state) -> Dict[str, Any]:
     for n, block in ms.shards.items():
         st = state["opt"].state.get(block, {})
         opt[n] = {k: (whole(n, v) if torch.is_tensor(v) and v.ndim
+                      else v.detach().clone() if torch.is_tensor(v)
                       else v) for k, v in st.items()}
     return {"model": model, "opt": opt}
 
@@ -706,6 +708,92 @@ def make_image_classifier_trainer(model, *,
                        device=dev,
                        batch_dims={"image": (BATCH_AXES,),
                                    "label": (BATCH_AXES,)})
+
+
+SESSION_NEEDS_A6B = (
+    "{what} without manager= binds to the train session's checkpoint "
+    "root, which needs the train gang (ROADMAP.md Queue A, A6b); pass "
+    "manager= (a CheckpointManager){alt}")
+
+
+def _rank_and_world() -> Tuple[int, int]:
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def make_async_checkpointer(manager=None, **kwargs):
+    """An ``AsyncCheckpointer`` for a trainer state, bound to
+    ``manager`` (a ``CheckpointManager``). ``process_index`` and
+    ``process_count`` default to the process group's rank and world
+    size (0 and 1 without one), so each rank writes its own
+    ``process_<rank>/``; a single process commits its own saves, a gang
+    commits through ``commit_gang_step``. ``async_=False`` writes
+    inline. Without ``manager`` it would bind to the train session's
+    root (A6b): it raises.
+
+    Usage::
+
+        ckpter = spmd.make_async_checkpointer(manager=mgr)
+        ...
+        ckpter.save(state["step"], state)  # blocks only for the snapshot
+        ...
+        ckpter.finalize()                  # before returning
+    """
+    from ray_tpu_torch.checkpoint import AsyncCheckpointer
+    if manager is None:
+        raise NotImplementedError(SESSION_NEEDS_A6B.format(
+            what="make_async_checkpointer", alt=""))
+    rank, world = _rank_and_world()
+    kwargs.setdefault("process_index", rank)
+    kwargs.setdefault("process_count", world)
+    return AsyncCheckpointer(manager, **kwargs)
+
+
+def commit_gang_step(checkpointer, step: int, metadata=None):
+    """Seal ``step`` of a gang's save: every rank waits for its own
+    write, a barrier, rank 0 commits, a barrier. Every rank calls it.
+    It stands in for the train gang's round barrier (A6b)."""
+    import torch.distributed as dist
+    checkpointer.wait()
+    grouped = dist.is_available() and dist.is_initialized()
+    if grouped:
+        dist.barrier()
+    if _rank_and_world()[0] == 0:
+        checkpointer.manager.commit_step(step, metadata=metadata)
+    if grouped:
+        dist.barrier()
+
+
+def restore_spmd_state(target_state, *, manager=None, checkpoint=None,
+                       step: Optional[int] = None):
+    """Restore a sharded checkpoint onto ``target_state``, a trainer
+    state (loaded in place and returned: each param block, the model's
+    buffers, the optimizer's per-block state, ``step``) or any tree
+    (``ShardedCheckpoint.restore``).
+
+    Independent of the mesh: blocks are keyed by their *global* index
+    slices, so a state saved by two ranks at fsdp 2 restores onto one
+    device (and back); each leaf is rebuilt whole on the host and the
+    target's block taken from it. A pipelined trainer restores at the
+    same pp (its stages are stacked on a leading axis of size pp),
+    across dp and fsdp. Source: a ``CheckpointManager`` (a committed
+    step, default the latest; checksums verified when the manager's
+    ``verify`` is on) or a directory-backed ``air.Checkpoint``. Without
+    either it would read the train session's (A6b): it raises."""
+    from ray_tpu_torch.air.checkpoint import ShardedCheckpoint
+    if manager is None and checkpoint is None:
+        raise NotImplementedError(SESSION_NEEDS_A6B.format(
+            what="restore_spmd_state",
+            alt=" or checkpoint= (a directory Checkpoint)"))
+    if manager is not None:
+        return manager.restore_state(target_state, step=step)
+    root = getattr(checkpoint, "_dir", None)
+    if root is None:
+        raise ValueError("restore_spmd_state needs a CheckpointManager or "
+                         "a directory-backed Checkpoint")
+    return ShardedCheckpoint(root).restore(target_state)
 
 
 def put_batch(trainer: SpmdTrainer, batch: Dict[str, np.ndarray]):

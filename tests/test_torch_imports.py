@@ -68,6 +68,9 @@ def test_port_files_found():
         assert f"ray_tpu_torch/rllib/{mod}.py" in rel
     assert "ray_tpu_torch/tune/trainable.py" in rel
     assert "ray_tpu_torch/air/checkpoint.py" in rel
+    for mod in ("checkpoint/manager", "checkpoint/async_checkpointer",
+                "serve/llm/disagg"):
+        assert f"ray_tpu_torch/{mod}.py" in rel
     assert len(files) > 10
 
 
