@@ -326,9 +326,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
               decode server's every step, both pools back at 0 used
               pages, a frame with a flipped byte re-prefilled (adopted
               False) to the tokens of its prompt alone.
+22. runtime — ray_tpu_torch.init(num_cpus=4) on this machine:
+              cluster_resources()["GPU"] == 1, found without torch (the
+              GCS's and the raylet's /proc/<pid>/maps hold no libtorch
+              or libcuda); a num_gpus=1 actor trains phase 6's GPT-2
+              small for RUNTIME_STEPS steps on phase 6's batch and seed:
+              losses and grad norms bit-equal to the same steps run in
+              this process, 12 launches a step of each whole-kv kernel
+              and of the delta pass, get_gpu_ids() == [0] and
+              CUDA_VISIBLE_DEVICES == "0", the kernel libraries loaded,
+              not rebuilt; a second num_gpus=1 actor (an LLMServer on
+              phase 4's weights) stays queued while the first holds the
+              GPU, starts after kill() of the first, and serves 4 of
+              phase 4's prompts, each alone, to the tokens of this
+              process's server on the same prompts alone, through the
+              paged-decode kernel; a num_gpus=0 task sees
+              CUDA_VISIBLE_DEVICES "" and no CUDA. Host numbers: put
+              and get of a 256 MB CPU tensor and a 16 MB bf16 CUDA
+              tensor (bytes equal), the no-op task and actor-call round
+              trips, the GPU worker's start.
 13. summary — nvidia-smi's card line, the kernels line (each kernel's
               launches by the path that counted them: phases 4, 5b, 6,
-              8, 12, 14 and 21; paged decode's entry also carries its
+              8, 12, 14, 21 and 22; paged decode's entry also carries its
               Llama serve case, the streaming kernels' the ring's), then
               the device line, last.
 
@@ -443,6 +462,11 @@ CKPT_RESUME_REL = 0.0
 # that close. Each prompt alone (one row in every step of both runs)
 # must give the same tokens exactly.
 NEAR_TIE_FACTOR = 2.0
+# phase 22: GPT-2 small steps in a GPU-granted actor against the same
+# steps in this process (bit-equal: same kernels, same shapes, same
+# bytes in), and how many of phase 4's prompts the second actor serves
+RUNTIME_STEPS = 3
+RUNTIME_PROMPTS = 4
 ATARI_BF16_RATIO = (3.0, 1.5)
 # the PPO learn phase's groups: cuDNN's convs, the products (the
 # 7,744 x 512 Dense and the heads), Adam's foreach kernels, the
@@ -2749,6 +2773,316 @@ def disagg_phase(name, card, unified) -> dict:
     return res
 
 
+def gpt2_steps(n: int) -> dict:
+    """``n`` steps of phase 6's GPT-2 small trainer (bench.gpt2_loop's
+    configuration, init(0), its 16 x 1024 batch from its seed) in this
+    process: losses, grad norms, each step's host time (closed by the
+    loss's read), the kernels' launch counts over the steps."""
+    import torch
+    from ray_tpu_torch import bench, kernels
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+    from ray_tpu_torch.train.spmd import make_causal_lm_trainer, put_batch
+    dev = torch.device("cuda")
+    cfg, batch, seq = bench.gpt2_train_shape(dev)
+    trainer = make_causal_lm_trainer(cfg, spec=MeshSpec(dp=1), device=dev)
+    state = trainer.init(0)
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, seq), dtype=np.int32)
+    resident = put_batch(trainer, {"input_ids": tokens, "labels": tokens})
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    losses, norms, ms = [], [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        m = trainer.step(state, resident)[1]
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    counts = kernels.launch_counts()
+    del trainer, state, resident
+    torch.cuda.empty_cache()
+    return {"losses": losses, "grad_norms": norms, "step_ms": ms,
+            "launches": counts, "n_layer": cfg.n_layer}
+
+
+def _gpu_process_info() -> dict:
+    import torch
+    import ray_tpu_torch
+    return {"gpu_ids": ray_tpu_torch.get_gpu_ids(),
+            "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "device_count": torch.cuda.device_count(),
+            "device": torch.cuda.get_device_name(0), "pid": os.getpid()}
+
+
+class RuntimeTrainActor:
+    """Phase 22's first actor (``num_gpus=1``): phase 6's trainer in a
+    worker process, with the kernels built by phase 2 loaded."""
+
+    def __init__(self):
+        t0 = time.perf_counter()
+        import torch
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.init()
+        self.init_s = time.perf_counter() - t0
+
+    def info(self) -> dict:
+        from ray_tpu_torch import kernels
+        # every library phase 2 built is there to load: none is rebuilt
+        missing = [n for n in kernels.sources()
+                   if not os.path.exists(kernels._lib_path(n))]
+        return {**_gpu_process_info(), "import_and_cuda_init_s": self.init_s,
+                "kernel_libraries_missing": missing}
+
+    def train(self, n: int) -> dict:
+        return gpt2_steps(n)
+
+    def ping(self):
+        return None
+
+
+class RuntimeServeActor:
+    """Phase 22's second actor (``num_gpus=1``): an LLMServer on phase
+    4's weights (its config, its seed, its engine) in a worker process."""
+
+    def __init__(self):
+        import torch
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.server = phase4_server()
+
+    def info(self) -> dict:
+        return _gpu_process_info()
+
+    def serve_alone(self, prompts, new_tokens: int) -> dict:
+        return serve_alone(self.server, prompts, new_tokens)
+
+    def close(self):
+        self.server.engine.stop()
+
+
+def phase4_server():
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.serve.llm import LLMServer
+    return LLMServer(
+        model="gpt2", model_config={"config": gpt2.GPT2Config.small(),
+                                    "seed": SEED},
+        engine_config={"max_running": 16, "max_seq_len": 1024,
+                       "block_size": 16, "num_blocks": 1025})
+
+
+def serve_alone(server, prompts, new_tokens: int) -> dict:
+    """Each prompt alone through ``server`` (serve_streams of one):
+    tokens per prompt, the paged-decode kernel's launches and the decode
+    steps, summed."""
+    tokens, launches, steps = [], 0, 0
+    for p in prompts:
+        results, _, n_launch, n_steps = serve_streams(server, [p],
+                                                      new_tokens)
+        tokens.append(results[0][0])
+        launches += n_launch
+        steps += n_steps
+    return {"tokens": tokens, "launches": launches, "decode_steps": steps,
+            "n_layer": server.adapter.model.cfg.n_layer}
+
+
+def _noop():
+    return None
+
+
+def _cpu_task_view() -> dict:
+    import torch
+    return {"cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "cuda_available": torch.cuda.is_available(),
+            "gpu_ids": __import__("ray_tpu_torch").get_gpu_ids()}
+
+
+def _maps_hold(pid: int, names) -> list:
+    with open(f"/proc/{pid}/maps") as f:
+        maps = f.read()
+    return [n for n in names if n in maps]
+
+
+def _median_ms(fn, n: int) -> float:
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def runtime_phase(name, card, prompts) -> dict:
+    """Phase 22 (module docstring): the runtime on this machine, with the
+    GPU granted by index to a training actor and then a serving one.
+    ``prompts``: phase 4's prompts, of which the first RUNTIME_PROMPTS
+    are served. Returns the printed measurements and the launch counts
+    of the two actors' paths."""
+    import gc
+    import torch
+    import ray_tpu_torch as rt
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    driver_mem = {"memory_reserved_bytes": torch.cuda.memory_reserved(),
+                  "memory_allocated_bytes": torch.cuda.memory_allocated()}
+    print("runtime_driver_memory", json.dumps(driver_mem), flush=True)
+    shm = os.statvfs("/dev/shm") if os.path.isdir("/dev/shm") else None
+    shm_free = shm.f_bavail * shm.f_frsize if shm else None
+    # the store must hold the 256 MB put with room to spare
+    store_bytes = 2 << 30 if shm_free is None else min(2 << 30,
+                                                       shm_free // 2)
+    require(store_bytes >= 640 << 20,
+            f"/dev/shm has {shm_free} B free: too little for the store")
+
+    out = {"device": name, "nvidia_smi": card, "dev_shm_free_bytes":
+           shm_free, "object_store_bytes": store_bytes, **driver_mem}
+    # the driver's reference: the same steps and the same prompts alone
+    here = gpt2_steps(RUNTIME_STEPS)
+    server = phase4_server()
+    try:
+        here_serve = serve_alone(server, prompts[:RUNTIME_PROMPTS], 64)
+    finally:
+        server.engine.stop()
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    rt.init(num_cpus=4, object_store_memory=store_bytes)
+    out["init_s"] = time.perf_counter() - t0
+    try:
+        res = rt.cluster_resources()
+        require(res.get("GPU") == 1.0, f"cluster_resources: {res}")
+        procs = rt._node_processes
+        for label, proc in (("gcs", procs.gcs_proc),
+                            ("raylet", procs.raylet_proc)):
+            loaded = _maps_hold(proc.pid, ("libtorch", "libcuda",
+                                           "libc10"))
+            require(not loaded, f"the {label} process loaded {loaded}")
+
+        cpu = rt.get(rt.remote(num_gpus=0)(_cpu_task_view).remote(),
+                     timeout=120)
+        require(cpu == {"cuda_visible_devices": "", "cuda_available": False,
+                        "gpu_ids": []}, f"a num_gpus=0 task saw {cpu}")
+
+        t0 = time.perf_counter()
+        trainer = rt.remote(num_gpus=1)(RuntimeTrainActor).remote()
+        info = rt.get(trainer.info.remote(), timeout=300)
+        out["gpu_worker_start_s"] = time.perf_counter() - t0
+        out["gpu_worker_import_and_cuda_init_s"] = \
+            info["import_and_cuda_init_s"]
+        require(info["gpu_ids"] == [0]
+                and info["cuda_visible_devices"] == "0"
+                and info["device_count"] == 1,
+                f"the GPU actor's grant: {info}")
+        require(not info["kernel_libraries_missing"],
+                f"kernel libraries missing in the worker: {info}")
+        rt.get(trainer.ping.remote())
+        out["actor_call_ms_p50"] = _median_ms(
+            lambda: rt.get(trainer.ping.remote()), 200)
+        noop = rt.remote(_noop)
+        rt.get(noop.remote())
+        out["task_round_trip_ms_p50"] = _median_ms(
+            lambda: rt.get(noop.remote()), 200)
+
+        there = rt.get(trainer.train.remote(RUNTIME_STEPS), timeout=600)
+        n_layer = here["n_layer"]
+        require(there["losses"] == here["losses"]
+                and there["grad_norms"] == here["grad_norms"],
+                f"the actor's steps differ from the driver's: "
+                f"{there['losses']} {there['grad_norms']} vs "
+                f"{here['losses']} {here['grad_norms']}")
+        for kname in ("whole_attention_forward", "whole_attention_backward",
+                      "attention_delta"):
+            for who, r in (("actor", there), ("driver", here)):
+                got = r["launches"].get(kname, 0)
+                require(got == n_layer * RUNTIME_STEPS,
+                        f"{who}: {kname} launched {got} times in "
+                        f"{RUNTIME_STEPS} steps of {n_layer} layers")
+
+        # the second GPU actor waits for the card
+        serve = rt.remote(num_gpus=1)(RuntimeServeActor).remote()
+        serve_info = serve.info.remote()
+        ready, _ = rt.wait([serve_info], num_returns=1, timeout=10)
+        queued_gpus = rt.available_resources().get("GPU", 0.0)
+        require(not ready and queued_gpus == 0.0,
+                f"the serving actor started while the GPU was held "
+                f"(ready {bool(ready)}, GPU available {queued_gpus})")
+        t0 = time.perf_counter()
+        rt.kill(trainer)
+        sinfo = rt.get(serve_info, timeout=300)
+        out["serve_actor_start_after_kill_s"] = time.perf_counter() - t0
+        require(sinfo["gpu_ids"] == [0]
+                and sinfo["cuda_visible_devices"] == "0",
+                f"the serving actor's grant: {sinfo}")
+        served = rt.get(serve.serve_alone.remote(
+            prompts[:RUNTIME_PROMPTS], 64), timeout=600)
+        rt.get(serve.close.remote())
+        rt.kill(serve)
+        require(served["tokens"] == here_serve["tokens"],
+                "the serving actor's tokens differ from this process's on "
+                "the same prompts alone")
+        require(served["decode_steps"] > 0
+                and served["launches"] == served["n_layer"]
+                * served["decode_steps"],
+                f"serving actor: paged_attention_decode launched "
+                f"{served['launches']} times over {served['decode_steps']} "
+                f"decode steps")
+
+        # host numbers: the object store with tensors
+        big = torch.randint(0, 1 << 30, (64 << 20,), dtype=torch.int32)
+        t0 = time.perf_counter()
+        ref = rt.put(big)
+        put_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = rt.get(ref)
+        get_s = time.perf_counter() - t0
+        require(torch.equal(back, big), "256 MB CPU tensor changed")
+        del ref, back
+        # again, into store pages the first put has already touched
+        t0 = time.perf_counter()
+        ref = rt.put(big)
+        put_again_s = time.perf_counter() - t0
+        require(torch.equal(rt.get(ref), big), "256 MB CPU tensor changed")
+        del ref
+        dev_t = torch.randn(4096, 2048, device="cuda").to(torch.bfloat16)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = rt.put(dev_t)
+        cput_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dback = rt.get(ref)
+        torch.cuda.synchronize()
+        cget_s = time.perf_counter() - t0
+        require(dback.device.type == "cuda" and dback.dtype == torch.bfloat16
+                and torch.equal(dback, dev_t),
+                "16 MB bf16 CUDA tensor changed")
+        del ref, dback, dev_t, big
+        out.update({
+            "put_256mb_cpu_s": put_s, "get_256mb_cpu_s": get_s,
+            "put_256mb_cpu_again_s": put_again_s,
+            "put_cpu_gb_per_s": (256 << 20) / put_s / 1e9,
+            "put_again_cpu_gb_per_s": (256 << 20) / put_again_s / 1e9,
+            "get_cpu_gb_per_s": (256 << 20) / get_s / 1e9,
+            "put_16mb_bf16_cuda_s": cput_s, "get_16mb_bf16_cuda_s": cget_s,
+            "losses": there["losses"], "grad_norms": there["grad_norms"],
+            "actor_step_ms": there["step_ms"],
+            "driver_step_ms": here["step_ms"],
+            "actor_train_launches": there["launches"],
+            "serve_decode_steps": served["decode_steps"],
+            "serve_paged_decode_launches": served["launches"],
+            "served_prompt_tokens": [len(p) for p in
+                                     prompts[:RUNTIME_PROMPTS]],
+            "tokens_equal_driver_alone": True, "bit_equal_steps": True})
+    finally:
+        rt.shutdown()
+    torch.cuda.empty_cache()
+    print("runtime", json.dumps(out), flush=True)
+    return {**out, "train_launches": there["launches"],
+            "serve_launches": served["launches"]}
+
+
 def serve_streams(server, prompts, new_tokens: int):
     """One greedy stream of ``new_tokens`` per prompt, opened together
     on ``server`` and drained in turn, with the launch counts and the
@@ -3013,7 +3347,6 @@ def main() -> int:
     from ray_tpu_torch import kernels
     from ray_tpu_torch.models import gpt2
     from ray_tpu_torch.ops import attention as A
-    from ray_tpu_torch.serve.llm import LLMServer
 
     # 1. device
     name = torch.cuda.get_device_name(0)
@@ -3144,10 +3477,7 @@ def main() -> int:
 
     # 4. serve GPT-2 small through the port's entry points
     cfg = gpt2.GPT2Config.small()
-    server = LLMServer(
-        model="gpt2", model_config={"config": cfg, "seed": SEED},
-        engine_config={"max_running": 16, "max_seq_len": 1024,
-                       "block_size": 16, "num_blocks": 1025})
+    server = phase4_server()
     try:
         warm = server({"tokens": [464, 3290, 318], "max_new_tokens": 4})
         require(warm["n_tokens"] == 4, f"warm-up request: {warm}")
@@ -3405,6 +3735,10 @@ def main() -> int:
     ckpt = checkpoint_phase(name, card)
     disagg = disagg_phase(name, card, phase4)
 
+    # 22. the runtime: GPT-2 small trained and served inside GPU-granted
+    # actors, a CPU task that sees no GPU, the host's numbers
+    runtime = runtime_phase(name, card, phase4["prompts"])
+
     # 13. summary
     def kernel_entry(case, kname, source, line, by_path):
         """``by_path``: {path: launches of ``kname`` in its counted
@@ -3427,7 +3761,8 @@ def main() -> int:
     gpt2_paths = (("gpt2_train", train_counts),
                   ("mesh_gpt2_train", mesh_counts["gpt2_train"]),
                   ("pipelined_train", pipe_counts),
-                  ("checkpoint_train", ckpt["checkpoint"]["launches"]))
+                  ("checkpoint_train", ckpt["checkpoint"]["launches"]),
+                  ("runtime_actor_train", runtime["train_launches"]))
     streaming_paths = (("llama_train", llama_counts),
                        ("mesh_gpt2_exact", mesh_counts["gpt2_exact"]),
                        ("ring_schedule", ring["launches"]),
@@ -3442,7 +3777,8 @@ def main() -> int:
                         {"serve": launches,
                          "llama_serve": llama_serve_res["kernel_launches"],
                          "disagg_decode":
-                             disagg["disagg_paged_decode_launches"]}),
+                             disagg["disagg_paged_decode_launches"],
+                         "runtime_actor_serve": runtime["serve_launches"]}),
          "llama_serve_case": {k: llama_case[k] for k in (
              "case", "max_abs_err", "ms", "plain_ms", "bound_ms",
              "bound_by")}},

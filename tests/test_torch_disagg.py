@@ -37,7 +37,12 @@ def _two_threads():
     torch.set_num_threads(old)
 
 
-def _drain(eng, sid, timeout=60.0):
+# Long enough for a jit compile on a loaded box (six test processes at
+# once): both waits return as soon as their event lands.
+_COMPILE_S = 300.0
+
+
+def _drain(eng, sid, timeout=_COMPILE_S):
     toks, cur = [], 0
     deadline = time.time() + timeout
     while time.time() < deadline:
@@ -82,7 +87,7 @@ def _disagg(side, make_adapter, prompts, ntok):
             sampling = side["Sampling"](max_new_tokens=ntok)
             sid = pe.prefill_export(list(p), sampling, request_id=f"r{i}")
             toks, _ = _drain(pe, sid)
-            export = pe.take_export(sid)
+            export = pe.take_export(sid, max_wait_s=_COMPILE_S)
             assert export is not None and export["first_token"] == toks[0]
             assert export["finish_reason"] == "length"
             desc = shipper.ship({"kv": export["kv"]})
@@ -126,9 +131,35 @@ def test_toy_disagg_matches_jax_and_unified():
         len(p) for p in prompts)
 
 
+def _gpt2_prompts():
+    rng = np.random.RandomState(31)
+    return [[int(t) for t in rng.randint(0, 512, n)] for n in (13, 8, 21)]
+
+
+def _jax_twins(first):
+    """``make_adapter`` for ``_disagg``: ``first``, then a second adapter
+    on the same params sharing its jitted steps (an engine binds its
+    adapter's pool, so the decode engine needs its own adapter)."""
+    twins = iter([first, FlaxModelAdapter("gpt2", params=first.params)])
+
+    def make():
+        a = next(twins)
+        a._fns = first._fns
+        return a
+    return make
+
+
 @pytest.fixture(scope="module")
 def flax_adapter():
-    return FlaxModelAdapter("gpt2", seed=0)
+    """The JAX adapter, with the jitted steps the GPT-2 test runs
+    (prefill buckets, decode, KV export and import) compiled here, by one
+    disaggregated pass over the same prompts on adapters that share its
+    steps, before any of the test's waits starts."""
+    adapter = FlaxModelAdapter("gpt2", seed=0)
+    warm = FlaxModelAdapter("gpt2", params=adapter.params)
+    warm._fns = adapter._fns
+    _disagg(JAX, _jax_twins(warm), _gpt2_prompts(), 6)
+    return adapter
 
 
 def test_gpt2_disagg_matches_flax_adapter(flax_adapter):
@@ -137,24 +168,13 @@ def test_gpt2_disagg_matches_flax_adapter(flax_adapter):
     (and first tokens) exactly, which are the unified ones; the pages
     partly filled at the prompt's end are shipped whole and masked by
     the lengths."""
-    rng = np.random.RandomState(31)
-    prompts = [[int(t) for t in rng.randint(0, 512, n)] for n in (13, 8, 21)]
+    prompts = _gpt2_prompts()
 
     def port_adapter():
         return TorchModelAdapter("gpt2", params=flax_adapter.params,
                                  device="cpu")
 
-    # an engine binds its adapter's pool: the JAX decode engine gets a
-    # second adapter on the same params, sharing the first's jitted steps
-    twins = iter([flax_adapter, FlaxModelAdapter(
-        "gpt2", params=flax_adapter.params)])
-
-    def jax_adapter():
-        a = next(twins)
-        a._fns = flax_adapter._fns
-        return a
-
-    ref = _disagg(JAX, jax_adapter, prompts, 6)
+    ref = _disagg(JAX, _jax_twins(flax_adapter), prompts, 6)
     got = _disagg(PORT, port_adapter, prompts, 6)
     assert got["tokens"] == ref["tokens"]
     assert got["firsts"] == ref["firsts"]

@@ -71,6 +71,24 @@ def test_port_files_found():
     for mod in ("checkpoint/manager", "checkpoint/async_checkpointer",
                 "serve/llm/disagg"):
         assert f"ray_tpu_torch/{mod}.py" in rel
+    for mod in ("__init__", "actor", "remote_function", "exceptions",
+                "common/ids", "common/config", "common/options",
+                "util/placement_group", "util/scheduling_strategies",
+                "util/events", "util/timeline", "_private/native",
+                "_private/serialization", "_private/ref_serialization",
+                "_private/protocol", "_private/schema", "_private/chaos",
+                "_private/rpccore", "_private/netx/client",
+                "_private/netx/server", "_private/netx/endpoints",
+                "_private/direct", "_private/object_store",
+                "_private/external_storage", "_private/storage",
+                "_private/sched", "_private/gcs_store", "_private/gcs",
+                "_private/gcs_main", "_private/raylet",
+                "_private/raylet_main", "_private/runtime_env/__init__",
+                "_private/worker", "_private/function_manager",
+                "_private/default_worker", "_private/task_events",
+                "_private/tracing", "_private/usage/__init__",
+                "_private/node"):
+        assert f"ray_tpu_torch/{mod}.py" in rel
     assert len(files) > 10
 
 
