@@ -345,9 +345,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
               and get of a 256 MB CPU tensor and a 16 MB bf16 CUDA
               tensor (bytes equal), the no-op task and actor-call round
               trips, the GPU worker's start.
+23. framework — the headline bench's framework path,
+              ray_tpu_torch.bench.framework_main(): init(num_cpus=4,
+              num_gpus=1), 1,024 uint8 224 x 224 images from
+              default_rng(0) through data.from_items(parallelism=8), and
+              DataParallelTrainer(ScalingConfig(num_workers=1,
+              use_gpu=True)).fit(): in the GPU-granted train worker
+              (get_gpu_ids() == [0]) ResNet-50 at 256 x 224 x 224 bf16 on
+              the shard's batches from iter_device_batches (pinned
+              copies on a side stream, 4 batches cached and cycled),
+              then GPT-2 small (phase 6's loop). Checks: no gpt2_error
+              and the gpt2_* keys; the first device batch's image bytes
+              (sha256) and labels equal to the driver's first 256 rows,
+              uint8 images, on the card; finite ResNet losses and no
+              launch of the port's kernels in the ResNet loop; 12
+              launches a step of each whole-kv kernel and of the delta
+              pass in the worker's GPT-2 steps; the worker's GPT-2
+              losses and grad norms bit-equal to phase 6's. Prints
+              img/s, framework_vs_raw against phase 11, the ingest's
+              seconds, the worker's start, fit() to the first batch and
+              to the first step.
 13. summary — nvidia-smi's card line, the kernels line (each kernel's
               launches by the path that counted them: phases 4, 5b, 6,
-              8, 12, 14, 21 and 22; paged decode's entry also carries its
+              8, 12, 14, 21, 22 and 23; paged decode's entry also carries its
               Llama serve case, the streaming kernels' the ring's), then
               the device line, last.
 
@@ -3083,6 +3103,90 @@ def runtime_phase(name, card, prompts) -> dict:
             "serve_launches": served["launches"]}
 
 
+def framework_phase(name, card, phase6, phase11) -> dict:
+    """Phase 23 (module docstring): the headline bench's framework path
+    on this card, held to the driver's items and to phase 6's GPT-2
+    steps. ``phase6``: bench.gpt2_loop's result in this process;
+    ``phase11``: phase 11's raw ResNet-50 numbers. Returns the worker's
+    GPT-2 launch counts."""
+    import gc
+    import hashlib
+    import torch
+    from ray_tpu_torch import bench
+    from ray_tpu_torch.models import gpt2
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fw = bench.framework_main()
+    phase_s = time.perf_counter() - t0
+    require("gpt2_error" not in fw, f"framework: {fw.get('gpt2_error')}")
+    missing = [k for k in ("gpt2_losses", "gpt2_grad_norms",
+                           "gpt2_launches", "gpt2_steps_timed",
+                           "gpt2_step_time_ms") if k not in fw]
+    require(not missing, f"framework: no {missing} in the worker's report")
+    require(fw["gpu_ids"] == [0] and fw["platform"] == "cuda",
+            f"framework: the worker's grant {fw['gpu_ids']}, platform "
+            f"{fw['platform']}")
+    n = fw["batch_per_chip"]
+    items = bench.framework_items(fw["framework_n_images"],
+                                  fw["framework_image_size"])
+    want = hashlib.sha256(np.stack([it["image"] for it in items[:n]])
+                          .tobytes()).hexdigest()
+    require(fw["first_batch_image_sha256"] == want
+            and fw["first_batch_labels"] == [int(it["label"])
+                                             for it in items[:n]],
+            "framework: the first device batch is not the driver's first "
+            f"{n} rows")
+    require(fw["first_batch_dtypes"] == {"image": "torch.uint8",
+                                         "label": "torch.int64"}
+            and fw["first_batch_device"].startswith("cuda"),
+            f"framework: first batch {fw['first_batch_dtypes']} on "
+            f"{fw['first_batch_device']}")
+    require(fw["feed_batches"] == fw["framework_n_images"] // n,
+            f"framework: {fw['feed_batches']} batches fed")
+    require(all(math.isfinite(x) for x in fw["losses"]),
+            f"framework: non-finite ResNet loss: {fw['losses']}")
+    require(fw["launches"] == {},
+            f"framework: the ResNet loop launched {fw['launches']}")
+    counts, steps = fw["gpt2_launches"], fw["gpt2_steps_timed"]
+    whole_names = ["whole_attention_forward", "whole_attention_backward",
+                   "attention_delta"]
+    n_layer = gpt2.GPT2Config.small().n_layer
+    for kname in whole_names:
+        require(counts.get(kname, 0) == n_layer * steps,
+                f"framework: {kname} launched {counts.get(kname, 0)} times "
+                f"in {steps} GPT-2 steps of {n_layer} layers")
+    require(set(counts) == set(whole_names),
+            f"framework: unexpected kernels on the GPT-2 path: {counts}")
+    require(fw["gpt2_losses"] == phase6["gpt2_losses"]
+            and fw["gpt2_grad_norms"] == phase6["gpt2_grad_norms"],
+            f"framework: the worker's GPT-2 steps differ from phase 6's: "
+            f"{fw['gpt2_losses']} vs {phase6['gpt2_losses']}")
+    out = {"device": name, "nvidia_smi": card, "phase_s": phase_s,
+           "img_per_sec_per_chip": fw["img_per_sec_per_chip"],
+           "step_time_ms": fw["step_time_ms"],
+           "raw_img_per_sec_per_chip": phase11["img_per_sec"],
+           "raw_step_time_ms": phase11["step_time_ms"],
+           "framework_vs_raw": fw["img_per_sec_per_chip"]
+           / phase11["img_per_sec"],
+           "gpt2_step_time_ms": fw["gpt2_step_time_ms"],
+           "phase6_gpt2_step_time_ms": phase6["gpt2_step_time_ms"],
+           "gpt2_bit_equal_phase6": True, "first_batch_equal": True}
+    for k in ("init_s", "ingest_s", "ingest_bytes", "fit_s",
+              "worker_start_s", "fit_to_first_batch_s",
+              "fit_to_first_step_s", "feed_s", "feed_batches",
+              "model_init_s", "compile_s", "ms_by_window", "mfu", "losses",
+              "max_memory_allocated_bytes", "gpt2_ms_by_window",
+              "gpt2_compile_s", "gpt2_launches", "gpt2_steps_timed",
+              "gpt2_losses", "gpt2_max_memory_allocated_bytes"):
+        if k in fw:
+            out[k] = fw[k]
+    out["ingest_gb_per_s"] = fw["ingest_bytes"] / fw["ingest_s"] / 1e9
+    print("framework", json.dumps(out), flush=True)
+    return {"gpt2_launches": counts}
+
+
 def serve_streams(server, prompts, new_tokens: int):
     """One greedy stream of ``new_tokens`` per prompt, opened together
     on ``server`` and drained in turn, with the launch counts and the
@@ -3739,6 +3843,11 @@ def main() -> int:
     # actors, a CPU task that sees no GPU, the host's numbers
     runtime = runtime_phase(name, card, phase4["prompts"])
 
+    # 23. the headline bench's framework path: ResNet-50 and GPT-2 small
+    # in a GPU-granted train worker that DataParallelTrainer.fit()
+    # started, fed by the Dataset through iter_device_batches
+    framework = framework_phase(name, card, g, phase11)
+
     # 13. summary
     def kernel_entry(case, kname, source, line, by_path):
         """``by_path``: {path: launches of ``kname`` in its counted
@@ -3762,7 +3871,8 @@ def main() -> int:
                   ("mesh_gpt2_train", mesh_counts["gpt2_train"]),
                   ("pipelined_train", pipe_counts),
                   ("checkpoint_train", ckpt["checkpoint"]["launches"]),
-                  ("runtime_actor_train", runtime["train_launches"]))
+                  ("runtime_actor_train", runtime["train_launches"]),
+                  ("framework_gpt2_train", framework["gpt2_launches"]))
     streaming_paths = (("llama_train", llama_counts),
                        ("mesh_gpt2_exact", mesh_counts["gpt2_exact"]),
                        ("ring_schedule", ring["launches"]),

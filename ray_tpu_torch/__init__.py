@@ -33,7 +33,16 @@ Ported so far:
     processes under ``_private/``), copied from the JAX package's, with
     the GPU as the resource granted by index: ``@remote(num_gpus=k)``
     gets k device indices in ``CUDA_VISIBLE_DEVICES`` (``get_gpu_ids``),
-    and a task granted none sees ``CUDA_VISIBLE_DEVICES=""``.
+    and a task granted none sees ``CUDA_VISIBLE_DEVICES=""``;
+  - the train gang and the Dataset feed on the runtime: ``train``
+    (``DataParallelTrainer``, ``TorchTrainer``: a train_func in each of
+    n actors, one GPU each with ``ScalingConfig(use_gpu=True)``, joined
+    by a ``torch.distributed`` group), ``air.session`` (reports, ranks,
+    dataset shards, checkpoints, the preemption notice) and ``data``
+    (Datasets over object-store blocks; ``iter_device_batches`` copies
+    batches to the card through pinned memory on a side stream);
+    ``bench.framework_main`` runs the headline ResNet-50 bench through
+    them.
 
 ROADMAP.md lists the slices to come.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

@@ -1964,12 +1964,14 @@ class Worker:
             "(ROADMAP A13)")
 
     async def _h_preemption_notice(self, payload, conn):
-        """The raylet is draining (preemption): the JAX package surfaces
-        the deadline to the process's train session; the port has no
-        ``air.session`` yet."""
-        raise NotImplementedError(
-            "air.session (the preemption checkpoint) is not ported to "
-            "ray_tpu_torch yet (ROADMAP A17, with A6b)")
+        """The raylet is draining (preemption): surface the deadline
+        to any train session in this process so the train loop commits
+        an out-of-band checkpoint before the node dies."""
+        from ray_tpu_torch.air import session as air_session
+        air_session.mark_preempted(
+            deadline_unix=payload.get("deadline_unix"),
+            grace_s=payload.get("grace_s"))
+        return {}
 
     # ----------------------------------------------------- task execution side
 

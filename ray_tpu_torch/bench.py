@@ -37,18 +37,29 @@ point-goal tasks, each at its JAX config's defaults; ``dreamer_loop``,
 ``alphazero_loop``, ``alphastar_loop`` and ``ma_ppo_loop``: Dreamer on
 Pendulum-v1, AlphaZero and AlphaStar's league on TicTacToe, each at its
 JAX config's defaults, and PPO with two policies on MultiAgentCartPole
-(``ma_ppo_config``); ``main`` runs the first five. The first two time steps on
-one resident batch (no input cost: the compute ceiling), as windows of
-steps closed by a host read of the loss, and report the best window.
-The framework path of the JAX bench (``DataParallelTrainer``, the
-session, the Dataset feed) needs the runtime, which the port does not
-have yet (ROADMAP.md Queue A, A1 and A6).
+(``ma_ppo_config``). The first two time steps on one resident batch (no
+input cost: the compute ceiling), as windows of steps closed by a host
+read of the loss, and report the best window.
+
+``framework_main`` is the headline's framework path (the JAX bench's
+``_framework_main``): ``init`` a cluster, 1,024 uint8 224 x 224 images
+from ``default_rng(0)`` as a ``data.from_items`` Dataset, and a
+``DataParallelTrainer`` of one GPU worker, whose train_func
+(``_train_loop_per_worker``) runs ``resnet_loop`` on the shard's device
+batches (``iter_device_batches``, cached and cycled) and then
+``gpt2_loop``, and reports both. ``main`` runs the raw control
+(``resnet_loop`` in this process), the framework path, then
+``ppo_loop``, ``impala_loop`` and ``dqn_loop``, and prints one JSON line
+whose ``value`` is the framework's img/s/chip, beside
+``raw_img_per_sec_per_chip`` and ``framework_vs_raw``.
 
 The number of chips is the process group's world size where one exists
 (the JAX bench's ``jax.device_count()``), else 1: the trainers run on
 ``MeshSpec(dp=n)`` with the per-chip batch fixed, so the global batch
 grows with n. Under torchrun ``main`` forms the group (NCCL, one card
-per rank) and rank 0 prints the line.
+per rank), skips the framework path (a gang of one worker a process
+would not be the torchrun ranks' mesh), and rank 0 prints the line with
+the raw control's img/s as ``value``.
 
 FLOPs per step come from ``torch.utils.flop_counter.FlopCounterMode``
 over one step (convolutions and matrix products, forward and backward;
@@ -156,7 +167,7 @@ def resnet_loop(device="cuda", make_feed=None, profile=None) -> dict:
     f32 NHWC images and labels in [0, 1000) from
     ``np.random.default_rng(0)``. ``make_feed(trainer, batch_size)``:
     an endless iterator of device batches in place of the resident one
-    (the framework path's feed; no caller in the port yet). ``profile``:
+    (the framework path's feed, ``_train_loop_per_worker``). ``profile``:
     see ``_timed_run``."""
     from ray_tpu_torch.models.resnet import create_resnet
     from ray_tpu_torch.parallel.mesh import MeshSpec
@@ -172,11 +183,15 @@ def resnet_loop(device="cuda", make_feed=None, profile=None) -> dict:
         batch, image_size, dtype = 8 * n_dev, 32, torch.float32
         windows, per_window, warmup = 1, 3, 1
 
+    t0 = time.perf_counter()
     model = create_resnet("resnet50", num_classes=1000, dtype=dtype)
     trainer = make_image_classifier_trainer(
         model, spec=MeshSpec(dp=n_dev),
         input_shape=(1, image_size, image_size, 3), device=dev)
     state = trainer.init(0)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    model_init_s = time.perf_counter() - t0
     if make_feed is None:
         rng = np.random.default_rng(0)
         images = rng.standard_normal((batch, image_size, image_size, 3),
@@ -202,7 +217,7 @@ def resnet_loop(device="cuda", make_feed=None, profile=None) -> dict:
         "platform": dev.type, "device_kind": kind, "n_chips": n_dev,
         "batch_per_chip": batch // n_dev,
         "step_time_ms": best * 1e3, "compile_s": run["first_s"],
-        "img_per_sec": batch / best,
+        "model_init_s": model_init_s, "img_per_sec": batch / best,
         "img_per_sec_per_chip": batch / best / n_dev,
         "flops_per_step": run["flops"], "flops_source": FLOPS_SOURCE,
         "ms_by_window": run["ms_by_window"],
@@ -294,6 +309,120 @@ def gpt2_loop(device="cuda", profile=None, config=None) -> dict:
         out["gpt2_mfu"] = run["flops"] / best / peak
     if "profile" in run:
         out["gpt2_profile"] = run["profile"]
+    return out
+
+
+def framework_items(n: int, image_size: int) -> list:
+    """The framework path's synthetic ImageNet rows (``bench.py``'s
+    ``_framework_main``): uint8 images, int32 labels, from
+    ``np.random.default_rng(0)``."""
+    rng = np.random.default_rng(0)
+    return [{"image": rng.integers(0, 256, (image_size, image_size, 3),
+                                   dtype=np.uint8),
+             "label": np.int32(rng.integers(0, 1000))} for _ in range(n)]
+
+
+def _train_loop_per_worker(config):
+    """The framework path's train_func (``bench.py:379-411``), in a
+    GPU-granted train worker: ``resnet_loop`` fed by the Dataset shard
+    (its batches copied to the device once by ``iter_device_batches``,
+    then cycled device-resident, as the JAX bench does), then
+    ``gpt2_loop``; one ``session.report`` of both rows with the feed's
+    timings and a digest of the first device batch."""
+    import hashlib
+
+    from ray_tpu_torch.air import session
+
+    started = time.time()
+    device = config["device"]
+    if resolve_device(device).type == "cuda":
+        # the driver's TF32 settings, so that its steps and these agree
+        torch.backends.cuda.matmul.allow_tf32 = config["allow_tf32"]
+        torch.backends.cudnn.allow_tf32 = config["allow_tf32"]
+    shard = session.get_dataset_shard("train")
+    feed = {}
+
+    def make_feed(trainer, batch_size):
+        t0 = time.perf_counter()
+        cached = list(shard.iter_device_batches(
+            batch_size=batch_size, trainer=trainer, drop_last=True,
+            pad_to_batch=False))
+        first = cached[0]
+        feed.update({
+            "feed_batches": len(cached),
+            "feed_s": time.perf_counter() - t0,
+            "feed_done_unix": time.time(),
+            "first_batch_image_sha256": hashlib.sha256(
+                first["image"].cpu().numpy().tobytes()).hexdigest(),
+            "first_batch_labels": first["label"].cpu().tolist(),
+            "first_batch_dtypes": {k: str(v.dtype)
+                                   for k, v in first.items()},
+            "first_batch_device": str(first["image"].device)})
+        return itertools.cycle(cached)
+
+    res = resnet_loop(device, make_feed=make_feed)
+    res.update(feed)
+    res["train_func_start_unix"] = started
+    res["gpu_ids"] = list(session.get_gpu_ids())
+    try:
+        res.update(gpt2_loop(device))
+    except Exception as e:  # the GPT-2 row must not sink the headline
+        res["gpt2_error"] = f"{type(e).__name__}: {e}"[:200]
+    session.report(res)
+
+
+def framework_main(device="cuda") -> dict:
+    """The headline's framework path (``bench.py:_framework_main``):
+    ``init(num_cpus=4, num_gpus=1, object_store_memory=2 GiB)``, 1,024
+    uint8 images at 224 x 224 (on ``cpu``: 64 at 32 x 32, no GPU) as
+    ``data.from_items(items, parallelism=8)``, and
+    ``DataParallelTrainer(..., ScalingConfig(num_workers=1,
+    use_gpu=True)).fit()``. Returns the worker's report with the
+    driver's timings: ``init_s``, ``ingest_s`` (the items into the
+    object store), ``fit_s``, and from ``fit()``'s start: the train_func's
+    start (``worker_start_s``), the feed's end (``fit_to_first_batch_s``)
+    and the first step's end (``fit_to_first_step_s``)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data
+    from ray_tpu_torch.air.config import ScalingConfig
+    from ray_tpu_torch.train import DataParallelTrainer
+
+    on_gpu = resolve_device(device).type == "cuda"
+    n_imgs, image_size = (1024, 224) if on_gpu else (64, 32)
+    t0 = time.perf_counter()
+    rt.init(num_cpus=4, num_gpus=1 if on_gpu else 0,
+            object_store_memory=2 * 1024**3)
+    init_s = time.perf_counter() - t0
+    try:
+        items = framework_items(n_imgs, image_size)
+        t0 = time.perf_counter()
+        train_ds = data.from_items(items, parallelism=8)
+        ingest_s = time.perf_counter() - t0
+        trainer = DataParallelTrainer(
+            _train_loop_per_worker,
+            train_loop_config={
+                "device": device,
+                "allow_tf32": torch.backends.cuda.matmul.allow_tf32},
+            datasets={"train": train_ds},
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=on_gpu))
+        fit_start = time.time()
+        t0 = time.perf_counter()
+        result = trainer.fit()
+        fit_s = time.perf_counter() - t0
+        if result.error:
+            raise RuntimeError(result.error)
+        out = dict(result.metrics)
+    finally:
+        rt.shutdown()
+    out.update({
+        "framework_n_images": n_imgs, "framework_image_size": image_size,
+        "init_s": init_s, "ingest_s": ingest_s,
+        "ingest_bytes": n_imgs * image_size * image_size * 3,
+        "fit_s": fit_s,
+        "worker_start_s": out["train_func_start_unix"] - fit_start,
+        "fit_to_first_batch_s": out["feed_done_unix"] - fit_start,
+        "fit_to_first_step_s": (out["feed_done_unix"] - fit_start
+                                + out["compile_s"])})
     return out
 
 
@@ -2004,15 +2133,30 @@ def disagg_loop(device="cuda", prompts=None, new_tokens: int = 64) -> dict:
 
 
 def main(device="cuda"):
-    """The five loops and one JSON line. Under torchrun (``WORLD_SIZE`` in
-    the environment) the process group is formed here first, NCCL with
-    card ``LOCAL_RANK``, and only rank 0 prints."""
+    """The raw control, the framework path, PPO, IMPALA and DQN; one JSON
+    line. ``value`` is the framework path's img/s/chip, beside the raw
+    control's (``raw_img_per_sec_per_chip``) and their ratio
+    (``framework_vs_raw``); the GPT-2 row is the framework worker's.
+    Under torchrun (``WORLD_SIZE`` in the environment) the process group
+    is formed here first, NCCL with card ``LOCAL_RANK``, the framework
+    path is skipped (``value`` is then the raw control's, with the
+    driver's GPT-2 row), and only rank 0 prints."""
     import torch.distributed as dist
     if "WORLD_SIZE" in os.environ and not dist.is_initialized():
         collectives.initialize_distributed(
             local_device_ids=[int(os.environ.get("LOCAL_RANK", 0))])
-    res = resnet_loop(device)
-    res.update(gpt2_loop(device))
+    raw = resnet_loop(device)
+    if dist.is_initialized():
+        res = {**raw, **gpt2_loop(device)}
+    else:
+        # the worker is another process on the same card: hand it what
+        # the raw loop left cached
+        if resolve_device(device).type == "cuda":
+            torch.cuda.empty_cache()
+        res = framework_main(device)
+        res["raw_img_per_sec_per_chip"] = raw["img_per_sec_per_chip"]
+        res["framework_vs_raw"] = (res["img_per_sec_per_chip"]
+                                   / raw["img_per_sec_per_chip"])
     res.update(ppo_loop(device))
     res.update(impala_loop(device))
     res.update(dqn_loop(device))

@@ -22,8 +22,19 @@ Saving and restoring a trainer::
 
 from ray_tpu_torch.checkpoint.manager import (  # noqa: F401
     COMMIT_MARKER, MANIFEST_NAME, CheckpointManager, PendingCheckpoint)
-from ray_tpu_torch.checkpoint.async_checkpointer import (  # noqa: F401
-    AsyncCheckpointer, SaveStats, snapshot_to_host)
+
+_ASYNC = ("AsyncCheckpointer", "SaveStats", "snapshot_to_host")
+
+
+def __getattr__(name):
+    # the async half imports torch; the manager does not, so a process
+    # that only stages and commits (a train worker whose train_func uses
+    # no torch, the driver's round barrier) never loads it
+    if name in _ASYNC:
+        from ray_tpu_torch.checkpoint import async_checkpointer
+        return getattr(async_checkpointer, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 __all__ = [
     "CheckpointManager", "AsyncCheckpointer", "PendingCheckpoint",

@@ -38,7 +38,11 @@ prefix ``RTT_`` (the JAX package's ``RTPU_*`` names are never read):
     ``RTT_TASK_EVENTS_BUFFER``, ``RTT_TASK_EVENTS_FLUSH_S``,
     ``RTT_TASK_TABLE_MAX``, ``RTT_ACTOR_TASK_EVENTS``,
     ``RTT_USAGE_STATS_ENABLED``;
-  - runtime envs: ``RTT_CONTAINER_RUNTIME``.
+  - runtime envs: ``RTT_CONTAINER_RUNTIME``;
+  - libraries: ``RTT_DATA_STREAMING`` ("0": the data plane's bulk path
+    in place of the streaming executor) and ``RTT_RESULTS_DIR`` (the
+    train runs' checkpoint roots when ``RunConfig.storage_path`` is
+    unset).
 """
 
 from __future__ import annotations

@@ -710,12 +710,6 @@ def make_image_classifier_trainer(model, *,
                                    "label": (BATCH_AXES,)})
 
 
-SESSION_NEEDS_A6B = (
-    "{what} without manager= binds to the train session's checkpoint "
-    "root, which needs the train gang (ROADMAP.md Queue A, A6b); pass "
-    "manager= (a CheckpointManager){alt}")
-
-
 def _rank_and_world() -> Tuple[int, int]:
     import torch.distributed as dist
     if dist.is_available() and dist.is_initialized():
@@ -724,27 +718,35 @@ def _rank_and_world() -> Tuple[int, int]:
 
 
 def make_async_checkpointer(manager=None, **kwargs):
-    """An ``AsyncCheckpointer`` for a trainer state, bound to
-    ``manager`` (a ``CheckpointManager``). ``process_index`` and
-    ``process_count`` default to the process group's rank and world
-    size (0 and 1 without one), so each rank writes its own
-    ``process_<rank>/``; a single process commits its own saves, a gang
+    """An ``AsyncCheckpointer`` for a trainer state. With
+    ``manager=None`` inside a train session it is the session's (bound
+    to the run's durable checkpoint root, one ``process_<rank>/`` per
+    rank; the driver commits a step once every rank has reported it,
+    after the gang's round barrier). Standalone callers pass their own
+    ``CheckpointManager``; ``process_index`` and ``process_count``
+    default to the process group's rank and world size (0 and 1
+    without one), a single process commits its own saves and a gang
     commits through ``commit_gang_step``. ``async_=False`` writes
-    inline. Without ``manager`` it would bind to the train session's
-    root (A6b): it raises.
+    inline.
 
-    Usage::
+    Usage in a train_func::
 
-        ckpter = spmd.make_async_checkpointer(manager=mgr)
+        ckpter = spmd.make_async_checkpointer()
         ...
-        ckpter.save(state["step"], state)  # blocks only for the snapshot
-        ...
-        ckpter.finalize()                  # before returning
+        pending = ckpter.save(session.next_checkpoint_step(), state)
+        session.report(metrics, checkpoint=pending)   # blocks only for
+        ...                                           # the host snapshot
+        ckpter.finalize()                             # before returning
     """
     from ray_tpu_torch.checkpoint import AsyncCheckpointer
     if manager is None:
-        raise NotImplementedError(SESSION_NEEDS_A6B.format(
-            what="make_async_checkpointer", alt=""))
+        from ray_tpu_torch.air import session as air_session
+        ckpter = air_session.get_async_checkpointer()
+        if ckpter is None:
+            raise RuntimeError(
+                "no checkpoint manager in the session — set "
+                "RunConfig.name/storage_path, or pass manager= explicitly")
+        return ckpter
     rank, world = _rank_and_world()
     kwargs.setdefault("process_index", rank)
     kwargs.setdefault("process_count", world)
@@ -754,7 +756,8 @@ def make_async_checkpointer(manager=None, **kwargs):
 def commit_gang_step(checkpointer, step: int, metadata=None):
     """Seal ``step`` of a gang's save: every rank waits for its own
     write, a barrier, rank 0 commits, a barrier. Every rank calls it.
-    It stands in for the train gang's round barrier (A6b)."""
+    Outside a train session it stands in for the gang's round barrier,
+    after which the driver commits a session's steps."""
     import torch.distributed as dist
     checkpointer.wait()
     grouped = dist.is_available() and dist.is_initialized()
@@ -780,13 +783,14 @@ def restore_spmd_state(target_state, *, manager=None, checkpoint=None,
     same pp (its stages are stacked on a leading axis of size pp),
     across dp and fsdp. Source: a ``CheckpointManager`` (a committed
     step, default the latest; checksums verified when the manager's
-    ``verify`` is on) or a directory-backed ``air.Checkpoint``. Without
-    either it would read the train session's (A6b): it raises."""
+    ``verify`` is on), a directory-backed ``air.Checkpoint``, or, with
+    neither, the train session's manager, else its checkpoint."""
     from ray_tpu_torch.air.checkpoint import ShardedCheckpoint
     if manager is None and checkpoint is None:
-        raise NotImplementedError(SESSION_NEEDS_A6B.format(
-            what="restore_spmd_state",
-            alt=" or checkpoint= (a directory Checkpoint)"))
+        from ray_tpu_torch.air import session as air_session
+        manager = air_session.get_checkpoint_manager()
+        if manager is None:
+            checkpoint = air_session.get_checkpoint()
     if manager is not None:
         return manager.restore_state(target_state, step=step)
     root = getattr(checkpoint, "_dir", None)
@@ -796,14 +800,15 @@ def restore_spmd_state(target_state, *, manager=None, checkpoint=None,
     return ShardedCheckpoint(root).restore(target_state)
 
 
-def put_batch(trainer: SpmdTrainer, batch: Dict[str, np.ndarray]):
-    """Host batch (the global batch) -> this rank's part as tensors on
-    the trainer's device: each dim split over the axes that
-    ``trainer.batch_dims`` names for it (by default the first dim over
-    (dp, fsdp), dp-major, as ``P(("dp", "fsdp"))`` splits it). Dtypes
-    are kept except that integers other than uint8 become int64 (token
-    ids and labels: what embedding, gather and the loss take). uint8
-    images stay bytes until the step normalises them on the device."""
+def host_batch(trainer: SpmdTrainer, batch: Dict[str, np.ndarray]
+               ) -> Dict[str, torch.Tensor]:
+    """Host batch (the global batch) -> this rank's part as host
+    tensors: each dim split over the axes that ``trainer.batch_dims``
+    names for it (by default the first dim over (dp, fsdp), dp-major, as
+    ``P(("dp", "fsdp"))`` splits it). Dtypes are kept except that
+    integers other than uint8 become int64 (token ids and labels: what
+    embedding, gather and the loss take). uint8 images stay bytes until
+    the step normalises them on the device."""
     mesh = trainer.mesh
     out = {}
     for k, v in batch.items():
@@ -820,8 +825,14 @@ def put_batch(trainer: SpmdTrainer, batch: Dict[str, np.ndarray]):
         t = torch.as_tensor(a)
         if not t.is_floating_point() and t.dtype != torch.uint8:
             t = t.long()
-        out[k] = t.to(trainer.device)
+        out[k] = t
     return out
+
+
+def put_batch(trainer: SpmdTrainer, batch: Dict[str, np.ndarray]):
+    """``host_batch`` on the trainer's device."""
+    return {k: t.to(trainer.device)
+            for k, t in host_batch(trainer, batch).items()}
 
 
 def default_spec_for(n_devices: int) -> MeshSpec:

@@ -4,8 +4,8 @@ Reference semantics: tune/trainable/trainable.py:66 (class API — setup/
 step/save/restore, train():320 drives one iteration). The port's copy of
 the class half of ``ray_tpu/tune/trainable.py`` (:23-80), which
 ``rllib.Algorithm`` subclasses. The function API (``FunctionTrainable``,
-``wrap_function``) and the ``air.session`` hooks need the runtime and
-wait for it (ROADMAP.md, A1).
+``wrap_function``, over ``air.session``) is not ported yet (ROADMAP.md,
+A16, with ``Tuner``).
 """
 
 from __future__ import annotations

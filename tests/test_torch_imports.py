@@ -68,6 +68,15 @@ def test_port_files_found():
         assert f"ray_tpu_torch/rllib/{mod}.py" in rel
     assert "ray_tpu_torch/tune/trainable.py" in rel
     assert "ray_tpu_torch/air/checkpoint.py" in rel
+    for mod in ("air/config", "air/session", "train/data_parallel_trainer",
+                "train/torch_trainer", "train/_internal/backend_executor",
+                "train/_internal/worker_group", "data/__init__", "data/block",
+                "data/read_api", "data/dataset", "data/dataset_pipeline",
+                "data/grouped_data", "data/_internal/plan",
+                "data/_internal/compute", "data/_internal/shuffle",
+                "data/_internal/push_based_shuffle",
+                "data/_internal/streaming_executor"):
+        assert f"ray_tpu_torch/{mod}.py" in rel
     for mod in ("checkpoint/manager", "checkpoint/async_checkpointer",
                 "serve/llm/disagg"):
         assert f"ray_tpu_torch/{mod}.py" in rel
