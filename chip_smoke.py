@@ -365,6 +365,38 @@ Phases, each of which fails the run (non-zero exit, no result line):
               img/s, framework_vs_raw against phase 11, the ingest's
               seconds, the worker's start, fit() to the first batch and
               to the first step.
+24. rl remote — RLlib's runtime half (ray_tpu_torch.rllib on
+              init(num_cpus=REMOTE_CPUS), one GPU): (a) a LearnerGroup
+              learner actor on the card (num_gpus=1) against a local
+              CPU learner from the same seed, REMOTE_LEARNER_UPDATES
+              PPO updates (MLP 256 x 256, 512-row batches) held by
+              hold_update; a PPO WorkerSet whose learner is on the card
+              and whose 2 remote rollout workers are on the CPU: after
+              sync_weights their weights are byte-equal to the
+              learner's host copy; (b) bench.ppo_remote_loop: PPO-Atari
+              at atari-ppo.yaml's 10 remote workers x 5 envs (one torch
+              thread each), the learner on the card, one warm-up and 3
+              timed iterations, one learn phase profiled
+              (PPO_PROFILE_GROUPS); env steps/s beside phase 15's
+              one-local-worker form (remote_vs_local), the timers'
+              split, the sampling share, the learn phase's idle share,
+              each actor's start; the workers hold the learner's
+              weights byte for byte after the last sync; (c)
+              bench.impala_remote_loop: IMPALA-Atari with the async
+              learner thread fed by remote workers of 5 envs x 50 steps
+              (atari-impala.yaml's 32 cut to the machine's CPUs less 2),
+              5 timed iterations: the learner queue's depth after each,
+              the learner thread's steps, rows and empty-queue wait,
+              env steps/s against phase 16's; (d)
+              bench.remote_algo_loops: DDPPO, Ape-X DQN, Ape-X DDPG,
+              A3C, ES, ARS and PPO with an evaluation WorkerSet (each
+              with 2 remote workers and the learner on the card, all
+              built first so their actors start together, 3 timed
+              iterations each): weights that moved, the remote workers
+              holding the learner's weights after a sync (ES: the
+              policy holding theta), the steps and learner counts each
+              config implies; (e) the launch counts, zeroed at the
+              phase's start and read at its end, are empty.
 13. summary — nvidia-smi's card line, the kernels line (each kernel's
               launches by the path that counted them: phases 4, 5b, 6,
               8, 12, 14, 21, 22 and 23; paged decode's entry also carries its
@@ -488,6 +520,12 @@ NEAR_TIE_FACTOR = 2.0
 RUNTIME_STEPS = 3
 RUNTIME_PROMPTS = 4
 ATARI_BF16_RATIO = (3.0, 1.5)
+# phase 24: the cluster's CPUs (atari-ppo.yaml's 10 rollout workers hold
+# one each; 24d's loops, built together, 12) and the remote learner's
+# updates
+# against the CPU learner's (PPO's MLP at 256 x 256, a 512-row batch)
+REMOTE_CPUS = 12
+REMOTE_LEARNER_UPDATES = 3
 # the PPO learn phase's groups: cuDNN's convs, the products (the
 # 7,744 x 512 Dense and the heads), Adam's foreach kernels, the
 # host-to-device copies of each minibatch, then the rest
@@ -3187,6 +3225,277 @@ def framework_phase(name, card, phase6, phase11) -> dict:
     return {"gpt2_launches": counts}
 
 
+def remote_learner_parity(name, card) -> dict:
+    """Phase 24a: one ``LearnerGroup`` learner actor on the card (its
+    spec on cuda: granted num_gpus=1) against a local CPU learner from
+    the same spec seed, REMOTE_LEARNER_UPDATES updates on fresh 512-row
+    PPO batches, each held by hold_update (grads and params, f32, TF32
+    off in both processes). Then a PPO WorkerSet with the learner's
+    policy on the card and 2 remote CPU rollout workers: after
+    ``sync_weights`` of perturbed card weights, the workers' weights
+    byte-equal to the learner's host copy."""
+    from ray_tpu_torch.rllib import PPOConfig
+    from ray_tpu_torch.rllib import core as C
+    from ray_tpu_torch.rllib import env as E
+
+    def spec(dev):
+        return C.RLModuleSpec(E.Box(-1, 1, (16,)), E.Discrete(6),
+                              {"fcnet_hiddens": [256, 256]}, seed=SEED,
+                              device=dev)
+
+    conf = {"lr": 5e-4, "grad_clip": 0.5}
+    # the WorkerSet's CPU workers start while the learner actor does
+    algo = (PPOConfig().environment("CartPole-v1")
+            .rollouts(num_workers=2, rollout_fragment_length=32)
+            .training(train_batch_size=64, sgd_minibatch_size=64,
+                      num_sgd_iter=1)
+            .resources(device="cuda").debugging(seed=SEED).build())
+    try:
+        out = learner_group_updates(spec, conf)
+        sync_to_cpu_workers(algo, out)
+    finally:
+        algo.cleanup()
+    print("remote_learner", json.dumps({**out, "device": name,
+                                        "nvidia_smi": card}), flush=True)
+    return out
+
+
+def learner_group_updates(spec, conf) -> dict:
+    """Phase 24a's learner half (``remote_learner_parity``)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.rllib import core as C
+    t0 = time.perf_counter()
+    group = C.LearnerGroup(C.PPOLearner, num_learners=1,
+                           learner_kwargs={"module_spec": spec("cuda"),
+                                           "config": conf})
+    out = {"learner_start_s": time.perf_counter() - t0}
+    try:
+        free_gpus = rt.available_resources().get("GPU", 0.0)
+        require(free_gpus == 0.0, f"the learner actor holds no GPU: "
+                f"{free_gpus} free")
+        cpu = C.PPOLearner(module_spec=spec("cpu"), config=conf)
+        mid = "default_policy"
+        w_card = group.get_state()["module"][mid]
+        w_cpu = cpu.get_state()["module"][mid]
+        require(all(np.array_equal(w_card[k], w_cpu[k]) for k in w_cpu),
+                "the card learner's initial weights are not the CPU's")
+        rng = np.random.default_rng(SEED)
+        holds = []
+        for i in range(REMOTE_LEARNER_UPDATES):
+            n = 512
+            batch = {
+                "obs": rng.standard_normal((n, 16)).astype(np.float32),
+                "actions": rng.integers(0, 6, n).astype(np.int32),
+                "action_logp": rng.uniform(-2.5, -1.0, n).astype(
+                    np.float32),
+                "advantages": rng.standard_normal(n).astype(np.float32),
+                "value_targets": rng.standard_normal(n).astype(
+                    np.float32)}
+            g_card = rt.get(group._workers[0].compute_gradients.remote(
+                batch))[mid]
+            res = group.update_from_batch(batch)
+            require(res == {mid: {"workers": 1.0}},
+                    f"learner group update {i}: {res}")
+            g_cpu = cpu.compute_gradients(batch)
+            cpu.apply_gradients(g_cpu)
+            g_cpu = g_cpu[mid]
+            holds.append(hold_update(
+                f"remote_learner_update_{i}",
+                ({}, cpu.get_state()["module"][mid],
+                 {f"grad.{k}": v for k, v in g_cpu.items()}),
+                ({}, group.get_state()["module"][mid],
+                 {f"grad.{k}": v for k, v in g_card.items()})))
+        out["updates_held"] = len(holds)
+        out["worst_gap_of_scale"] = max(h["worst_gap_of_scale"]
+                                        for h in holds)
+    finally:
+        group.shutdown()
+    return out
+
+
+def sync_to_cpu_workers(algo, out):
+    """Phase 24a's WorkerSet half (``remote_learner_parity``): perturbed
+    card weights, ``sync_weights``, the CPU workers' weights byte-equal
+    to the learner's host copy."""
+    import torch
+    import ray_tpu_torch as rt
+    policy = algo.get_policy()
+    require(policy.device.type == "cuda",
+            f"the learner's policy is on {policy.device}")
+    with torch.no_grad():
+        gen = torch.Generator(policy.device).manual_seed(SEED)
+        for prm in policy.model.parameters():
+            prm.add_(0.01 * torch.randn(prm.shape, generator=gen,
+                                        device=prm.device))
+    algo.workers.sync_weights()
+    host = policy.get_weights()
+    workers = algo.workers.remote_workers
+    held = rt.get([w.get_weights.remote() for w in workers])
+    where = rt.get([w.apply.remote(lambda w: str(w.policy.device))
+                    for w in workers])
+    require(where == ["cpu", "cpu"],
+            f"the rollout workers' policies are on {where}")
+    require(all(w.keys() == host.keys() and all(
+        w[k].dtype == host[k].dtype and np.array_equal(w[k], host[k])
+        for k in host) for w in held),
+        "after sync_weights a rollout worker's weights differ from the "
+        "card learner's host copy")
+    out["synced_workers_byte_equal"] = len(held)
+
+
+def hold_remote_algo(algo, r) -> dict:
+    """Phase 24d's checks of one algorithm's keys in
+    bench.remote_algo_loops' result: the learner on the card, 2 remote workers, weights that moved, the
+    workers holding the learner's weights after a sync, and the steps
+    and learner counts each timed iteration must show for the config.
+    Returns env steps/s and the counts."""
+    pre = algo.lower().replace("-", "_")
+    c, cfg = r[f"{pre}_counts"], r[f"{pre}_config"]
+    steps = r[f"{pre}_env_steps_per_iter"]
+    require(r[f"{pre}_learner_device"].startswith("cuda")
+            and r[f"{pre}_num_workers"] == 2
+            and r[f"{pre}_weights_moved"] > 0
+            and r[f"{pre}_workers_hold_learner_weights"]
+            and r[f"{pre}_launches"] == {}, f"{algo}: {r}")
+    frag = cfg.get("rollout_fragment_length")
+    if algo == "DDPPO":
+        ok = (set(steps) == {2 * frag * cfg["num_envs_per_worker"]}
+              and set(c["num_ddppo_workers"]) == {2})
+    elif algo.startswith("Apex"):
+        n, k = c["num_learner_steps"], cfg["train_intensity_per_iter"]
+        ok = (n[0] >= k and all(b - a == k for a, b in zip(n, n[1:]))
+              and all(0 < x <= 8 * frag for x in steps))
+    elif algo == "A3C":
+        ok = all(1 <= g <= cfg["max_grads_per_step"] and x == g * frag
+                 for g, x in zip(c["num_grads_applied"], steps))
+    elif algo in ("ES", "ARS"):
+        ok = set(c["episodes_this_iter"]) == {
+            2 * 2 * cfg["rollouts_per_worker"]}
+    else:
+        ok = (set(c["evaluation_episodes"]) == {
+            cfg["evaluation_num_episodes"]}
+            and set(steps) == {cfg["train_batch_size"]})
+    require(ok, f"{algo}: counts {c}, steps {steps}, config {cfg}")
+    return {"env_steps_per_sec": r[f"{pre}_env_steps_per_sec"],
+            "counts": c}
+
+
+def rl_remote_phase(name, card, phase15, phase16) -> dict:
+    """Phase 24 (module docstring): RLlib's runtime half on this card,
+    on one cluster of REMOTE_CPUS CPUs. ``phase15``: bench.ppo_loop's
+    result in this process (the one-local-worker form); ``phase16``:
+    bench.impala_loop's. Returns the printed measurements."""
+    import gc
+    import torch
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import bench, kernels
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    kernels.reset_launch_counts()
+    rt.init(num_cpus=REMOTE_CPUS, object_store_memory=bench.store_bytes())
+    try:
+        res = rt.cluster_resources()
+        require(res.get("GPU") == 1.0 and res.get("CPU") == REMOTE_CPUS,
+                f"cluster_resources: {res}")
+        # 24a
+        learner = remote_learner_parity(name, card)
+
+        # 24b
+        def show(tag, r, key):
+            profile = r.pop(key, None)
+            print(tag, json.dumps({**r, "device": name, "nvidia_smi": card}),
+                  flush=True)
+            if profile is not None:
+                print(tag.replace("_train", "_profile"),
+                      json.dumps(profile), flush=True)
+            return profile
+
+        p = bench.ppo_remote_loop(profile=lambda learn: profile_step(
+            learn, PPO_PROFILE_GROUPS))
+        ppo_profile = show("ppo_remote_train", p, "ppo_remote_profile")
+        require(p["ppo_remote_obs_shape"] == [84, 84, 4]
+                and p["ppo_remote_num_workers"] == 10
+                and p["ppo_remote_num_envs_per_worker"] == 5
+                and p["ppo_remote_env_steps_per_iter"] == 5000
+                and p["ppo_remote_minibatch"] == 500
+                and p["ppo_remote_num_sgd_iter"] == 10,
+                f"ppo remote widths: {p}")
+        require(all(math.isfinite(x) for x in p["ppo_remote_total_losses"]),
+                f"ppo remote: non-finite loss {p['ppo_remote_total_losses']}")
+        require(p["ppo_remote_weights_moved"] > 0,
+                "ppo remote: the weights did not move")
+        require(p["ppo_remote_workers_hold_learner_weights"],
+                "ppo remote: a worker's weights differ from the learner's "
+                "after sync_weights")
+        ppo = {
+            "remote_env_steps_per_sec": p["ppo_remote_env_steps_per_sec"],
+            "local_env_steps_per_sec": phase15["ppo_env_steps_per_sec"],
+            "remote_vs_local": p["ppo_remote_env_steps_per_sec"]
+            / phase15["ppo_env_steps_per_sec"],
+            "remote_timers_ms": {k: p[f"ppo_remote_{k}"] for k in (
+                "sample_time_ms", "postprocess_time_ms", "learn_time_ms")},
+            "local_timers_ms": {k: phase15[f"ppo_{k}"] for k in (
+                "sample_time_ms", "postprocess_time_ms", "learn_time_ms")},
+            "remote_sample_share": p["ppo_remote_sample_share"],
+            "remote_learn_idle_share": ppo_profile["device_idle_share"],
+            "actor_start_s_max": max(p["ppo_remote_actor_start_s"])}
+        print("ppo_remote_vs_local", json.dumps({
+            **ppo, "device": name, "nvidia_smi": card}), flush=True)
+
+        # 24c
+        i = bench.impala_remote_loop()
+        show("impala_remote_train", i, "impala_remote_profile")
+        require(i["impala_remote_obs_shape"] == [84, 84, 4]
+                and i["impala_remote_num_envs_per_worker"] == 5
+                and i["impala_remote_num_workers"] == min(
+                    bench.IMPALA_YAML_WORKERS,
+                    max(1, bench.usable_cpus() - 2)),
+                f"impala remote widths: {i}")
+        require(all(math.isfinite(x)
+                    for x in i["impala_remote_total_losses"]),
+                "impala remote: non-finite loss "
+                f"{i['impala_remote_total_losses']}")
+        require(i["impala_remote_weights_moved"] > 0
+                and i["impala_remote_learner_steps"] > 0
+                and i["impala_remote_learner_rows_trained"] > 0,
+                f"impala remote: the learner thread did not learn: {i}")
+        impala = {
+            "remote_env_steps_per_sec": i["impala_remote_env_steps_per_sec"],
+            "local_env_steps_per_sec": phase16["impala_env_steps_per_sec"],
+            "remote_vs_local": i["impala_remote_env_steps_per_sec"]
+            / phase16["impala_env_steps_per_sec"],
+            "workers_cut": i["impala_remote_workers_cut"],
+            "learner_queue_size_by_iter":
+                i["impala_remote_learner_queue_size_by_iter"],
+            "learner_queue_wait_s": i["impala_remote_learner_queue_wait_s"],
+            "learner_time_s": i["impala_remote_learner_time_s"],
+            "window_s": i["impala_remote_window_s"]}
+        print("impala_remote_vs_local", json.dumps({
+            **impala, "device": name, "nvidia_smi": card}), flush=True)
+
+        # 24d
+        small = {}
+        loops = bench.remote_algo_loops()
+        for algo in bench.REMOTE_ALGOS:
+            pre = algo.lower().replace("-", "_")
+            r = {k: v for k, v in loops.items() if k.startswith(pre + "_")}
+            show(f"{pre}_train", r, None)
+            small[algo] = hold_remote_algo(algo, r)
+    finally:
+        rt.shutdown()
+    # 24e
+    launches = kernels.launch_counts()
+    require(launches == {}, f"phase 24 launched {launches}")
+    out = {"phase_s": time.perf_counter() - t_phase, "learner": learner,
+           "ppo": ppo, "impala": impala, "small": small,
+           "launches": launches}
+    print("rl_remote", json.dumps({**out, "device": name,
+                                   "nvidia_smi": card}), flush=True)
+    return out
+
+
 def serve_streams(server, prompts, new_tokens: int):
     """One greedy stream of ``new_tokens`` per prompt, opened together
     on ``server`` and drained in turn, with the launch counts and the
@@ -3813,11 +4122,11 @@ def main() -> int:
 
     # 15. RLlib's local PPO path at the Atari widths: none of the port's
     # kernels
-    ppo_phase(name, card)
+    phase15 = ppo_phase(name, card)
 
     # 16. IMPALA/APPO, the learner thread and DQN at the Atari widths:
     # none of the port's kernels
-    rl_algos_phase(name, card)
+    phase16 = rl_algos_phase(name, card)["impala"]
 
     # 17. SAC and TD3 on Pendulum, CQL, CRR, MARWIL and BC offline: none
     # of the port's kernels
@@ -3847,6 +4156,12 @@ def main() -> int:
     # in a GPU-granted train worker that DataParallelTrainer.fit()
     # started, fed by the Dataset through iter_device_batches
     framework = framework_phase(name, card, g, phase11)
+
+    # 24. RLlib's runtime half: a learner actor on the card, PPO-Atari at
+    # 10 remote workers x 5 envs, IMPALA's async learner fed by remote
+    # workers, DDPPO, Ape-X DQN/DDPG, A3C, ES, ARS and evaluation workers:
+    # none of the port's kernels
+    rl_remote_phase(name, card, phase15, phase16)
 
     # 13. summary
     def kernel_entry(case, kname, source, line, by_path):

@@ -24,10 +24,14 @@ Ported so far:
   - sequence, pipeline and expert parallelism: ring attention over sp
     (``ops.ring_attention``), the pipelined LM trainer over pp
     (``parallel.pipeline``), the MoE layer over ep (``parallel.moe``);
-  - RLlib's local path (``rllib``): PPO through ``Algorithm`` and its
-    local rollout worker, and the RLModule / Learner stack, with the
-    policy on the card and the envs, connectors and GAE on the host;
-    ``bench.ppo_loop`` runs it at the Atari widths;
+  - RLlib (``rllib``): PPO through ``Algorithm`` and its local
+    rollout worker, and the RLModule / Learner stack, with the policy
+    on the card and the envs, connectors and GAE on the host;
+    ``bench.ppo_loop`` runs it at the Atari widths; on the runtime,
+    remote rollout and evaluation workers (CPU actors), remote learners
+    (one GPU each), IMPALA's async learner, A3C, DDPPO, Ape-X and
+    ES/ARS (``bench.ppo_remote_loop``: atari-ppo.yaml's 10 workers x 5
+    envs);
   - the runtime (``init``, ``remote``, ``get``, ``put``, ``wait``,
     ``kill``, actors, placement groups; the GCS, raylet and worker
     processes under ``_private/``), copied from the JAX package's, with

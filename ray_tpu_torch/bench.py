@@ -9,14 +9,19 @@ compute, f32 params), batch 256 at 224 x 224, SGD-Nesterov through
 ``make_image_classifier_trainer``; ``gpt2_loop``: GPT-2 small at batch
 16 x 1024 through ``make_causal_lm_trainer``; ``ppo_loop``: PPO on the
 pixel env at the Atari widths (84 x 84 x 4, Nature CNN, batch 5,000,
-minibatch 500 x 10) through ``rllib.PPO``, env steps per second (the
-host's env, connectors and GAE included); ``impala_loop``: IMPALA (or
-APPO) on the same env and network, fragments of 50 and a train batch
-of 500 (upstream Ray's ``rllib/tuned_examples/impala/atari-impala.yaml``;
-cut: the yaml's remote workers run as one local worker of 10 envs, so
-each learn step takes 500 rows); ``dqn_loop``: DQN on the same env and
-network (the logits head as Q-values), the JAX package's ``DQNConfig``
-defaults (fragments of 4, train batch 32, double-Q, a uniform replay
+minibatch 500 x 10) through ``rllib.PPO`` with one local worker of 50
+envs, env steps per second (the host's env, connectors and GAE
+included), and ``ppo_remote_loop`` the same at atari-ppo.yaml's 10
+remote rollout workers x 5 envs on the port's runtime;
+``impala_loop``: IMPALA (or APPO) on the same env and network,
+fragments of 50 and a train batch of 500 (upstream Ray's
+``rllib/tuned_examples/impala/atari-impala.yaml``) with one local
+worker of 10 envs, so each learn step takes 500 rows, and
+``impala_remote_loop`` the yaml's remote workers of 5 envs (cut to the
+machine's CPUs) feeding the async learner thread; ``dqn_loop``: DQN on
+the same env and network (the logits head as Q-values), the JAX
+package's ``DQNConfig`` defaults (fragments of 4, train batch 32,
+double-Q, a uniform replay
 buffer of 50,000 rows on the host, 1,000 rows before learning, a target
 sync every 500 env steps, epsilon over 10,000 steps) with 8 envs; cut
 against upstream's ``rllib/tuned_examples/dqn/atari-dqn.yaml``: its
@@ -48,8 +53,9 @@ from ``default_rng(0)`` as a ``data.from_items`` Dataset, and a
 (``_train_loop_per_worker``) runs ``resnet_loop`` on the shard's device
 batches (``iter_device_batches``, cached and cycled) and then
 ``gpt2_loop``, and reports both. ``main`` runs the raw control
-(``resnet_loop`` in this process), the framework path, then
-``ppo_loop``, ``impala_loop`` and ``dqn_loop``, and prints one JSON line
+(``resnet_loop`` in this process), the framework path, then the PPO
+and IMPALA loops (local and remote) and ``dqn_loop``, and prints one
+JSON line
 whose ``value`` is the framework's img/s/chip, beside
 ``raw_img_per_sec_per_chip`` and ``framework_vs_raw``.
 
@@ -70,6 +76,7 @@ card's dense bf16 peak, for the cards in ``_PEAK_BF16`` only.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import itertools
 import json
@@ -440,30 +447,92 @@ def _median(runs, key, sub=None) -> float:
     return float(np.median([(r[sub] if sub else r)[key] for r in runs]))
 
 
-def ppo_atari_config(device="cuda"):
+def usable_cpus() -> int:
+    """The CPUs this process may use: its affinity, cut to the cgroup's
+    quota where one is set (``/sys/fs/cgroup/cpu.max``)."""
+    n = len(os.sched_getaffinity(0))
+    try:
+        with open("/sys/fs/cgroup/cpu.max") as f:
+            quota, period = f.read().split()[:2]
+        if quota != "max":
+            n = min(n, max(1, int(quota) // int(period)))
+    except (OSError, ValueError):
+        pass
+    return n
+
+
+def store_bytes(cap: int = 2 << 30) -> int:
+    """The object store's size for the RL loops: ``cap``, or half of
+    ``/dev/shm``'s free bytes where that is less."""
+    if not os.path.isdir("/dev/shm"):
+        return cap
+    st = os.statvfs("/dev/shm")
+    return min(cap, st.f_bavail * st.f_frsize // 2)
+
+
+@contextlib.contextmanager
+def rl_cluster(num_cpus: int):
+    """The port's runtime for a remote RL loop: the cluster that is up,
+    or a new one of ``num_cpus`` CPUs (shut down on exit)."""
+    import ray_tpu_torch as rt
+    if rt.is_initialized():
+        yield
+        return
+    rt.init(num_cpus=num_cpus, object_store_memory=store_bytes())
+    try:
+        yield
+    finally:
+        rt.shutdown()
+
+
+def actor_starts(actors, since: float) -> list:
+    """Seconds from ``since`` (a ``perf_counter`` reading taken before
+    the actors were made) to each actor's first ``ping`` reply, in the
+    order they answered."""
+    import ray_tpu_torch as rt
+    pending = [a.ping.remote() for a in actors]
+    out = []
+    while pending:
+        done, pending = rt.wait(pending, num_returns=1, timeout=300)
+        if not done:
+            raise TimeoutError(f"{len(pending)} actors did not start")
+        rt.get(done)
+        out.append(time.perf_counter() - since)
+    return out
+
+
+def ppo_atari_config(device="cuda", num_workers=None,
+                     num_envs_per_worker=None):
     """PPO on PixelCatcher-v0 at the standard Atari widths: 84 x 84
     grayscale frames, 4 stacked (``FrameStackConnector(4)``), the
-    Nature-CNN policy (bf16 trunk, f32 heads). The batch settings are
-    upstream Ray's ``rllib/tuned_examples/ppo/atari-ppo.yaml``: train
-    batch 5,000, fragments of 100, 10 workers x 5 envs, minibatch 500 x
-    10 epochs, clip 0.1, vf clip 10, entropy 0.01, lambda 0.95. Remote
-    workers need the runtime, so one local worker steps the 50 envs.
-    The yaml's ``kl_coeff`` has no counterpart in the loss (which only
-    reports ``kl``). On ``cpu``: 21 x 21 frames (``ResizeObsConnector``),
-    2 stacked, 4 envs x 16 steps, minibatch 32 x 1 (the tests' size)."""
+    Nature-CNN policy (bf16 trunk, f32 heads). The settings are upstream
+    Ray's ``rllib/tuned_examples/ppo/atari-ppo.yaml``: train batch 5,000,
+    fragments of 100, 10 workers x 5 envs (the default on ``cuda``:
+    remote rollout workers, each an actor on the CPU, the learner on
+    the card), minibatch 500 x 10 epochs, clip 0.1, vf clip 10, entropy
+    0.01, lambda 0.95. ``num_workers=0, num_envs_per_worker=50`` is the
+    one-local-worker form, where the learner's process steps the 50
+    envs itself. The yaml's ``kl_coeff`` has no counterpart in the loss
+    (which only reports ``kl``). On ``cpu``: 21 x 21 frames
+    (``ResizeObsConnector``), 2 stacked, fragments of 16, minibatch 32
+    x 1, and by default one local worker of 4 envs (the tests' size)."""
     from ray_tpu_torch.rllib import (FrameStackConnector, PPOConfig,
                                      ResizeObsConnector)
     dev = resolve_device(device)
     if dev.type == "cuda":
         obs = [FrameStackConnector(4)]
         sizes = dict(train_batch_size=5000, rollout_fragment_length=100,
-                     num_envs_per_worker=50, sgd_minibatch_size=500,
-                     num_sgd_iter=10)
+                     num_workers=10, num_envs_per_worker=5,
+                     sgd_minibatch_size=500, num_sgd_iter=10)
     else:
         obs = [ResizeObsConnector(21, 21), FrameStackConnector(2)]
         sizes = dict(train_batch_size=64, rollout_fragment_length=16,
-                     num_envs_per_worker=4, sgd_minibatch_size=32,
-                     num_sgd_iter=1)
+                     num_workers=0, num_envs_per_worker=4,
+                     sgd_minibatch_size=32, num_sgd_iter=1)
+    if num_workers is not None:
+        sizes["num_workers"] = num_workers
+    if num_envs_per_worker is not None:
+        sizes["num_envs_per_worker"] = num_envs_per_worker
     return (PPOConfig().environment("PixelCatcher-v0")
             .rollouts(connectors={"obs": obs}, **sizes)
             .training(clip_param=0.1, vf_clip_param=10.0,
@@ -471,8 +540,83 @@ def ppo_atari_config(device="cuda"):
             .resources(device=str(dev)).debugging(seed=0))
 
 
+def _ppo_run(prefix, config, dev, timed, profile) -> dict:
+    """Builds ``config`` and runs one warm-up and ``timed`` iterations of
+    it through ``Algorithm.step``; the keys of ``ppo_loop`` under
+    ``prefix``. With remote workers also: their count, each actor's
+    start (``actor_starts`` from the build's start) and the sampling
+    share of each timed iteration."""
+    t0 = time.perf_counter()
+    algo = config.build()
+    remote = algo.workers.remote_workers
+    starts = actor_starts(remote, t0) if remote else []
+    policy = algo.get_policy()
+    w0 = policy.get_weights()
+    t0 = time.perf_counter()
+    algo.step()
+    warmup_s = time.perf_counter() - t0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    before = kernels.launch_counts()
+    runs = [algo.step() for _ in range(timed)]
+    launches = _launches_since(before)
+    cfg = algo.config
+    out = {
+        "platform": dev.type, "device_kind": _device_kind(dev),
+        "env": cfg["env"],
+        "obs_shape": list(policy.observation_space.shape),
+        "num_workers": len(remote),
+        "num_envs": cfg["num_envs_per_worker"] * max(1, len(remote)),
+        "num_envs_per_worker": cfg["num_envs_per_worker"],
+        "env_steps_per_iter": runs[-1]["num_env_steps_sampled_this_iter"],
+        "minibatch": cfg["sgd_minibatch_size"],
+        "num_sgd_iter": cfg["num_sgd_iter"],
+        "iters_timed": timed, "warmup_s": warmup_s,
+        "env_steps_per_sec": _median(runs, "env_steps_per_sec"),
+        "env_steps_per_sec_by_iter": [r["env_steps_per_sec"]
+                                      for r in runs],
+        **{k: _median(runs, k, "timers") for k in runs[0]["timers"]},
+        "timers_by_iter": [r["timers"] for r in runs],
+        "total_losses": [r["learner/total_loss"] for r in runs],
+        "episode_reward_mean": runs[-1]["episode_reward_mean"],
+        "weights_moved": _moved(w0, policy.get_weights()),
+        "launches": launches,
+    }
+    if remote:
+        shares = [r["timers"]["sample_time_ms"]
+                  / sum(r["timers"].values()) for r in runs]
+        out.update({"actor_start_s": starts, "sample_share_by_iter": shares,
+                    "sample_share": float(np.median(shares)),
+                    "workers_hold_learner_weights": all(
+                        _same_weights(w, policy.get_weights()) for w in
+                        _remote_weights(remote))})
+    if dev.type == "cuda":
+        out["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated(
+            dev)
+    if profile is not None:
+        from ray_tpu_torch.rllib import synchronous_parallel_sample
+        batch = synchronous_parallel_sample(
+            algo.workers, max_env_steps=cfg["train_batch_size"])
+        out["profile"] = profile(lambda: algo._sgd_epochs(policy, batch))
+    algo.cleanup()
+    return {f"{prefix}_{k}": v for k, v in out.items()}
+
+
+def _remote_weights(workers) -> list:
+    import ray_tpu_torch as rt
+    return rt.get([w.get_weights.remote() for w in workers])
+
+
+def _same_weights(a, b) -> bool:
+    """Byte-equal weight dicts."""
+    return a.keys() == b.keys() and all(
+        a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in a)
+
+
 def ppo_loop(device="cuda", profile=None) -> dict:
-    """PPO-Atari throughput through ``Algorithm.step`` (``ppo_atari_config``).
+    """PPO-Atari throughput through ``Algorithm.step``
+    (``ppo_atari_config``) in the one-local-worker form: one worker of
+    50 envs in the learner's process on ``cuda`` (4 on ``cpu``).
 
     One warm-up iteration, then timed ones (3 on ``cuda``, 1 on
     ``cpu``); ``ppo_launches`` counts the kernels' launches in them (the
@@ -486,63 +630,49 @@ def ppo_loop(device="cuda", profile=None) -> dict:
     iterations); its result is kept under ``ppo_profile``. The JAX
     package has no such bench, so these numbers stand alone."""
     dev = resolve_device(device)
-    algo = ppo_atari_config(dev).build()
-    policy = algo.get_policy()
-    w0 = policy.get_weights()
-    timed = 3 if dev.type == "cuda" else 1
-    t0 = time.perf_counter()
-    algo.step()
-    warmup_s = time.perf_counter() - t0
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
-    before = kernels.launch_counts()
-    runs = [algo.step() for _ in range(timed)]
-    launches = _launches_since(before)
-    cfg = algo.config
-    out = {
-        "ppo_platform": dev.type, "ppo_device_kind": _device_kind(dev),
-        "ppo_env": cfg["env"],
-        "ppo_obs_shape": list(policy.observation_space.shape),
-        "ppo_num_envs": cfg["num_envs_per_worker"],
-        "ppo_env_steps_per_iter": runs[-1]["num_env_steps_sampled_this_iter"],
-        "ppo_minibatch": cfg["sgd_minibatch_size"],
-        "ppo_num_sgd_iter": cfg["num_sgd_iter"],
-        "ppo_iters_timed": timed, "ppo_warmup_s": warmup_s,
-        "ppo_env_steps_per_sec": _median(runs, "env_steps_per_sec"),
-        "ppo_env_steps_per_sec_by_iter": [r["env_steps_per_sec"]
-                                          for r in runs],
-        **{f"ppo_{k}": _median(runs, k, "timers")
-           for k in runs[0]["timers"]},
-        "ppo_timers_by_iter": [r["timers"] for r in runs],
-        "ppo_total_losses": [r["learner/total_loss"] for r in runs],
-        "ppo_episode_reward_mean": runs[-1]["episode_reward_mean"],
-        "ppo_weights_moved": _moved(w0, policy.get_weights()),
-        "ppo_launches": launches,
-    }
-    if dev.type == "cuda":
-        out["ppo_max_memory_allocated_bytes"] = (
-            torch.cuda.max_memory_allocated(dev))
-    if profile is not None:
-        from ray_tpu_torch.rllib import synchronous_parallel_sample
-        batch = synchronous_parallel_sample(
-            algo.workers, max_env_steps=cfg["train_batch_size"])
-        out["ppo_profile"] = profile(
-            lambda: algo._sgd_epochs(policy, batch))
-    algo.cleanup()
-    return out
+    n_envs = 50 if dev.type == "cuda" else 4
+    return _ppo_run("ppo", ppo_atari_config(dev, 0, n_envs), dev,
+                    3 if dev.type == "cuda" else 1, profile)
 
 
-def impala_atari_config(device="cuda", algo="IMPALA"):
+def ppo_remote_loop(device="cuda", profile=None) -> dict:
+    """``ppo_loop`` at atari-ppo.yaml's topology: 10 remote rollout
+    workers x 5 envs (on ``cpu``: 2 x 2), each an actor of the port's
+    runtime on the CPU with one torch thread, the learner on ``device``.
+    Runs on the cluster that is up, else on a new one of as many CPUs
+    as workers. Keys as ``ppo_loop``'s under ``ppo_remote_``, plus
+    ``ppo_remote_num_workers``, ``ppo_remote_actor_start_s`` (each
+    actor's first ``ping`` reply, from the build's start),
+    ``ppo_remote_sample_share`` (the median share of a timed
+    iteration's host time spent waiting for the workers' batches, GAE
+    included: it runs in the workers) and whether every worker holds
+    the learner's weights byte for byte after the last iteration's
+    ``sync_weights``. Timed iterations: 3 on ``cuda``, 1 on ``cpu``."""
+    dev = resolve_device(device)
+    workers, envs = (10, 5) if dev.type == "cuda" else (2, 2)
+    with rl_cluster(workers):
+        return _ppo_run("ppo_remote", ppo_atari_config(dev, workers, envs),
+                        dev, 3 if dev.type == "cuda" else 1, profile)
+
+
+IMPALA_YAML_WORKERS = 32   # atari-impala.yaml's num_workers
+
+
+def impala_atari_config(device="cuda", algo="IMPALA", num_workers=0):
     """IMPALA (``algo="APPO"``: APPO, clip 0.3) on PixelCatcher-v0 at the
     Atari widths: 84 x 84 grayscale frames, 4 stacked, the Nature-CNN
-    policy (bf16 trunk, f32 heads). The batch settings are upstream
-    Ray's ``rllib/tuned_examples/impala/atari-impala.yaml``: fragments
-    of 50, a train batch of 500; the loss coefficients, ``grad_clip`` 40
-    and ``lr`` 5e-4 are ``IMPALAConfig``'s defaults. Cut: the yaml's
-    remote workers run as one local worker of 10 envs (remote workers
-    need the runtime, A1), so each iteration samples 500 rows and
-    learns on them once. On ``cpu``: 21 x 21 frames, 2 stacked, 2 envs
-    x 16 steps (the tests' size)."""
+    policy (bf16 trunk, f32 heads); the loss coefficients, ``grad_clip``
+    40 and ``lr`` 5e-4 are ``IMPALAConfig``'s defaults. The batch
+    settings are upstream Ray's
+    ``rllib/tuned_examples/impala/atari-impala.yaml``: fragments of 50
+    and a train batch of 500. ``num_workers=0`` (the default): one local
+    worker of 10 envs, so each iteration samples 500 rows and learns on
+    them once (the sync path). ``num_workers > 0``: remote rollout
+    workers of 5 envs each (the yaml's 32 x 5 at ``num_workers=32``)
+    and the async learner thread; each reaped batch (5 x 50 = 250 rows)
+    is one learn step, as the JAX package's async branch learns on each
+    batch it reaps. On ``cpu``: 21 x 21 frames, 2 stacked, 2 envs x 16
+    steps (the tests' size)."""
     from ray_tpu_torch.rllib import (FrameStackConnector,
                                      ResizeObsConnector)
     from ray_tpu_torch.rllib.algorithms import APPOConfig, IMPALAConfig
@@ -550,74 +680,290 @@ def impala_atari_config(device="cuda", algo="IMPALA"):
     if dev.type == "cuda":
         obs = [FrameStackConnector(4)]
         sizes = dict(train_batch_size=500, rollout_fragment_length=50,
-                     num_envs_per_worker=10)
+                     num_envs_per_worker=5 if num_workers else 10)
     else:
         obs = [ResizeObsConnector(21, 21), FrameStackConnector(2)]
         sizes = dict(train_batch_size=32, rollout_fragment_length=16,
                      num_envs_per_worker=2)
     config = {"IMPALA": IMPALAConfig, "APPO": APPOConfig}[algo]()
     return (config.environment("PixelCatcher-v0")
-            .rollouts(connectors={"obs": obs}, num_workers=0, **sizes)
+            .rollouts(connectors={"obs": obs}, num_workers=num_workers,
+                      **sizes)
             .resources(device=str(dev)).debugging(seed=0))
 
 
-def impala_loop(device="cuda", profile=None, algo="IMPALA",
-                timed=None) -> dict:
-    """IMPALA-Atari (or APPO) throughput through ``Algorithm.step``
-    (``impala_atari_config``): one warm-up iteration, then ``timed``
-    ones (default 10 on ``cuda``, 1 on ``cpu``). Keys as ``ppo_loop``'s
-    with the prefix ``impala_``: the median env steps/s, the split of an
-    iteration (IMPALA's ``timers``: sample, postprocess, learn; V-trace
-    is not timed apart here: chip_smoke.py times it alone), the losses,
-    weights that moved, the kernels' launches in the timed iterations
-    (read, not zeroed) and the peak memory. ``profile``: a function
-    called with one learn phase (``learn_on_batch`` on a fresh 500-row
-    batch with its cuts); its result is kept under
-    ``impala_profile``."""
+def _impala_run(prefix, config, dev, timed, profile, algo) -> dict:
+    """Builds ``config`` and runs one warm-up and ``timed`` iterations;
+    the keys of ``impala_loop`` under ``prefix``. On the async path
+    (remote workers) also their count and starts, the learner thread's
+    steps, rows trained and empty-queue wait over the timed iterations
+    and its queue's depth after each."""
     from ray_tpu_torch.rllib.algorithms.impala import _mark_cuts
-    dev = resolve_device(device)
-    algo_obj = impala_atari_config(dev, algo).build()
+    t0 = time.perf_counter()
+    algo_obj = config.build()
+    remote = algo_obj.workers.remote_workers
+    starts = actor_starts(remote, t0) if remote else []
     policy = algo_obj.get_policy()
     w0 = policy.get_weights()
-    timed = timed or (10 if dev.type == "cuda" else 1)
     t0 = time.perf_counter()
     algo_obj.step()
     warmup_s = time.perf_counter() - t0
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
+    learner = algo_obj._learner
+    m0 = learner.metrics() if learner is not None else None
     before = kernels.launch_counts()
+    t0 = time.perf_counter()
     runs = [algo_obj.step() for _ in range(timed)]
+    window_s = time.perf_counter() - t0
     launches = _launches_since(before)
     cfg = algo_obj.config
     out = {
-        "impala_algo": algo, "impala_platform": dev.type,
-        "impala_device_kind": _device_kind(dev), "impala_env": cfg["env"],
-        "impala_obs_shape": list(policy.observation_space.shape),
-        "impala_num_envs": cfg["num_envs_per_worker"],
-        "impala_env_steps_per_iter":
-            runs[-1]["num_env_steps_sampled_this_iter"],
-        "impala_iters_timed": timed, "impala_warmup_s": warmup_s,
-        "impala_env_steps_per_sec": _median(runs, "env_steps_per_sec"),
-        "impala_env_steps_per_sec_by_iter": [r["env_steps_per_sec"]
-                                             for r in runs],
-        **{f"impala_{k}": _median(runs, k, "timers")
-           for k in runs[0]["timers"]},
-        "impala_timers_by_iter": [r["timers"] for r in runs],
-        "impala_total_losses": [r["learner/total_loss"] for r in runs],
-        "impala_policy_losses": [r["learner/policy_loss"] for r in runs],
-        "impala_vf_losses": [r["learner/vf_loss"] for r in runs],
-        "impala_episode_reward_mean": runs[-1]["episode_reward_mean"],
-        "impala_weights_moved": _moved(w0, policy.get_weights()),
-        "impala_launches": launches,
+        "algo": algo, "platform": dev.type,
+        "device_kind": _device_kind(dev), "env": cfg["env"],
+        "obs_shape": list(policy.observation_space.shape),
+        "num_workers": len(remote),
+        "num_envs": cfg["num_envs_per_worker"] * max(1, len(remote)),
+        "num_envs_per_worker": cfg["num_envs_per_worker"],
+        "env_steps_per_iter": runs[-1]["num_env_steps_sampled_this_iter"],
+        "iters_timed": timed, "warmup_s": warmup_s,
+        "env_steps_per_sec": _median(runs, "env_steps_per_sec"),
+        "env_steps_per_sec_by_iter": [r["env_steps_per_sec"]
+                                      for r in runs],
+        **{k: _median(runs, k, "timers") for k in runs[0]["timers"]},
+        "timers_by_iter": [r["timers"] for r in runs],
+        "total_losses": [r["learner/total_loss"] for r in runs],
+        "policy_losses": [r["learner/policy_loss"] for r in runs],
+        "vf_losses": [r["learner/vf_loss"] for r in runs],
+        "episode_reward_mean": runs[-1]["episode_reward_mean"],
+        # the learner thread's weights are read under its lock
+        "weights_moved": _moved(w0, (learner or policy).get_weights()),
+        "launches": launches,
     }
+    if learner is not None:
+        m1 = learner.metrics()
+        out.update({
+            "actor_start_s": starts,
+            "env_steps_sampled": sum(r["num_env_steps_sampled_this_iter"]
+                                     for r in runs),
+            "window_s": window_s,
+            "learner_steps": m1["num_learner_steps"]
+            - m0["num_learner_steps"],
+            "learner_rows_trained": m1["num_samples_trained"]
+            - m0["num_samples_trained"],
+            "learner_time_s": m1["learn_time_total_s"]
+            - m0["learn_time_total_s"],
+            "learner_queue_wait_s": m1["learner_queue_wait_total_s"]
+            - m0["learner_queue_wait_total_s"],
+            "learner_queue_size_by_iter": [
+                r["learner/learner_queue_size"] for r in runs],
+            "learner_queue_capacity": cfg["learner_queue_size"]})
     if dev.type == "cuda":
-        out["impala_max_memory_allocated_bytes"] = (
-            torch.cuda.max_memory_allocated(dev))
+        out["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated(
+            dev)
     if profile is not None:
-        batch = _mark_cuts(algo_obj.workers.local_worker.sample())
-        out["impala_profile"] = profile(
-            lambda: policy.learn_on_batch(batch))
+        if remote:
+            import ray_tpu_torch as rt
+            batch = _mark_cuts(rt.get(remote[0].sample.remote()))
+            learner.stop()
+            learner.join()
+        else:
+            batch = _mark_cuts(algo_obj.workers.local_worker.sample())
+        out["profile"] = profile(lambda: policy.learn_on_batch(batch))
     algo_obj.cleanup()
+    return {f"{prefix}_{k}": v for k, v in out.items()}
+
+
+def impala_loop(device="cuda", profile=None, algo="IMPALA",
+                timed=None) -> dict:
+    """IMPALA-Atari (or APPO) throughput through ``Algorithm.step``
+    (``impala_atari_config``, the one-local-worker form): one warm-up
+    iteration, then ``timed`` ones (default 10 on ``cuda``, 1 on
+    ``cpu``). Keys as ``ppo_loop``'s with the prefix ``impala_``: the
+    median env steps/s, the split of an iteration (IMPALA's ``timers``:
+    sample, postprocess, learn; V-trace is not timed apart here:
+    chip_smoke.py times it alone), the losses, weights that moved, the
+    kernels' launches in the timed iterations (read, not zeroed) and the
+    peak memory. ``profile``: a function called with one learn phase
+    (``learn_on_batch`` on a fresh 500-row batch with its cuts); its
+    result is kept under ``impala_profile``."""
+    dev = resolve_device(device)
+    return _impala_run("impala", impala_atari_config(dev, algo), dev,
+                       timed or (10 if dev.type == "cuda" else 1), profile,
+                       algo)
+
+
+def impala_remote_loop(device="cuda", profile=None) -> dict:
+    """IMPALA-Atari at atari-impala.yaml's topology: remote rollout
+    workers of 5 envs x fragments of 50 (on ``cpu``: 2 workers of 2 x
+    16) feeding the async learner thread on ``device``, 8 reaped batches
+    an iteration. The yaml's 32 workers are cut to ``usable_cpus() - 2``
+    where the machine has fewer than 34 CPUs (the driver and the
+    learner thread keep two); ``impala_remote_workers_cut`` says from
+    how many to how many. Runs on the cluster that is up, else on a new
+    one of as many CPUs as workers. Keys as ``impala_loop``'s under
+    ``impala_remote_``, plus the worker count, each actor's start, the
+    learner thread's steps, rows, time and empty-queue wait in the
+    timed window and its queue's depth after each iteration. Timed
+    iterations: 5 on ``cuda``, 1 on ``cpu``. ``profile``: one
+    ``learn_on_batch`` on a batch from one worker, after the learner
+    thread has stopped."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        workers = min(IMPALA_YAML_WORKERS, max(1, usable_cpus() - 2))
+    else:
+        workers = 2
+    with rl_cluster(workers):
+        out = _impala_run(
+            "impala_remote", impala_atari_config(dev, "IMPALA", workers),
+            dev, 5 if dev.type == "cuda" else 1, profile, "IMPALA")
+    if dev.type == "cuda":
+        out["impala_remote_workers_cut"] = (
+            None if workers == IMPALA_YAML_WORKERS
+            else {"yaml": IMPALA_YAML_WORKERS, "run": workers,
+                  "usable_cpus": usable_cpus()})
+    return out
+
+
+REMOTE_ALGOS = ("DDPPO", "ApexDQN", "ApexDDPG", "A3C", "ES", "ARS",
+                "PPO-eval")
+
+
+def remote_algo_config(algo, device="cuda"):
+    """The small remote configs: each algorithm's JAX config defaults
+    (2 remote workers; ``device`` the learner's) on CartPole-v1 (Ape-X
+    DDPG on Pendulum-v1), seed 0. ``"PPO-eval"``: PPO with 2 remote
+    rollout workers (fragments of 100, a train batch of 400, minibatch
+    128 x 5) and an evaluation WorkerSet of 2 greedy workers, 4 episodes
+    every iteration."""
+    from ray_tpu_torch.rllib import algorithms as A
+    dev = resolve_device(device)
+    config = {"DDPPO": A.DDPPOConfig, "ApexDQN": A.ApexDQNConfig,
+              "ApexDDPG": A.ApexDDPGConfig, "A3C": A.A3CConfig,
+              "ES": A.ESConfig, "ARS": A.ARSConfig,
+              "PPO-eval": A.PPOConfig}[algo]()
+    env = "Pendulum-v1" if algo == "ApexDDPG" else "CartPole-v1"
+    config.environment(env).resources(device=str(dev)).debugging(seed=0)
+    if algo == "PPO-eval":
+        config.rollouts(num_workers=2, rollout_fragment_length=100)
+        config.training(train_batch_size=400, sgd_minibatch_size=128,
+                        num_sgd_iter=5)
+        config.evaluation(evaluation_interval=1, evaluation_num_workers=2,
+                          evaluation_num_episodes=4)
+    return config
+
+
+def _remote_algo_run(algo, algo_obj, starts, dev, timed) -> dict:
+    """``remote_algo_loops``'s iterations and keys for one built
+    algorithm whose actors answered at ``starts``; cleans it up."""
+    from ray_tpu_torch.rllib.models import flat_params
+    policy = algo_obj.get_policy()
+    es = hasattr(algo_obj, "theta")
+    w0 = algo_obj.theta.copy() if es else policy.get_weights()
+    warm, t0 = 0, time.perf_counter()
+    while True:
+        r = algo_obj.step()
+        warm += 1
+        if r.get("num_learner_steps", 1) > 0 or warm >= 40:
+            break
+    warmup_s = time.perf_counter() - t0
+    before = kernels.launch_counts()
+    runs = [algo_obj.step() for _ in range(timed)]
+    launches = _launches_since(before)
+    counts = {k: [r[k] for r in runs] for k in (
+        "num_learner_steps", "num_grads_applied", "num_ddppo_workers",
+        "episodes_this_iter", "replay_size") if k in runs[0]}
+    if "evaluation" in runs[0]:
+        counts["evaluation_episodes"] = [
+            r["evaluation"]["episodes_this_eval"] for r in runs]
+    if es:
+        moved = float(np.max(np.abs(algo_obj.theta - w0)))
+        held = bool(np.array_equal(flat_params(policy.model),
+                                   algo_obj.theta))
+    else:
+        moved = _moved(w0, policy.get_weights())
+        algo_obj.workers.sync_weights()
+        sets = [algo_obj.workers]
+        if algo_obj.evaluation_workers is not None:
+            sets.append(algo_obj.evaluation_workers)
+        held = all(_same_weights(w, policy.get_weights())
+                   for ws in sets for w in _remote_weights(ws.remote_workers))
+    out = {
+        "platform": dev.type, "device_kind": _device_kind(dev),
+        "learner_device": str(getattr(policy, "device", dev)),
+        "env": algo_obj.config["env"], "num_workers": len(starts),
+        "actor_start_s": starts, "iters_before": warm,
+        "warmup_s": warmup_s, "iters_timed": timed,
+        "env_steps_per_iter": [r["num_env_steps_sampled_this_iter"]
+                               for r in runs],
+        "env_steps_per_sec": _median(runs, "env_steps_per_sec"),
+        "counts": counts, "weights_moved": moved,
+        "workers_hold_learner_weights": held, "launches": launches,
+        "config": {k: algo_obj.config.get(k) for k in (
+            "num_envs_per_worker", "rollout_fragment_length",
+            "train_batch_size", "learning_starts",
+            "train_intensity_per_iter", "max_grads_per_step",
+            "rollouts_per_worker", "evaluation_num_episodes")
+            if algo_obj.config.get(k) is not None},
+    }
+    algo_obj.cleanup()
+    prefix = algo.lower().replace("-", "_")
+    return {f"{prefix}_{k}": v for k, v in out.items()}
+
+
+def _rollout_actors(algo_obj) -> list:
+    """An algorithm's remote actors: its rollout workers (ES: its
+    perturbation workers)."""
+    if hasattr(algo_obj, "theta"):
+        return list(algo_obj._es_workers)
+    return list(algo_obj.workers.remote_workers)
+
+
+def remote_algo_loops(device="cuda") -> dict:
+    """Each of ``REMOTE_ALGOS`` (``remote_algo_config``) through
+    ``Algorithm.step``, their actors started together: every algorithm
+    is built first, so all their workers' processes start at once (each
+    start is mostly ``import torch``), then each runs iterations until
+    its learner has stepped once (Ape-X fills its replay to
+    ``learning_starts`` first; at most 40) and 3 timed ones, and is
+    cleaned up. A cluster that is up needs CPUs for all their rollout
+    workers at once (2 an algorithm, 4 for ``"PPO-eval"``; ES's hold
+    none: 12 in all); else one of 12 is started. Returns, under each
+    algorithm's lower-case name (``ppo_eval`` for ``"PPO-eval"``): env
+    steps/s (median), steps per iteration, the iterations before the
+    timed ones, weights that moved (the learner's; ES's ``theta``), the
+    workers' count and each one's start (from the first build's start),
+    the counts each iteration reports (``num_learner_steps``,
+    ``num_grads_applied``, ``num_ddppo_workers``,
+    ``episodes_this_iter``, the evaluation's episodes) by timed
+    iteration, whether every remote worker holds the learner's weights
+    byte for byte after a ``sync_weights`` (ES: the local policy holds
+    ``theta``; the evaluation workers too), the kernels' launches and
+    the learner's device."""
+    algos, timed = REMOTE_ALGOS, 3
+    import ray_tpu_torch as rt
+    dev = resolve_device(device)
+    out = {}
+    with rl_cluster(12):
+        t0 = time.perf_counter()
+        built = [remote_algo_config(a, dev).build() for a in algos]
+        actors = [_rollout_actors(b) for b in built]
+        owner = {}
+        pending = []
+        for i, acts in enumerate(actors):
+            for a in acts:
+                ref = a.ping.remote()
+                owner[ref] = i
+                pending.append(ref)
+        starts = [[] for _ in algos]
+        while pending:
+            done, pending = rt.wait(pending, num_returns=1, timeout=300)
+            if not done:
+                raise TimeoutError(f"{len(pending)} actors did not start")
+            rt.get(done)
+            starts[owner[done[0]]].append(time.perf_counter() - t0)
+        for a, b, st in zip(algos, built, starts):
+            out.update(_remote_algo_run(a, b, st, dev, timed))
     return out
 
 
@@ -2133,8 +2479,8 @@ def disagg_loop(device="cuda", prompts=None, new_tokens: int = 64) -> dict:
 
 
 def main(device="cuda"):
-    """The raw control, the framework path, PPO, IMPALA and DQN; one JSON
-    line. ``value`` is the framework path's img/s/chip, beside the raw
+    """The raw control, the framework path, PPO and IMPALA (one local
+    worker, then remote workers), DQN; one JSON line. ``value`` is the framework path's img/s/chip, beside the raw
     control's (``raw_img_per_sec_per_chip``) and their ratio
     (``framework_vs_raw``); the GPT-2 row is the framework worker's.
     Under torchrun (``WORLD_SIZE`` in the environment) the process group
@@ -2158,7 +2504,9 @@ def main(device="cuda"):
         res["framework_vs_raw"] = (res["img_per_sec_per_chip"]
                                    / raw["img_per_sec_per_chip"])
     res.update(ppo_loop(device))
+    res.update(ppo_remote_loop(device))
     res.update(impala_loop(device))
+    res.update(impala_remote_loop(device))
     res.update(dqn_loop(device))
     line = {"metric": METRIC, "value": res["img_per_sec_per_chip"],
             "unit": UNIT, **res}

@@ -1,4 +1,4 @@
-"""ray_tpu_torch.rllib — reinforcement learning on PyTorch, local path.
+"""ray_tpu_torch.rllib — reinforcement learning on PyTorch.
 
 Counterpart of ``ray_tpu/rllib`` (reference analogue: rllib/ —
 Algorithm, RolloutWorker/WorkerSet, SampleBatch, policies): the old
@@ -10,12 +10,15 @@ own env loops: R2D2, SlateQ, DT, the cooperative multi-agent QMIX and
 MADDPG, the meta-learners MAML and MBMPO, the model-based and planning
 Dreamer, AlphaZero and AlphaStar; the multi-agent worker, which PPO
 trains policy by policy) and the new one (``RLModule`` / ``PPOLearner``
-/ a local ``LearnerGroup``). The
-policy's forward, the loss, the backward and Adam run on
+/ a ``LearnerGroup``). The
+learner's forward, the loss, the backward and Adam run on
 ``config["device"]`` ("cuda" unless the caller asks for "cpu"); env
 stepping, connectors and GAE stay numpy on the host, as in the JAX
-package. Remote rollout workers and learners and evaluation workers
-raise ``NotImplementedError``.
+package. On the port's runtime (``ray_tpu_torch.init``): remote rollout
+and evaluation workers (``num_workers``, ``evaluation_num_workers``;
+actors on the CPU), remote learners (``LearnerGroup(num_learners=n)``,
+one GPU each on ``cuda``), IMPALA/APPO's async learner, A3C, DDPPO,
+Ape-X DQN/DDPG with a replay actor, and ES/ARS.
 """
 
 from ray_tpu_torch.rllib.sample_batch import (MultiAgentBatch, SampleBatch,
@@ -48,8 +51,12 @@ from ray_tpu_torch.rllib.rollout_worker import (MultiAgentRolloutWorker,
 from ray_tpu_torch.rllib.algorithm import (Algorithm, AlgorithmConfig,
                                            LocalAlgorithm)
 from ray_tpu_torch.rllib.offline import JsonReader, JsonWriter
-from ray_tpu_torch.rllib.algorithms import (BC, CQL, CRR, DDPG, DQN, DT,
-                                            MARWIL, PPO, R2D2, SAC, TD3,
+from ray_tpu_torch.rllib.algorithms import (A3C, ARS, BC, CQL, CRR, DDPG,
+                                            DDPPO, DQN, DT, ES, MARWIL, PPO,
+                                            R2D2, SAC, TD3, A3CConfig,
+                                            ApexDDPG, ApexDDPGConfig,
+                                            ApexDQN, ApexDQNConfig,
+                                            ARSConfig, DDPPOConfig, ESConfig,
                                             AlphaStar, AlphaStarConfig,
                                             AlphaZero, AlphaZeroConfig,
                                             Dreamer, DreamerConfig,
@@ -88,5 +95,7 @@ __all__ = [
     "MeanStdObsConnector", "ClipActionConnector", "LambdaConnector",
     "GrayscaleObsConnector", "ResizeObsConnector", "FrameStackConnector",
     "RLModule", "RLModuleSpec", "MultiRLModule", "Learner",
-    "PPOLearner", "LearnerGroup",
+    "PPOLearner", "LearnerGroup", "A3C", "A3CConfig", "DDPPO",
+    "DDPPOConfig", "ApexDQN", "ApexDQNConfig", "ApexDDPG", "ApexDDPGConfig",
+    "ES", "ESConfig", "ARS", "ARSConfig",
 ]

@@ -6,9 +6,11 @@ of ``ray_tpu/rllib/algorithm.py``: Algorithm subclasses the port's
 ``tune.Trainable``; the policy lives on ``config["device"]`` (``"cuda"``
 unless the caller asks for ``"cpu"``).
 
-The port samples with the local worker only (a ``MultiAgentRolloutWorker``
-for a multi-agent config): remote rollout workers and evaluation workers
-need the runtime (ROADMAP.md Queue A, A1) and raise.
+The WorkerSet samples with remote rollout workers when ``num_workers >
+0`` (actors of the port's runtime, on the CPU), else with the local
+worker (a ``MultiAgentRolloutWorker`` for a multi-agent config). With
+``evaluation_interval`` and ``evaluation_num_workers > 0`` a second,
+greedy WorkerSet of remote workers runs the evaluation episodes.
 ``LocalAlgorithm`` is the base of the algorithms that run their own env
 loop (R2D2, SlateQ, DT; QMIX's and MADDPG's ``_collect_joint``): its
 net, target and Adam live on ``config["device"]``, its epsilon and
@@ -23,10 +25,10 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
+import ray_tpu_torch
 from ray_tpu_torch.rllib.env import MultiAgentEnv
 from ray_tpu_torch.rllib.policy import host_copy, load_weights, weights_of
-from ray_tpu_torch.rllib.rollout_worker import (REMOTE_WORKERS_NEED_RUNTIME,
-                                                WorkerSet)
+from ray_tpu_torch.rllib.rollout_worker import WorkerSet
 from ray_tpu_torch.rllib.sample_batch import SampleBatch
 from ray_tpu_torch.tune.trainable import Trainable
 
@@ -155,12 +157,17 @@ class Algorithm(Trainable):
             raise ValueError("config['env'] is required")
         self.workers = WorkerSet(self.config, self._policy_cls,
                                  self.config.get("num_workers", 0))
-        # evaluation WorkerSet (reference: algorithm.py
-        # evaluation_workers): remote workers, so it waits for the runtime
-        if (self.config.get("evaluation_interval")
-                and self.config.get("evaluation_num_workers", 0) > 0):
-            raise NotImplementedError(
-                "evaluation workers: " + REMOTE_WORKERS_NEED_RUNTIME)
+        # evaluation WorkerSet: greedy policies, fresh envs (reference:
+        # algorithm.py evaluation_workers + evaluation_config overrides)
+        self.evaluation_workers = None
+        if self.config.get("evaluation_interval"):
+            n_eval = self.config.get("evaluation_num_workers", 0)
+            if n_eval > 0:
+                eval_cfg = dict(self.config)
+                eval_cfg["explore"] = False
+                eval_cfg["evaluation_interval"] = None
+                self.evaluation_workers = WorkerSet(
+                    eval_cfg, self._policy_cls, n_eval)
         self._iteration = 0
         self._timesteps_total = 0
         self._episode_reward_window: list = []
@@ -190,8 +197,27 @@ class Algorithm(Trainable):
         return out
 
     def _run_evaluation(self) -> Dict[str, Any]:
-        return self.evaluate(
-            num_episodes=self.config.get("evaluation_num_episodes", 5))
+        n_eps = self.config.get("evaluation_num_episodes", 5)
+        if self.evaluation_workers is None:
+            return self.evaluate(num_episodes=n_eps)
+        # current learner weights (and connector stats — normalization
+        # must match training) onto the greedy eval policies
+        lw = self.workers.local_worker
+        ref = ray_tpu_torch.put(lw.get_weights())
+        eval_workers = self.evaluation_workers.remote_workers
+        ray_tpu_torch.get([w.set_weights.remote(ref) for w in eval_workers])
+        cs = lw.get_connector_state()
+        if any(cs.values()):
+            ray_tpu_torch.get([w.set_connector_state.remote(cs)
+                               for w in eval_workers])
+        per = max(1, n_eps // len(eval_workers))
+        rewards: list = []
+        for rw in ray_tpu_torch.get([w.evaluate_episodes.remote(per)
+                                     for w in eval_workers]):
+            rewards.extend(rw)
+        out = evaluation_result(rewards)
+        out["evaluation"]["episodes_this_eval"] = len(rewards)
+        return out
 
     def training_step(self) -> Dict[str, Any]:
         raise NotImplementedError
@@ -286,6 +312,8 @@ class Algorithm(Trainable):
         self.workers.sync_weights()
 
     def cleanup(self):
+        if self.evaluation_workers is not None:
+            self.evaluation_workers.stop()
         self.workers.stop()
 
 

@@ -1,11 +1,17 @@
-"""The port's RL algorithms: PPO, IMPALA/APPO, DQN/SimpleQ, PG/A2C, A3C,
-SAC, DDPG/TD3, BC/MARWIL, CQL, CRR, the bandits (LinUCB, LinTS), R2D2,
-DT, SlateQ, QMIX, MADDPG, MAML, MBMPO, Dreamer, AlphaZero and AlphaStar
-(ROADMAP.md Queue A lists the rest of ``ray_tpu/rllib/algorithms/``)."""
+"""The port's RL algorithms, every one of ``ray_tpu/rllib/algorithms/``
+under the JAX registry's names: PPO, DDPPO, IMPALA/APPO, DQN/SimpleQ,
+Ape-X DQN and DDPG, PG/A2C, A3C, SAC, DDPG/TD3, BC/MARWIL, CQL, CRR,
+ES/ARS, the bandits (LinUCB, LinTS), R2D2, DT, SlateQ, QMIX, MADDPG,
+MAML, MBMPO, Dreamer, AlphaZero and AlphaStar. DDPPO, Ape-X, A3C, ES/ARS
+and IMPALA/APPO's async branch run their workers as actors of the
+port's runtime."""
 
 from ray_tpu_torch.rllib.algorithms.ppo import PPO, PPOConfig, PPOPolicy
+from ray_tpu_torch.rllib.algorithms.ddppo import DDPPO, DDPPOConfig
 from ray_tpu_torch.rllib.algorithms.dqn import DQN, DQNConfig, DQNPolicy
 from ray_tpu_torch.rllib.algorithms.simple_q import SimpleQ, SimpleQConfig
+from ray_tpu_torch.rllib.algorithms.apex_dqn import ApexDQN, ApexDQNConfig
+from ray_tpu_torch.rllib.algorithms.apex_ddpg import ApexDDPG, ApexDDPGConfig
 from ray_tpu_torch.rllib.algorithms.impala import (IMPALA, IMPALAConfig,
                                                    IMPALAPolicy)
 from ray_tpu_torch.rllib.algorithms.appo import APPO, APPOConfig, APPOPolicy
@@ -19,6 +25,7 @@ from ray_tpu_torch.rllib.algorithms.bc import (BC, BCConfig, MARWIL,
                                                MARWILConfig, MARWILPolicy)
 from ray_tpu_torch.rllib.algorithms.cql import CQL, CQLConfig, CQLPolicy
 from ray_tpu_torch.rllib.algorithms.crr import CRR, CRRConfig, CRRPolicy
+from ray_tpu_torch.rllib.algorithms.es import ARS, ARSConfig, ES, ESConfig
 from ray_tpu_torch.rllib.algorithms.r2d2 import R2D2, R2D2Config
 from ray_tpu_torch.rllib.algorithms.dt import DT, DTConfig
 from ray_tpu_torch.rllib.algorithms.bandit import (BanditLinTS,
@@ -36,7 +43,10 @@ from ray_tpu_torch.rllib.algorithms.alpha_zero import (AlphaZero,
 from ray_tpu_torch.rllib.algorithms.alpha_star import (AlphaStar,
                                                        AlphaStarConfig)
 
-__all__ = ["PPO", "PPOConfig", "PPOPolicy", "DQN", "DQNConfig", "DQNPolicy",
+__all__ = ["PPO", "PPOConfig", "PPOPolicy", "DDPPO", "DDPPOConfig",
+           "ApexDQN", "ApexDQNConfig", "ApexDDPG", "ApexDDPGConfig", "ES",
+           "ESConfig", "ARS", "ARSConfig",
+           "DQN", "DQNConfig", "DQNPolicy",
            "SimpleQ", "SimpleQConfig", "IMPALA", "IMPALAConfig",
            "IMPALAPolicy", "APPO", "APPOConfig", "APPOPolicy", "PG",
            "PGConfig", "PGPolicy", "A2C", "A2CConfig", "A2CPolicy", "A3C",

@@ -9,19 +9,20 @@ Counterpart of ``ray_tpu/rllib/algorithms/a3c.py``, same decomposition:
 and returns host grads, and the learner applies them with
 ``apply_gradients`` (the same clip and Adam as ``learn_on_batch``).
 
-A3C needs remote workers: the port's WorkerSet refuses them (A1) before
-``setup`` gets to its own check, and with ``num_workers=0`` ``setup``
-raises ``ValueError`` as the JAX one does (use A2C). The grad requests'
-calls into the runtime stand as ``needs_runtime``.
+A3C needs remote workers: with ``num_workers=0`` ``setup`` raises
+``ValueError`` as the JAX one does (use A2C). Each remote worker has one
+``apply(_sample_and_grad)`` in flight; the driver waits for the first
+grad, drains whatever else is ready (up to ``max_grads_per_step``),
+applies each, and sends fresh weights to just the worker that sent it.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict
 
+import ray_tpu_torch
 from ray_tpu_torch.rllib.algorithm import Algorithm
 from ray_tpu_torch.rllib.algorithms.pg import A2CConfig, A2CPolicy
-from ray_tpu_torch.rllib.rollout_worker import needs_runtime
 
 
 def _sample_and_grad(worker):
@@ -57,10 +58,8 @@ class A3C(Algorithm):
         for w in self.workers.remote_workers:
             self._launch(w)
 
-    # the grad requests' calls into the runtime (A1): launch
-    # ``worker.apply(_sample_and_grad)``; wait for the first ready one
-    # (None on timeout) and return (worker, its result); send weights
-    _launch = _wait_one = _send_weights = staticmethod(needs_runtime)
+    def _launch(self, worker):
+        self._grad_futs[worker.apply.remote(_sample_and_grad)] = worker
 
     def training_step(self) -> Dict[str, Any]:
         policy = self.workers.local_worker.policy
@@ -70,16 +69,21 @@ class A3C(Algorithm):
         budget = self.config.get("max_grads_per_step", 8)
         while applied < budget:
             # block for the first grad, then drain whatever else is ready
-            ready = self._wait_one(timeout=60.0 if applied == 0 else 0.0)
-            if ready is None:
+            timeout = 60.0 if applied == 0 else 0.0
+            ready, _ = ray_tpu_torch.wait(list(self._grad_futs),
+                                          num_returns=1, timeout=timeout)
+            if not ready:
                 break
-            worker, (grads, stats, count) = ready
+            fut = ready[0]
+            worker = self._grad_futs.pop(fut)
+            grads, stats, count = ray_tpu_torch.get(fut)
             policy.apply_gradients(grads)
             sampled += count
             applied += 1
             # fresh weights to JUST this worker (the async part: other
             # workers keep sampling with slightly stale policies)
-            self._send_weights(worker, policy.get_weights())
+            worker.set_weights.remote(
+                ray_tpu_torch.put(policy.get_weights()))
             self._launch(worker)
         self._timesteps_total += sampled
         return {

@@ -11,11 +11,14 @@ launch about three a row. It reorders the f32 rounding, so it agrees
 with the scan within 1e-5 of scale, not bit for bit; ``vtrace_f64`` is
 the row-by-row loop in f64 that the checks hold it to.
 
-The local path is the sync one (``num_workers=0``): sample, mark cuts,
-one ``learn_on_batch``. The async branch (remote samplers reaped as
-they finish, batches through a ``LearnerThread``) keeps the JAX
-structure but needs the runtime's actors (A1); the WorkerSet refuses
-remote workers before it could run.
+The sync path (``num_workers=0``): sample, mark cuts, one
+``learn_on_batch``. The async branch (``num_workers > 0``, the default)
+keeps the JAX structure on the port's runtime: every remote sampler has
+a ``sample`` in flight, finished ones are reaped with ``wait`` as they
+come, their batches feed a ``LearnerThread`` (a full queue blocks the
+driver) or, with ``async_learner=False``, ``learn_on_batch`` inline,
+and the sampler that finished gets the learner's weights and a new
+``sample``. APPO inherits it.
 """
 
 from __future__ import annotations
@@ -26,9 +29,9 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+import ray_tpu_torch
 from ray_tpu_torch.rllib.algorithm import Algorithm, AlgorithmConfig
 from ray_tpu_torch.rllib.policy import TorchPolicy
-from ray_tpu_torch.rllib.rollout_worker import needs_runtime
 from ray_tpu_torch.rllib.sample_batch import SampleBatch
 
 
@@ -144,8 +147,6 @@ class IMPALAConfig(AlgorithmConfig):
             "vtrace_clip_rho_threshold": 1.0,
             "vtrace_clip_c_threshold": 1.0,
             "grad_clip": 40.0,
-            # the JAX default; the port raises on it (A1), so a local
-            # config sets num_workers=0
             "num_workers": 1,
             "broadcast_interval": 1,
             "max_sample_batches_per_iter": 8,
@@ -169,10 +170,12 @@ def _mark_cuts(batch: SampleBatch) -> SampleBatch:
 
 
 class IMPALA(Algorithm):
-    """``training_step`` also reports ``timers``: the host milliseconds
-    of one iteration spent sampling, postprocessing (cutting fragments,
-    marking cuts) and learning (the batch to the card, V-trace, loss,
-    backward, Adam, the stats back)."""
+    """``training_step`` also reports ``timers``: on the sync path the
+    host milliseconds of one iteration spent sampling, postprocessing
+    (cutting fragments, marking cuts) and learning (the batch to the
+    card, V-trace, loss, backward, Adam, the stats back); on the async
+    path those waiting for samples, marking cuts, handing batches to the
+    learner and sending weights and sample requests back."""
 
     _policy_cls = IMPALAPolicy
     _default_config_cls = IMPALAConfig
@@ -190,10 +193,26 @@ class IMPALA(Algorithm):
                 max_queue_size=self.config.get("learner_queue_size", 16))
             self._learner.start()
 
-    # the remote branch's calls into the runtime (A1): launch
-    # ``worker.sample``; wait for the first finished sample (None on
-    # timeout) and return (worker, batch); send the learner's weights
-    _launch = _reap_one = _broadcast_weights = staticmethod(needs_runtime)
+    def _launch(self, worker):
+        self._in_flight[worker.sample.remote()] = worker
+
+    def _reap_one(self, timeout: float):
+        """The first finished sample as (worker, batch); None if none
+        finished within ``timeout`` seconds. A sampler's error raises
+        here."""
+        ready, _ = ray_tpu_torch.wait(list(self._in_flight), num_returns=1,
+                                      timeout=timeout)
+        if not ready:
+            return None
+        worker = self._in_flight.pop(ready[0])
+        return worker, ray_tpu_torch.get(ready[0])
+
+    def _broadcast_weights(self, worker):
+        if self._learner is not None:
+            weights = self._learner.get_weights()
+        else:
+            weights = self.workers.local_worker.policy.get_weights()
+        worker.set_weights.remote(ray_tpu_torch.put(weights))
 
     def training_step(self) -> Dict[str, Any]:
         if not self.workers.remote_workers:
@@ -234,12 +253,18 @@ class IMPALA(Algorithm):
             if w not in self._in_flight.values():
                 self._launch(w)
         n_target = cfg.get("max_sample_batches_per_iter", 8)
+        wait_s = post_s = learn_s = send_s = 0.0
         for _ in range(n_target):
+            t0 = time.perf_counter()
             reaped = self._reap_one(timeout=60.0)
+            t1 = time.perf_counter()
+            wait_s += t1 - t0
             if reaped is None:
                 break
             worker, batch = reaped
             batch = _mark_cuts(batch)
+            t2 = time.perf_counter()
+            post_s += t2 - t1
             if self._learner is not None:
                 # a full queue applies backpressure: block until the
                 # learner drains, never drop a counted batch
@@ -247,19 +272,30 @@ class IMPALA(Algorithm):
                     self._learner.check_error()
             else:
                 stats = policy.learn_on_batch(batch)
+            t3 = time.perf_counter()
+            learn_s += t3 - t2
             sampled += batch.count
             self._learn_count += 1
             if self._learn_count % cfg.get("broadcast_interval", 1) == 0:
                 self._broadcast_weights(worker)
             self._launch(worker)
+            send_s += time.perf_counter() - t3
         if self._learner is not None:
             self._learner.check_error()
             stats = dict(self._learner.stats)
             stats.update(self._learner.metrics())
         self._timesteps_total += sampled
+        # host ms of the iteration: waiting for a finished sample, marking
+        # cuts, handing the batch on (the learner queue's put, which
+        # blocks while the queue is full; or the inline learn step), and
+        # sending the worker the learner's weights and its next sample
         return {
             "num_env_steps_sampled_this_iter": sampled,
             **{f"learner/{k}": v for k, v in stats.items()},
+            "timers": {"sample_wait_time_ms": wait_s * 1e3,
+                       "postprocess_time_ms": post_s * 1e3,
+                       "learn_time_ms": learn_s * 1e3,
+                       "broadcast_time_ms": send_s * 1e3},
         }
 
     def cleanup(self):

@@ -251,6 +251,61 @@ def policy_map_from_flax(trees: Mapping[str, Mapping[str, Any]],
             for pid, tree in trees.items()}
 
 
+# flax kernel layouts from torch weights: Dense [out, in] -> [in, out],
+# conv OIHW -> HWIO (and back)
+_TO_FLAX = {2: (1, 0), 4: (2, 3, 1, 0)}
+_FROM_FLAX = {2: (1, 0), 4: (3, 2, 0, 1)}
+
+
+def _flax_leaves(model: nn.Module):
+    """``model``'s params as [(flax key path, param)] in
+    ``jax.flatten_util.ravel_pytree``'s order: flax's keys (a 2-D or 4-D
+    ``weight`` is a ``kernel``, a 1-D one a ``scale``; ``nn.Sequential``'s
+    ``{i}`` is ``layers_{i}``) sorted as strings at every level, so
+    ``bias`` comes before ``kernel`` and ``layers_10`` before
+    ``layers_2``."""
+    leaves = []
+    for name, p in model.named_parameters():
+        *mods, leaf = name.split(".")
+        path = [f"layers_{m}" if m.isdigit() else m for m in mods]
+        if leaf == "weight":
+            leaf = "scale" if p.ndim == 1 else "kernel"
+        leaves.append((tuple(path + [leaf]), p))
+    return sorted(leaves, key=lambda t: t[0])
+
+
+def flat_params(model: nn.Module) -> np.ndarray:
+    """The flat f32 vector of ``model``'s params that ``ravel_pytree``
+    gives for the same params as a flax tree (kernels in flax's
+    layout)."""
+    parts = []
+    for path, p in _flax_leaves(model):
+        t = p.detach().to("cpu", torch.float32)
+        if path[-1] == "kernel":
+            t = t.permute(_TO_FLAX[t.ndim])
+        parts.append(t.reshape(-1))
+    return torch.cat(parts).numpy()
+
+
+@torch.no_grad()
+def load_flat_params(model: nn.Module, theta) -> nn.Module:
+    """The inverse of ``flat_params``: ``theta`` (``ravel_pytree``'s
+    order and layout) into ``model``'s params, in place."""
+    theta = torch.as_tensor(np.asarray(theta, np.float32))
+    i = 0
+    for path, p in _flax_leaves(model):
+        chunk = theta[i:i + p.numel()]
+        if path[-1] == "kernel":
+            shape = [p.shape[d] for d in _TO_FLAX[p.ndim]]
+            chunk = chunk.reshape(shape).permute(_FROM_FLAX[p.ndim])
+        p.copy_(chunk.reshape(p.shape))
+        i += p.numel()
+    if i != theta.numel():
+        raise ValueError(f"theta has {theta.numel()} entries, the model "
+                         f"{i} params")
+    return model
+
+
 class StackedLinear(nn.Module):
     """``m`` Dense layers of one shape side by side: ``weight`` [m, in,
     out] (flax's kernel layout with the member axis in front), ``bias``

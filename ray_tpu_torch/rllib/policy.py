@@ -104,9 +104,18 @@ def weights_of(model: torch.nn.Module) -> Dict[str, np.ndarray]:
     return {k: v.numpy() for k, v in host_copy(model.state_dict()).items()}
 
 
+def host_tensor(v, device=None) -> torch.Tensor:
+    """A numpy array (or anything ``np.asarray`` takes) as a tensor; a
+    read-only array (one that came out of the object store) is copied
+    first, since a tensor may not alias it."""
+    a = np.asarray(v)
+    if not a.flags.writeable:
+        a = a.copy()
+    return torch.as_tensor(a, device=device)
+
+
 def load_weights(model: torch.nn.Module, weights: Dict[str, Any]):
-    model.load_state_dict({k: torch.as_tensor(np.asarray(v))
-                           for k, v in weights.items()})
+    model.load_state_dict({k: host_tensor(v) for k, v in weights.items()})
 
 
 def backward_grads(params: List[torch.nn.Parameter], loss) -> List:
@@ -150,9 +159,11 @@ def grads_to_host(model: torch.nn.Module, grads: List) -> Dict[str, np.ndarray]:
 def apply_host_grads(optimizer: torch.optim.Optimizer,
                      model: torch.nn.Module, grads: Dict[str, Any],
                      clip: Optional[float]):
-    """One ``clip_and_step`` from host grads by param name."""
+    """One ``clip_and_step`` from host grads by param name. The grads
+    are copied first: the clip scales them in place, and the caller's
+    arrays (or the object store's) stay as they were."""
     for n, p in model.named_parameters():
-        p.grad = torch.as_tensor(np.asarray(grads[n]), device=p.device)
+        p.grad = torch.as_tensor(np.array(grads[n]), device=p.device)
     clip_and_step(optimizer, [p.grad for p in model.parameters()], clip)
 
 
@@ -176,10 +187,24 @@ class TorchPolicy:
         self.model.to(self.device)
         self._gen = torch.Generator(self.device).manual_seed(
             int(torch.randint(2 ** 62, (1,), generator=init_gen)))
-        self.optimizer = torch.optim.Adam(
-            self.model.parameters(), lr=self.config.get("lr", 5e-5),
-            eps=1e-8)
+        self._optimizer: Optional[torch.optim.Optimizer] = None
         self.global_timestep = 0
+
+    @property
+    def optimizer(self) -> torch.optim.Optimizer:
+        """Adam over the model's params (eps 1e-8, as optax's), made at
+        first use: a remote sampler never learns, and the first
+        optimizer of a process imports much of torch (``torch._dynamo``),
+        seconds of an actor's start."""
+        if self._optimizer is None:
+            self._optimizer = torch.optim.Adam(
+                self.model.parameters(), lr=self.config.get("lr", 5e-5),
+                eps=1e-8)
+        return self._optimizer
+
+    @optimizer.setter
+    def optimizer(self, optimizer: torch.optim.Optimizer):
+        self._optimizer = optimizer
 
     # ---- inference ----
 

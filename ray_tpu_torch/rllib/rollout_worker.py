@@ -1,4 +1,4 @@
-"""RolloutWorker + WorkerSet — sampling, local worker only.
+"""RolloutWorker + WorkerSet — sampling, local and remote.
 
 Reference analogue: rllib/evaluation/rollout_worker.py:153 (sample :856)
 and worker_set.py:77. Counterpart of ``ray_tpu/rllib/rollout_worker.py``:
@@ -12,40 +12,73 @@ policy id: live agents are grouped by their mapped policy each step, and
 each policy runs ONE batched forward over its agents; the WorkerSet
 takes it when ``config["multiagent"]["policies"]`` is set.
 
-Remote rollout workers (``num_workers > 0``) and evaluation workers need
-the runtime: they raise ``NotImplementedError`` and never sample
-locally in their place.
+Remote rollout workers (``num_workers > 0``) are actors of the port's
+runtime (``ray_tpu_torch.remote``), as the JAX package's are of its own:
+each holds ``num_cpus_per_worker`` CPUs and no GPU, so its policy runs
+on the CPU (``device="cpu"`` in its config) with as many torch threads
+as CPUs; the learner's policy, the local worker's, stays on
+``config["device"]``. With remote workers the local worker does not
+sample. A remote worker's error surfaces through ``get``.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+import ray_tpu_torch
 from ray_tpu_torch.rllib.env import VectorEnv, make_env
 from ray_tpu_torch.rllib.sample_batch import MultiAgentBatch, SampleBatch
 
-REMOTE_WORKERS_NEED_RUNTIME = (
-    "remote rollout workers need the runtime's tasks and actors, which "
-    "the port does not have yet (ROADMAP.md Queue A, A1); use "
-    "num_workers=0 and num_envs_per_worker for more envs")
+
+_thread_state = threading.local()
 
 
-def needs_runtime(*_args, **_kwargs):
-    """Stands where a remote branch (IMPALA's async reaping, A3C's grad
-    requests) calls the runtime's remote calls, ``wait``, ``get`` and
-    ``put``: the WorkerSet refuses remote workers first, so no local
-    path reaches it."""
-    raise NotImplementedError(REMOTE_WORKERS_NEED_RUNTIME)
+def set_torch_threads(num_threads: Optional[int]):
+    """A remote worker's torch intra-op threads: as many as the CPUs it
+    holds (the raylet sets no ``OMP_NUM_THREADS``, so each process would
+    take every core). The count binds the calling thread's OpenMP pool,
+    and an actor's methods run on another thread than its constructor,
+    so each entry point that computes calls this first (it acts once a
+    thread)."""
+    if num_threads and getattr(_thread_state, "n", None) != num_threads:
+        import torch
+        torch.set_num_threads(max(1, int(num_threads)))
+        _thread_state.n = num_threads
+
+
+def remote_actors(cls, config: Dict[str, Any], n: int, *args):
+    """``n`` actors of ``cls(config_on_cpu, *args, worker_index=i + 1,
+    num_threads=...)``, each holding ``num_cpus_per_worker`` CPUs and no
+    GPU: the config they get says ``device="cpu"``."""
+    n_cpus = config.get("num_cpus_per_worker", 1)
+    remote_cls = ray_tpu_torch.remote(num_cpus=n_cpus)(cls)
+    on_cpu = dict(config, device="cpu")
+    return [remote_cls.remote(on_cpu, *args, worker_index=i + 1,
+                              num_threads=max(1, int(n_cpus)))
+            for i in range(n)]
+
+
+def kill_actors(actors):
+    """``kill`` each actor (one that is already gone is passed over, as
+    the JAX package's ``stop`` does)."""
+    for a in actors:
+        try:
+            ray_tpu_torch.kill(a)
+        except Exception:
+            pass
 
 
 class RolloutWorker:
     """Samples experience from a vectorized env with a local policy copy."""
 
     def __init__(self, config: Dict[str, Any], policy_cls,
-                 worker_index: int = 0):
+                 worker_index: int = 0, num_threads: Optional[int] = None):
+        self.num_threads = num_threads
+        set_torch_threads(num_threads)
         self.config = config
         self.worker_index = worker_index
         env_fn = lambda: make_env(config["env"], config.get("env_config"))
@@ -81,6 +114,7 @@ class RolloutWorker:
 
     def sample(self) -> SampleBatch:
         """Collect ``rollout_fragment_length`` steps from every sub-env."""
+        set_torch_threads(self.num_threads)
         frag_len = self.config.get("rollout_fragment_length", 200)
         n_envs = self.vector_env.num_envs
         cols: Dict[str, list] = {
@@ -161,6 +195,7 @@ class RolloutWorker:
     def evaluate_episodes(self, num_episodes: int) -> List[float]:
         """Greedy episodes on a fresh env (evaluation WorkerSet duty —
         reference: algorithm.py _evaluate_async worker rollouts)."""
+        set_torch_threads(self.num_threads)
         env = make_env(self.config["env"], self.config.get("env_config"))
         rewards = []
         for ep in range(num_episodes):
@@ -211,6 +246,7 @@ class RolloutWorker:
         """Run ``fn(worker, *args)`` inside this worker (reference:
         RolloutWorker.apply) — worker-side gradient computation (A3C),
         local SGD (DDPPO), knob propagation."""
+        set_torch_threads(self.num_threads)
         return fn(self, *args)
 
     def set_exploration(self, **attrs):
@@ -231,42 +267,59 @@ class RolloutWorker:
 
 
 class WorkerSet:
-    """The local worker (reference: rllib/evaluation/worker_set.py:77):
-    a ``MultiAgentRolloutWorker`` when ``config["multiagent"]["policies"]``
-    is set, else a ``RolloutWorker``. The port has no remote workers yet:
-    ``num_workers > 0`` raises."""
+    """The local (learner) worker + ``num_workers`` remote rollout actors
+    (reference: rllib/evaluation/worker_set.py:77): a
+    ``MultiAgentRolloutWorker`` when ``config["multiagent"]["policies"]``
+    is set, else a ``RolloutWorker``. The remote ones are
+    ``remote_actors`` with ``worker_index = i + 1``."""
 
     def __init__(self, config: Dict[str, Any], policy_cls,
                  num_workers: int):
-        if num_workers > 0:
-            raise NotImplementedError(REMOTE_WORKERS_NEED_RUNTIME)
         self.config = config
         self.policy_cls = policy_cls
         worker_cls: type = RolloutWorker
         if (config.get("multiagent") or {}).get("policies"):
             worker_cls = MultiAgentRolloutWorker
         self.local_worker = worker_cls(config, policy_cls, worker_index=0)
-        # none until the runtime's actors exist (A1); the algorithms'
-        # remote branches test this as the JAX package's do
         self.remote_workers: List[Any] = []
+        if num_workers > 0:
+            self.remote_workers = remote_actors(worker_cls, config,
+                                                num_workers, policy_cls)
 
     def sync_weights(self):
-        """Nothing to broadcast: the local worker's policy is the
-        learner's."""
+        """Broadcast the learner's host weights through ONE object-store
+        put (reference: worker_set.py:381 + ppo.py:345)."""
+        if not self.remote_workers:
+            return
+        ref = ray_tpu_torch.put(self.local_worker.get_weights())
+        ray_tpu_torch.get([w.set_weights.remote(ref)
+                           for w in self.remote_workers])
 
     def set_exploration(self, **attrs):
-        """Exploration knobs (e.g. DQN's epsilon) to the local worker's
-        policy (the JAX method's local half)."""
+        """Exploration knobs (e.g. DQN's epsilon) to every policy copy,
+        local and remote."""
         self.local_worker.set_exploration(**attrs)
+        if self.remote_workers:
+            ray_tpu_torch.get([w.set_exploration.remote(**attrs)
+                               for w in self.remote_workers])
 
     def sample_all(self) -> List[SampleBatch]:
-        return [self.local_worker.sample()]
+        if not self.remote_workers:
+            return [self.local_worker.sample()]
+        return ray_tpu_torch.get([w.sample.remote()
+                                  for w in self.remote_workers])
 
     def collect_metrics(self) -> List[Dict[str, Any]]:
-        return [self.local_worker.get_metrics()]
+        out = [self.local_worker.get_metrics()]
+        if self.remote_workers:
+            out += ray_tpu_torch.get([w.get_metrics.remote()
+                                      for w in self.remote_workers])
+        return out
 
     def stop(self):
         self.local_worker.stop()
+        kill_actors(self.remote_workers)
+        self.remote_workers = []
 
 
 def synchronous_parallel_sample(worker_set: WorkerSet,
@@ -303,7 +356,9 @@ class MultiAgentRolloutWorker:
     """
 
     def __init__(self, config: Dict[str, Any], policy_cls,
-                 worker_index: int = 0):
+                 worker_index: int = 0, num_threads: Optional[int] = None):
+        self.num_threads = num_threads
+        set_torch_threads(num_threads)
         self.config = config
         self.worker_index = worker_index
         self.env = make_env(config["env"], config.get("env_config"))
@@ -356,6 +411,7 @@ class MultiAgentRolloutWorker:
         self._obs, _ = self.env.reset()
 
     def sample(self) -> MultiAgentBatch:
+        set_torch_threads(self.num_threads)
         frag_len = self.config.get("rollout_fragment_length", 200)
         explore = self.config.get("explore", True)
         # per-agent row buffers
@@ -461,6 +517,7 @@ class MultiAgentRolloutWorker:
                 setattr(p, k, v)
 
     def apply(self, fn, *args):
+        set_torch_threads(self.num_threads)
         return fn(self, *args)
 
     def get_policy_state(self):
@@ -473,6 +530,7 @@ class MultiAgentRolloutWorker:
 
     def evaluate_episodes(self, num_episodes: int) -> List[float]:
         """Greedy episodes; reward = sum over all agents."""
+        set_torch_threads(self.num_threads)
         env = make_env(self.config["env"], self.config.get("env_config"))
         rewards = []
         for ep in range(num_episodes):

@@ -64,7 +64,9 @@ def test_port_files_found():
                 "algorithms/slateq", "algorithms/r2d2", "algorithms/dt",
                 "algorithms/qmix", "algorithms/maddpg", "algorithms/maml",
                 "algorithms/mbmpo", "algorithms/dreamer",
-                "algorithms/alpha_zero", "algorithms/alpha_star"):
+                "algorithms/alpha_zero", "algorithms/alpha_star",
+                "algorithms/ddppo", "algorithms/apex_dqn",
+                "algorithms/apex_ddpg", "algorithms/es"):
         assert f"ray_tpu_torch/rllib/{mod}.py" in rel
     assert "ray_tpu_torch/tune/trainable.py" in rel
     assert "ray_tpu_torch/air/checkpoint.py" in rel

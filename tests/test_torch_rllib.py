@@ -655,14 +655,17 @@ def test_init_laws():
 
 
 def test_remote_eval_and_cardless_paths_raise():
-    """Remote rollout workers and evaluation workers raise
-    NotImplementedError (they never sample locally in their place); a
+    """Without a cluster of the port's runtime, remote rollout workers
+    and evaluation workers raise (they never sample locally in their
+    place; tests/test_torch_rllib_remote.py runs them on a cluster); a
     cuda policy without a card raises instead of running on the CPU."""
+    import ray_tpu_torch
+    assert not ray_tpu_torch.is_initialized()
     base = TR.PPOConfig().environment("CartPole-v1").resources(device="cpu")
-    with pytest.raises(NotImplementedError, match="A1"):
+    with pytest.raises(RuntimeError, match=r"init\(\) must be called"):
         TR.PPOConfig().update_from_dict(
             dict(base.to_dict(), num_workers=2)).build()
-    with pytest.raises(NotImplementedError, match="evaluation workers"):
+    with pytest.raises(RuntimeError, match=r"init\(\) must be called"):
         TR.PPOConfig().update_from_dict(dict(
             base.to_dict(), evaluation_interval=1,
             evaluation_num_workers=1)).build()

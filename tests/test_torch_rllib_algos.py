@@ -328,16 +328,24 @@ def test_two_greedy_vtrace_steps_match_jax(algo):
 
 
 def test_impala_remote_branch_needs_the_runtime():
-    """The default config (num_workers=1) raises A1's
-    NotImplementedError; the async branch is never run locally."""
-    with pytest.raises(NotImplementedError, match="A1"):
+    """Without a cluster of the port's runtime, the default config
+    (num_workers=1) raises; with num_workers=0 a step takes the sync
+    path: no learner thread, no sample in flight (the async branch runs
+    on a cluster in tests/test_torch_rllib_remote.py)."""
+    import ray_tpu_torch
+    assert not ray_tpu_torch.is_initialized()
+    with pytest.raises(RuntimeError, match=r"init\(\) must be called"):
         TIMPALA.IMPALAConfig().environment("CartPole-v1").resources(
             device="cpu").build()
     algo = (TIMPALA.IMPALAConfig().environment("CartPole-v1")
-            .rollouts(num_workers=0).resources(device="cpu").build())
+            .rollouts(num_workers=0, rollout_fragment_length=8)
+            .resources(device="cpu").build())
     assert algo._learner is None
-    with pytest.raises(NotImplementedError, match="A1"):
-        algo._async_step()
+    r = algo.step()
+    assert r["num_env_steps_sampled_this_iter"] == 8
+    assert set(r["timers"]) == {"sample_time_ms", "postprocess_time_ms",
+                                "learn_time_ms"}
+    assert algo._in_flight == {}
     algo.cleanup()
 
 
@@ -781,8 +789,8 @@ def test_greedy_pg_a2c_steps_match_jax(algo):
 
 def test_a3c_raises_as_jax():
     """num_workers=0: ValueError naming num_workers, as JAX's A3C; the
-    default num_workers=2: the WorkerSet's A1 NotImplementedError comes
-    first. The worker-side half (``_sample_and_grad``) runs on a local
+    default num_workers=2 without a cluster of the port's runtime: the
+    WorkerSet's remote workers raise first. The worker-side half (``_sample_and_grad``) runs on a local
     worker and gives JAX's grads from shared params (greedy)."""
     base = dict(env="CartPole-v1", device="cpu")
     with pytest.raises(ValueError, match="num_workers"):
@@ -790,7 +798,7 @@ def test_a3c_raises_as_jax():
     with pytest.raises(ValueError, match="num_workers"):
         JA3C.A3CConfig().environment("CartPole-v1").rollouts(
             num_workers=0).build()
-    with pytest.raises(NotImplementedError, match="A1"):
+    with pytest.raises(RuntimeError, match=r"init\(\) must be called"):
         TA3C.A3CConfig().update_from_dict(base).build()
     from ray_tpu.rllib.rollout_worker import RolloutWorker as JRW
     from ray_tpu_torch.rllib.rollout_worker import RolloutWorker as TRW

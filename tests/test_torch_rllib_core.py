@@ -6,7 +6,8 @@ module's values within 1e-5), the spec's determinism,
 ``PPOLearner.update_from_batch`` (stats and params) and the split
 ``compute_gradients`` / ``apply_gradients`` against JAX's on fixed
 batches, multi-module routing, and the LearnerGroup's local mode (its
-remote mode raises). Params cross with ``params_from_flax``.
+remote mode raises without a cluster; tests/test_torch_rllib_remote.py
+runs it on one). Params cross with ``params_from_flax``.
 """
 
 import numpy as np
@@ -224,6 +225,11 @@ def test_learner_group_local_mode():
 
 
 def test_learner_group_remote_learners_raise():
-    with pytest.raises(NotImplementedError, match="A1"):
+    """Without a cluster of the port's runtime, remote learners raise:
+    no local learner stands in for them
+    (tests/test_torch_rllib_remote.py runs them on a cluster)."""
+    import ray_tpu_torch
+    assert not ray_tpu_torch.is_initialized()
+    with pytest.raises(RuntimeError, match=r"init\(\) must be called"):
         TCORE.LearnerGroup(TCORE.PPOLearner, num_learners=2,
                            learner_kwargs={"module_spec": _spec()})
