@@ -41,7 +41,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
               seed) behind the port's LLMServer: 16 concurrent streams of
               64 greedy tokens. Launch counts are zeroed just before and
               read just after: the paged-decode kernel must account for
-              every layer of every decode step.
+              every layer of every decode step. Then each prompt alone
+              (phase 25's reference).
 5. numerics — the same GPT-2 cast to f32: one batched decode step
               through the kernel against the same step with the plain
               version passed explicitly, and against the full forward.
@@ -397,11 +398,33 @@ Phases, each of which fails the run (non-zero exit, no result line):
               policy holding theta), the steps and learner counts each
               config implies; (e) the launch counts, zeroed at the
               phase's start and read at its end, are empty.
+25. serve on the runtime — ray_tpu_torch.bench.serve_loop on phase
+              4's prompts: init(num_cpus=4), serve.start with the HTTP
+              proxy on a free port, serve.run of an LLMServer (GPT-2
+              small, phase 4's seed and engine) with
+              ray_actor_options={"num_gpus": 1}. Checks: the replica
+              holds get_gpu_ids() == [0] and CUDA_VISIBLE_DEVICES "0",
+              on cuda, and loaded phase 2's kernel libraries, none
+              rebuilt (same paths, same mtimes); each prompt alone
+              through the handle gives phase 4's tokens for it alone
+              exactly; 16 concurrent SSE streams of 64 greedy tokens
+              through the proxy: each equals phase 4's stream or leaves
+              it at a near-tie (NEAR_TIE_FACTOR), each first event
+              before its [DONE]; a unary JSON POST gives the handle's
+              tokens; the replica's paged-decode launches (zeroed
+              before the streams, read from the replica after) are its
+              layers times its decode steps; its pool ends at 0 used
+              pages; after serve.shutdown() a num_gpus=1 task starts.
+              Prints tokens/s, TTFT and ITL p50/p99 at the client
+              beside phase 4's in-process numbers (serve_vs_inprocess),
+              the replica's start, decode steps and launches. The
+              router's two-hop disaggregation is bypassed (it needs
+              two GPU-granted replicas; this machine has one GPU).
 13. summary — nvidia-smi's card line, the kernels line (each kernel's
               launches by the path that counted them: phases 4, 5b, 6,
-              8, 12, 14, 21, 22 and 23; paged decode's entry also carries its
-              Llama serve case, the streaming kernels' the ring's), then
-              the device line, last.
+              8, 12, 14, 21, 22, 23 and 25; paged decode's entry also
+              carries its Llama serve case, the streaming kernels' the
+              ring's), then the device line, last.
 
 Exits non-zero without printing a result when CUDA is absent or when
 the repository's package is not beside this script.
@@ -2831,6 +2854,86 @@ def disagg_phase(name, card, unified) -> dict:
     return res
 
 
+def serve_runtime_phase(name, card, phase4) -> dict:
+    """Phase 25 (module docstring): bench.serve_loop on phase 4's
+    prompts, held to phase 4's tokens alone and concurrent. Returns the
+    printed measurements."""
+    import gc
+    import torch
+    from ray_tpu_torch import bench, kernels
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    built = {n: kernels._lib_path(n) for n in kernels.sources()}
+    mtimes = {n: os.path.getmtime(p) for n, p in built.items()}
+    t0 = time.perf_counter()
+    r = bench.serve_loop(prompts=phase4["prompts"], new_tokens=64)
+    phase_s = time.perf_counter() - t0
+    start, probe = r["serve_probe_at_start"], r["serve_probe"]
+    require(start["gpu_ids"] == [0] and start["cuda_visible_devices"] == "0"
+            and start["device"] == "cuda", f"the replica's grant: {start}")
+    loaded = probe["kernel_libraries"]
+    require("paged_decode" in loaded
+            and all(built.get(n) == path for n, path in loaded.items()),
+            f"the replica loaded {loaded}, not phase 2's {built}")
+    rebuilt = [n for n, p in built.items() if os.path.getmtime(p) != mtimes[n]]
+    require(not rebuilt,
+            f"kernel libraries rebuilt during phase 25: {rebuilt}")
+    alone_differ = [i for i, (a, b) in enumerate(zip(
+        r["serve_alone_tokens"], phase4["alone_tokens"])) if a != b]
+    require(len(r["serve_alone_tokens"]) == len(phase4["alone_tokens"])
+            and not alone_differ,
+            f"alone through the handle, prompts {alone_differ} gave other "
+            "tokens than phase 4's server alone")
+    require(all(s == 200 for s in r["serve_stream_status"])
+            and not any(r["serve_stream_errors"]),
+            f"SSE streams: {r['serve_stream_status']} "
+            f"{r['serve_stream_errors']}")
+    require(all(r["serve_first_event_before_done"]),
+            "an SSE stream's first event did not come before its [DONE]")
+    want = phase4["tokens"]
+    streams = r["serve_stream_tokens"]
+    require(all(len(t) == 64 for t in streams),
+            f"SSE stream lengths {[len(t) for t in streams]}")
+    differ = [i for i, t in enumerate(streams) if t != want[i]]
+    ties = [near_tie(phase4["prompts"][i], want[i], streams[i])
+            for i in differ]
+    for t in ties:
+        require(t["margin_f32"] <= NEAR_TIE_FACTOR * t["bf16_err"],
+                f"an SSE stream left phase 4's at no near-tie: {t}")
+    require(r["serve_unary_post_tokens"] == r["serve_alone_tokens"][0],
+            "the unary POST gave other tokens than the handle")
+    steps, launches = r["serve_decode_steps"], r["serve_paged_decode_launches"]
+    require(steps > 0 and launches == r["serve_n_layer"] * steps,
+            f"replica: paged_attention_decode launched {launches} times "
+            f"over {steps} decode steps of {r['serve_n_layer']} layers")
+    require(r["serve_pages_used_at_end"] == 0,
+            f"the replica's pool holds {r['serve_pages_used_at_end']} pages")
+    require(r["serve_gpu_task_after_shutdown"] == [0],
+            f"after serve.shutdown a num_gpus=1 task got "
+            f"{r['serve_gpu_task_after_shutdown']}")
+    res = {k: v for k, v in r.items() if not k.endswith("tokens")}
+    res.update({
+        "phase_s": phase_s,
+        "streams_differing_from_phase4": differ, "divergences": ties,
+        "serve_vs_inprocess": {
+            "tokens_per_s": r["serve_tokens_per_s"] / phase4["tokens_per_s"],
+            "inprocess_tokens_per_s": phase4["tokens_per_s"],
+            "inprocess_ttft_p50_s": phase4["ttft_p50_s"],
+            "inprocess_ttft_p99_s": phase4["ttft_p99_s"],
+            "inprocess_engine_itl_p50_s": phase4["engine_itl_p50_s"],
+            "inprocess_engine_itl_p99_s": phase4["engine_itl_p99_s"],
+            "replica_engine": probe["engine"]},
+        "device": name, "nvidia_smi": card})
+    print("serve_runtime", json.dumps(res), flush=True)
+    print("serve_runtime_bypassed", json.dumps({
+        "two_hop_disaggregation": "needs two GPU-granted replicas; this "
+        "machine has one GPU (held on the CPU by "
+        "tests/test_torch_serve_llm.py)"}), flush=True)
+    torch.cuda.empty_cache()
+    return res
+
+
 def gpt2_steps(n: int) -> dict:
     """``n`` steps of phase 6's GPT-2 small trainer (bench.gpt2_loop's
     configuration, init(0), its 16 x 1024 batch from its seed) in this
@@ -3897,13 +4000,20 @@ def main() -> int:
         prompts = [rng.randint(0, cfg.vocab_size, size=n).tolist()
                    for n in rng.randint(64, 769, size=16)]
         results, wall, launches, steps = serve_streams(server, prompts, 64)
+        engine_m = server.engine.metrics()
+        alone = serve_alone(server, prompts, 64)
     finally:
         server.engine.stop()
-    phase4 = {"prompts": prompts, "tokens": [t for t, _ in results]}
+    ttft = sorted(c["ttft_s"] for _, c in results)
+    phase4 = {"prompts": prompts, "tokens": [t for t, _ in results],
+              "alone_tokens": alone["tokens"],
+              "tokens_per_s": 16 * 64 / wall,
+              "ttft_p50_s": ttft[len(ttft) // 2], "ttft_p99_s": ttft[-1],
+              "engine_itl_p50_s": engine_m["itl_p50_s"],
+              "engine_itl_p99_s": engine_m["itl_p99_s"]}
     require(steps > 0 and launches == cfg.n_layer * steps,
             f"paged_attention_decode launched {launches} times over "
             f"{steps} decode steps of {cfg.n_layer} layers")
-    ttft = sorted(c["ttft_s"] for _, c in results)
     print("serve", json.dumps({
         "model": "gpt2-small", "streams": 16, "new_tokens": 64,
         "prompt_tokens": [len(p) for p in prompts],
@@ -4163,6 +4273,10 @@ def main() -> int:
     # none of the port's kernels
     rl_remote_phase(name, card, phase15, phase16)
 
+    # 25. serve on the runtime: the LLM server as a GPU-granted replica
+    # behind the controller, the router and the HTTP proxy (SSE)
+    serve_rt = serve_runtime_phase(name, card, phase4)
+
     # 13. summary
     def kernel_entry(case, kname, source, line, by_path):
         """``by_path``: {path: launches of ``kname`` in its counted
@@ -4203,7 +4317,9 @@ def main() -> int:
                          "llama_serve": llama_serve_res["kernel_launches"],
                          "disagg_decode":
                              disagg["disagg_paged_decode_launches"],
-                         "runtime_actor_serve": runtime["serve_launches"]}),
+                         "runtime_actor_serve": runtime["serve_launches"],
+                         "serve_runtime_replica":
+                             serve_rt["serve_paged_decode_launches"]}),
          "llama_serve_case": {k: llama_case[k] for k in (
              "case", "max_abs_err", "ms", "plain_ms", "bound_ms",
              "bound_by")}},

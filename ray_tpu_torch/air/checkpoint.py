@@ -5,8 +5,9 @@ Reference semantics: python/ray/air/checkpoint.py:60. The port's copy of
 dict and local directory (``to_directory`` is crash-safe), and
 ``ShardedCheckpoint`` writes and restores a train state by blocks, one
 subdir per process, indexed by global slices so that a state restores
-on another mesh. The object-ref form needs the runtime's object store,
-which the port does not have yet (ROADMAP.md Queue A, A1): it raises.
+on another mesh. The object-ref form puts the checkpoint in the port
+runtime's object store (``ray_tpu_torch.put`` / ``get``; a directory
+checkpoint goes as its dict, so the object is self-contained).
 """
 
 from __future__ import annotations
@@ -17,12 +18,6 @@ import shutil
 import tempfile
 import uuid
 from typing import Any, Dict, Optional
-
-OBJECT_REFS_NEED_RUNTIME = (
-    "checkpoints as object refs need the runtime's object store, which "
-    "the port does not have yet (ROADMAP.md Queue A, A1); use the dict or "
-    "directory form")
-
 
 class Checkpoint:
     def __init__(self, data: Optional[Dict[str, Any]] = None,
@@ -44,7 +39,8 @@ class Checkpoint:
 
     @classmethod
     def from_object_ref(cls, ref) -> "Checkpoint":
-        raise NotImplementedError(OBJECT_REFS_NEED_RUNTIME)
+        import ray_tpu_torch
+        return ray_tpu_torch.get(ref)
 
     # ------------------------------------------------------------ converters
 
@@ -96,7 +92,11 @@ class Checkpoint:
         return path
 
     def to_object_ref(self):
-        raise NotImplementedError(OBJECT_REFS_NEED_RUNTIME)
+        import ray_tpu_torch
+        if self._dir is not None:
+            # materialize as dict so the object is self-contained
+            return ray_tpu_torch.put(Checkpoint.from_dict(self.to_dict()))
+        return ray_tpu_torch.put(self)
 
     # -------------------------------------------------------- preprocessor
 

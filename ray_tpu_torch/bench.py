@@ -46,6 +46,11 @@ JAX config's defaults, and PPO with two policies on MultiAgentCartPole
 input cost: the compute ceiling), as windows of steps closed by a host
 read of the loss, and report the best window.
 
+``serve_loop`` serves GPT-2 small from a ``num_gpus=1`` replica of the
+port's serve control plane: each prompt alone through the handle, then
+16 concurrent SSE streams through the HTTP proxy (client-side tokens/s,
+TTFT and ITL), the replica's launch counts read back from it.
+
 ``framework_main`` is the headline's framework path (the JAX bench's
 ``_framework_main``): ``init`` a cluster, 1,024 uint8 224 x 224 images
 from ``default_rng(0)`` as a ``data.from_items`` Dataset, and a
@@ -82,6 +87,7 @@ import itertools
 import json
 import os
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -2476,6 +2482,254 @@ def disagg_loop(device="cuda", prompts=None, new_tokens: int = 64) -> dict:
         "disagg_solo_tokens": solo["disagg"],
         "disagg_solo_unified_tokens": solo["unified"],
     }
+
+
+def probed_server_cls():
+    """``LLMServer`` with two more replica methods for ``serve_loop``:
+    ``__bench_probe__`` (the process's GPU grant, its kernel libraries
+    and launch counts, the adapter's decode steps, the engine's own
+    TTFT and ITL quantiles) and ``__bench_reset__`` (zero the counts and
+    the engine's latency samples). Built here, not at import, so the
+    class travels to the replica by value."""
+    from ray_tpu_torch.serve.llm import LLMServer
+
+    class ProbedServer(LLMServer):
+        def __bench_probe__(self):
+            import ray_tpu_torch
+            from ray_tpu_torch import kernels as k
+            m = self.engine.metrics()
+            return {"gpu_ids": ray_tpu_torch.get_gpu_ids(),
+                    "cuda_visible_devices":
+                        os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    "device": str(self.adapter.device),
+                    "pid": os.getpid(),
+                    "kernel_libraries": {n: lib._name for n, lib in
+                                         k._libs.items()},
+                    "launches": k.launch_counts(),
+                    "decode_steps": self.adapter.decode_steps,
+                    "n_layer": self.adapter.n_layers,
+                    "engine": {key: m[key] for key in (
+                        "ttft_p50_s", "ttft_p99_s", "itl_p50_s",
+                        "itl_p99_s")}}
+
+        def __bench_reset__(self):
+            from ray_tpu_torch import kernels as k
+            k.reset_launch_counts()
+            self.adapter.decode_steps = 0
+            with self.engine._lock:
+                self.engine._ttft.clear()
+                self.engine._itl.clear()
+            return "ok"
+
+    return ProbedServer
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _sse_stream(port: int, route: str, payload: dict,
+                timeout: float) -> dict:
+    """POST ``payload`` with ``"stream": true`` and read its SSE events:
+    the tokens, each event's arrival (seconds from the request's start)
+    and token count, whether ``[DONE]`` came, the status."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    t0 = time.perf_counter()
+    try:
+        conn.request("POST", route, json.dumps({**payload, "stream": True}),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        out = {"status": resp.status, "tokens": [], "events": [],
+               "done_s": None, "error": None}
+        while True:
+            line = resp.fp.readline()
+            if not line:
+                break
+            line = line.strip()
+            if not line.startswith(b"data: "):
+                continue
+            now = time.perf_counter() - t0
+            if line[6:] == b"[DONE]":
+                out["done_s"] = now
+                break
+            ev = json.loads(line[6:])
+            if ev.get("error"):
+                out["error"] = ev["error"]
+            toks = ev.get("tokens") or []
+            out["tokens"] += toks
+            if toks:
+                out["events"].append((now, len(toks)))
+        return out
+    finally:
+        conn.close()
+
+
+def _quantiles(vals) -> dict:
+    vals = sorted(vals)
+    if not vals:
+        return {"p50": None, "p99": None}
+    return {"p50": vals[len(vals) // 2],
+            "p99": vals[min(len(vals) - 1, int(0.99 * len(vals)))]}
+
+
+def serve_loop(device="cuda", prompts=None, new_tokens: int = 64) -> dict:
+    """The LLM server on the port's serve control plane, one replica.
+
+    ``serve.start`` with the HTTP proxy on a free port, then
+    ``serve.run`` of ``probed_server_cls()`` (an ``LLMServer``): on
+    ``cuda`` GPT-2 small from seed 0 behind chip_smoke.py phase 4's
+    engine (16 running, 1,025 pages of 16, max_seq_len 1024) in a
+    ``num_gpus=1`` replica, and unless given ``serve_prompts``' 16
+    prompts of 64-768 tokens; on ``cpu`` the tiny GPT-2 in a replica
+    with no grant, 4 prompts of 5-40. Runs: (1) each prompt alone
+    through the handle (``h.remote``); (2) the replica's counts zeroed,
+    one SSE stream a prompt, all at once, through the proxy, and the
+    counts read back; (3) one unary JSON POST of the first prompt.
+    Then the pool's used pages, ``serve.shutdown``, and on ``cuda`` a
+    ``num_gpus=1`` task that must start. Runs on the cluster that is
+    up, or on a new one of 4 CPUs that it shuts down.
+
+    Reports the replica's start (``serve.run`` until healthy), its probe
+    (GPU grant, kernel libraries loaded, launches and decode steps of
+    run (2)), tokens of every run, run (2)'s tokens/s (all tokens over
+    the time to the last ``[DONE]``), TTFT (first token event) and ITL
+    (gaps between token events, per token) p50/p99 as the client saw
+    them, the replica engine's own TTFT and ITL over run (2) (in the
+    probe), each stream's count of token events, and whether its first
+    event came before its ``[DONE]``."""
+    import threading
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.actor import get_actor_by_id
+
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        from ray_tpu_torch.models.gpt2 import GPT2Config
+        model_config = {"config": GPT2Config.small(), "seed": 0}
+        engine_config = {"max_running": 16, "max_seq_len": 1024,
+                         "block_size": 16, "num_blocks": 1025}
+        actor_options = {"num_gpus": 1}
+        default = (16, 64, 768)
+    else:
+        model_config = {"seed": 0, "device": "cpu"}
+        engine_config = {"max_running": 4, "max_seq_len": 256,
+                         "block_size": 8, "num_blocks": 96}
+        actor_options = None
+        default = (4, 5, 40)
+    if prompts is None:
+        vocab = 50257 if dev.type == "cuda" else 512
+        prompts = serve_prompts(vocab, *default)
+
+    def payload(p):
+        return {"tokens": p, "max_new_tokens": new_tokens}
+
+    out = {"serve_device_kind": _device_kind(dev),
+           "serve_streams": len(prompts), "serve_new_tokens": new_tokens,
+           "serve_prompt_tokens": [len(p) for p in prompts]}
+    with rl_cluster(4):
+        t0 = time.perf_counter()
+        serve.start(http_port=_free_port())
+        port = rt.get(rt.get_actor("SERVE_PROXY").get_port.remote(),
+                      timeout=60)
+        try:
+            dep = serve.deployment(
+                name="llm", num_replicas=1, max_concurrent_queries=64,
+                ray_actor_options=actor_options)(probed_server_cls())
+            h = serve.run(dep.bind("gpt2", model_config, engine_config),
+                          name="llm", route_prefix="/llm", http_port=port,
+                          _blocking_timeout=300.0)
+            out["serve_replica_start_s"] = time.perf_counter() - t0
+            ctrl = rt.get_actor("SERVE_CONTROLLER")
+            _, table = rt.get(ctrl.get_route_table.remote(), timeout=60)
+            replica = get_actor_by_id(table["llm"]["replicas"][0])
+
+            def call(method):
+                return rt.get(replica.handle_request.remote(method, (), {}),
+                              timeout=120)
+
+            out["serve_probe_at_start"] = call("__bench_probe__")
+            # (1) each prompt alone through the handle
+            out["serve_alone_tokens"] = [
+                rt.get(h.remote(payload(p)), timeout=600)["tokens"]
+                for p in prompts]
+            # (2) concurrent SSE streams through the proxy
+            call("__bench_reset__")
+            rows = [None] * len(prompts)
+            errors = []
+
+            def stream(i):
+                try:
+                    rows[i] = _sse_stream(port, "/llm", payload(prompts[i]),
+                                          timeout=600)
+                except BaseException as e:   # raised below, in the caller
+                    errors.append(e)
+
+            threads = [threading.Thread(target=stream, args=(i,))
+                       for i in range(len(prompts))]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=900)
+            wall = time.perf_counter() - t0
+            if errors:
+                raise errors[0]
+            if any(r is None for r in rows):
+                raise TimeoutError("an SSE stream did not finish")
+            probe = call("__bench_probe__")
+            # (3) one unary JSON POST
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}/llm",
+                json.dumps(payload(prompts[0])).encode(),
+                {"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                out["serve_unary_post_tokens"] = json.loads(resp.read())[
+                    "tokens"]
+            out["serve_pages_used_at_end"] = rt.get(
+                replica.handle_request.remote("__llm_metrics__", (), {}),
+                timeout=120)["kv_blocks_used"]
+        finally:
+            serve.shutdown()
+        if dev.type == "cuda":
+            out["serve_gpu_task_after_shutdown"] = rt.get(
+                rt.remote(num_gpus=1)(_granted_gpus).remote(), timeout=300)
+    ttft = [r["events"][0][0] for r in rows if r["events"]]
+    itl = []
+    for r in rows:
+        for (t_prev, _), (t, n) in zip(r["events"], r["events"][1:]):
+            itl += [(t - t_prev) / n] * n
+    n_tok = sum(len(r["tokens"]) for r in rows)
+    last_done = max(r["done_s"] or wall for r in rows)
+    q_ttft, q_itl = _quantiles(ttft), _quantiles(itl)
+    out.update({
+        "serve_probe": probe,
+        "serve_stream_tokens": [r["tokens"] for r in rows],
+        "serve_stream_status": [r["status"] for r in rows],
+        "serve_stream_errors": [r["error"] for r in rows],
+        "serve_events_per_stream": [len(r["events"]) for r in rows],
+        "serve_first_event_before_done": [
+            bool(r["events"]) and r["done_s"] is not None
+            and r["events"][0][0] < r["done_s"] for r in rows],
+        "serve_tokens_per_s": n_tok / last_done,
+        "serve_wall_s": wall,
+        "serve_ttft_p50_s": q_ttft["p50"], "serve_ttft_p99_s": q_ttft["p99"],
+        "serve_itl_p50_s": q_itl["p50"], "serve_itl_p99_s": q_itl["p99"],
+        "serve_decode_steps": probe["decode_steps"],
+        "serve_paged_decode_launches": probe["launches"].get(
+            "paged_attention_decode", 0),
+        "serve_n_layer": probe["n_layer"],
+    })
+    return out
+
+
+def _granted_gpus() -> list:
+    import ray_tpu_torch
+    return ray_tpu_torch.get_gpu_ids()
 
 
 def main(device="cuda"):

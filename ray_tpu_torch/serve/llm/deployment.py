@@ -1,10 +1,13 @@
 """LLMServer — the serve deployment callable hosting one engine.
 
-Counterpart of ``ray_tpu/serve/llm/deployment.py``. A replica holds an
-``LLMEngine`` (continuous batching + paged KV cache) and exposes it
-through the replica request methods:
+Copy of ``ray_tpu/serve/llm/deployment.py`` over the port's adapters.
+A replica holds an ``LLMEngine`` (continuous batching + paged KV cache)
+and exposes it through the standard replica request path
+(``serve/_private/replica.py``), so routing, backpressure, shedding,
+ledgers, tracing, HA and drain all apply unchanged:
 
-  ``__call__(payload)``            unary generate
+  ``__call__(payload)``            unary generate (proxy POST without
+                                   ``stream``, ``handle.remote``)
   ``__llm_open__(payload)``        start a stream -> {"stream_id"}
   ``__llm_next__(sid, cursor, w)`` cursor poll -> token delta
   ``__llm_cancel__(sid)``          abandon a stream
@@ -15,36 +18,47 @@ through the replica request methods:
                                    (or re-prefill on a torn frame) ->
                                    {"stream_id", "adopted"}
 
-Serve integration hooks:
+Serve integration hooks (consumed by ``serve/_private/replica.py``):
 
-  ``__serve_load__``         in-flight sequences count as queue depth
-                             (KV-aware graceful drain) and the ``llm``
-                             metrics ride along
+  ``__serve_load__``         merged into ``get_load`` — in-flight
+                             sequences count as queue depth (the
+                             controller's drain poll waits for them:
+                             KV-aware graceful drain) and the ``llm``
+                             metrics ride the controller's telemetry
+                             into the autoscaler
   ``__serve_prepare_drain__`` engine stops admitting, finishes decodes
   ``__serve_drain_exempt__``  stream polls stay answerable while
                              draining
+  ``__serve_prepare_shutdown__`` flush the per-request token ledger to
+                             the GCS KV (``gameday/store.py``) so a
+                             replica retired by a rolling update keeps
+                             its half of the per-token reconciliation
 
-A replica takes a role by the hop it is sent: a prefill replica gets
-``__llm_prefill__``, a decode replica ``__llm_adopt__`` with the
-descriptor the first returned (the router's two-hop admission waits
-for the runtime; a caller drives both hops)::
+A replica takes a role by the hop it is sent: the controller assigns
+roles over a deployment's replicas (``llm_roles``), and the router's
+``open_stream`` sends ``__llm_prefill__`` to a prefill replica and
+``__llm_adopt__`` with the descriptor it returned to a decode replica.
+Outside the runtime a caller drives both hops::
 
     handoff = prefill_server.__llm_prefill__({"tokens": p,
                                               "max_new_tokens": 64})
     sid = decode_server.__llm_adopt__(handoff)["stream_id"]
 
-Not ported yet (ROADMAP.md Queue A, A7b): the engine's trace spans
-and the token-ledger flush at shutdown.
+On ``cuda`` (the default device of ``gpt2`` and ``llama``) a replica
+needs its GPU by grant: ``ray_actor_options={"num_gpus": 1}``. A
+replica the runtime granted no GPU sees ``CUDA_VISIBLE_DEVICES=""``,
+and the server raises at construction, naming the grant.
 
 Payload schema (dict): ``prompt`` (str, byte-tokenized) or ``tokens``
 (list[int]); optional ``max_new_tokens``, ``temperature``, ``seed``,
-``stop_token``.
+``stop_token``, ``stream`` (proxy SSE opt-in).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import time
 from typing import Any, Dict, List, Optional, Union
 
@@ -79,15 +93,18 @@ class LLMServer:
     ``device``, which defaults to ``cuda``). ``max_seq_len`` is capped
     at the model's position count (Llama-2's 2048)."""
 
-    # in-flight streams must drain their remaining tokens while the
-    # replica drains
+    # replica keeps answering these while draining — in-flight streams
+    # must drain their remaining tokens before the controller's kill
     __serve_drain_exempt__ = ("__llm_next__", "__llm_cancel__",
                               "__llm_metrics__")
+    # the replica normally strips the reserved request-id kwarg; the
+    # engine needs it for the per-request token ledger + trace spans
     __serve_wants_request_id__ = True
 
     def __init__(self, model: str = "toy",
                  model_config: Optional[Dict[str, Any]] = None,
                  engine_config: Optional[Dict[str, Any]] = None):
+        _require_gpu_grant(model, model_config)
         self.adapter = make_adapter(model, model_config)
         cfg = EngineConfig(**(engine_config or {}))
         limit = getattr(self.adapter, "max_seq_len", None)
@@ -100,8 +117,23 @@ class LLMServer:
 
     def _get_shipper(self) -> KVShipper:
         if self._shipper is None:
-            self._shipper = KVShipper()
+            self._shipper = KVShipper(f"{os.getpid()}-{id(self)}")
         return self._shipper
+
+    @staticmethod
+    def _trace_ctx() -> Optional[Dict[str, str]]:
+        # parent the engine's phase spans under THIS request's replica
+        # execute span (installed by replica._execute for sampled
+        # requests) so TTFT decomposes on the trace waterfall
+        try:
+            from ray_tpu_torch._private import worker as worker_mod
+            w = worker_mod._global_worker
+            if w is not None:
+                ctx = getattr(w.task_context, "trace", None)
+                return dict(ctx) if ctx else None
+        except Exception:
+            pass
+        return None
 
     # ------------------------------------------------------------ intake
 
@@ -131,12 +163,14 @@ class LLMServer:
         sampling = (SamplingParams.from_payload(payload)
                     if isinstance(payload, dict) else SamplingParams())
         return self.engine.add_request(
-            self._tokens_of(payload), sampling, request_id=request_id)
+            self._tokens_of(payload), sampling, request_id=request_id,
+            trace_ctx=self._trace_ctx())
 
     # --------------------------------------------------------- serve API
 
     def __call__(self, payload=None, __rtpu_request_id__=None):
-        """Unary generation."""
+        """Unary generation (proxy POST without ``stream``, plain
+        ``handle.remote``)."""
         sid = self._open(payload or {}, __rtpu_request_id__)
         cursor = 0
         tokens: List[int] = []
@@ -177,15 +211,16 @@ class LLMServer:
     def __llm_prefill__(self, payload=None, __rtpu_request_id__=None):
         """Disagg hop 1 (prefill replica): run prompt + ONE token,
         snapshot the prompt's KV pages, and return a handoff
-        descriptor for a decode replica. The descriptor always
-        includes the prompt + sampling so the decode side can
-        re-prefill if the KV frame is lost."""
+        descriptor the router carries to a decode replica. The
+        descriptor always includes the prompt + sampling so the decode
+        side can re-prefill if the KV frame is lost."""
         payload = payload or {}
         sampling = (SamplingParams.from_payload(payload)
                     if isinstance(payload, dict) else SamplingParams())
         tokens = self._tokens_of(payload)
         sid = self.engine.prefill_export(
-            tokens, sampling, request_id=__rtpu_request_id__)
+            tokens, sampling, request_id=__rtpu_request_id__,
+            trace_ctx=self._trace_ctx())
         cursor = 0
         while True:
             chunk = self.engine.poll(sid, cursor, max_wait_s=30.0)
@@ -213,17 +248,18 @@ class LLMServer:
         return handoff
 
     def __llm_adopt__(self, handoff=None, __rtpu_request_id__=None):
-        """Disagg hop 2 (decode replica): verify the KV frame, rebind
+        """Disagg hop 2 (decode replica): fetch the KV frame, rebind
         its pages into this replica's pool, and continue decoding from
-        the prefill replica's first token. Any fault — no frame, a CRC
-        or length mismatch, a lane this side cannot fetch, a blob that
-        does not fit the adapter — falls back to a local re-prefill:
+        the prefill replica's first token. Any fault — chaos drop or
+        reset, a CRC or length mismatch, a vanished ring slot, a blob
+        that does not fit the adapter — falls back to a local re-prefill:
         greedy decode is deterministic, so the stream gives the tokens
         the handoff would have given in the same batch (bf16 rounding
         differs between batchings, and may swap near-tied tokens);
         ``adopted: False`` says which path ran."""
         handoff = handoff or {}
         rid = __rtpu_request_id__
+        trace_ctx = self._trace_ctx()
         prompt = [int(t) for t in handoff.get("prompt") or []]
         sampling = SamplingParams.from_payload(
             dict(handoff.get("sampling") or {}))
@@ -233,13 +269,15 @@ class LLMServer:
                         and int(first) == sampling.stop_token))
         if terminal and first is not None:
             sid = self.engine.adopt_request(
-                prompt, int(first), None, sampling, request_id=rid)
+                prompt, int(first), None, sampling, request_id=rid,
+                trace_ctx=trace_ctx)
             return {"stream_id": sid, "adopted": True}
         blob = None
         desc = handoff.get("kv")
         if desc is not None and first is not None:
             try:
-                frame = self._get_shipper().receive(desc)
+                frame = self._get_shipper().receive(
+                    desc, method="__llm_adopt__")
             except KVShipError:
                 frame = None
             blob = (frame or {}).get("kv")
@@ -247,15 +285,18 @@ class LLMServer:
             try:
                 sid = self.engine.adopt_request(
                     prompt, int(first), blob, sampling, request_id=rid,
+                    trace_ctx=trace_ctx,
                     lane=desc.get("lane", "inline"),
                     t_ship_start=handoff.get("t_ship_start"))
                 return {"stream_id": sid, "adopted": True}
             except Exception:
-                logger.warning("kv ship: adoption failed, re-prefilling",
-                               exc_info=True)
+                logger.warning(
+                    "llm.kv_ship: adoption failed, re-prefilling",
+                    exc_info=True)
         # fallback: deterministic re-prefill on this (decode) replica;
         # sheds retriably if this replica is saturated
-        sid = self.engine.add_request(prompt, sampling, request_id=rid)
+        sid = self.engine.add_request(prompt, sampling, request_id=rid,
+                                      trace_ctx=trace_ctx)
         return {"stream_id": sid, "adopted": False}
 
     def __llm_metrics__(self):
@@ -267,15 +308,56 @@ class LLMServer:
 
     def __serve_load__(self) -> Dict[str, Any]:
         m = self.engine.metrics()
-        return {"queue_len_extra": m["running"] + m["waiting"], "llm": m}
+        return {
+            # in-flight sequences ARE queue depth: the router's p2c
+            # scoring sees decode load, the autoscaler sees pressure,
+            # and the controller's drain poll waits for zero
+            "queue_len_extra": m["running"] + m["waiting"],
+            "llm": m,
+        }
 
     def __serve_prepare_drain__(self):
         self.engine.prepare_drain()
 
     def __serve_prepare_shutdown__(self, replica_name: str = ""):
-        self.engine.stop()
+        """Best-effort token-ledger flush (rolling update / downscale):
+        reconciliation joins client token counts against it even after
+        this replica is gone."""
+        try:
+            from ray_tpu_torch.gameday import store
+            ledger = self.engine.token_ledger()
+            if ledger:
+                store.flush_llm_ledger(replica_name, ledger)
+        except Exception:
+            pass
+        try:
+            if self._shipper is not None:
+                self._shipper.free()
+        except Exception:
+            pass
+        try:
+            self.engine.stop()
+        except Exception:
+            pass
 
     def check_health(self):
         if not self.engine._thread.is_alive():
             raise RuntimeError("LLM engine thread died")
         return "ok"
+
+
+def _require_gpu_grant(model: str, model_config: Optional[Dict[str, Any]]):
+    """Raise when a server on ``cuda`` runs in a process the runtime
+    granted no GPU (``CUDA_VISIBLE_DEVICES`` set to ``""``): it must
+    never carry on on the CPU."""
+    if model == "toy":
+        return
+    device = str((model_config or {}).get("device", "cuda"))
+    if not device.startswith("cuda"):
+        return
+    if os.environ.get("CUDA_VISIBLE_DEVICES") == "":
+        raise RuntimeError(
+            f"LLMServer(model={model!r}) runs on {device!r}, but this "
+            "process holds no GPU grant (CUDA_VISIBLE_DEVICES is empty): "
+            "deploy it with ray_actor_options={'num_gpus': 1}, or pass "
+            "model_config={'device': 'cpu'}")

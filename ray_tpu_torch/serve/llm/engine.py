@@ -1,12 +1,11 @@
 """Continuous-batching LLM engine: one per serve replica.
 
-Counterpart of ``ray_tpu/serve/llm/engine.py``, copied as plain Python
-without the trace spans (they wait for the serve runtime's port;
-ROADMAP.md Queue A, A7b).
+Copy of ``ray_tpu/serve/llm/engine.py`` over the port's adapters, with
+its trace spans (``_private/tracing``).
 
 Reference analogue: vLLM's LLMEngine/Scheduler. The serve data plane's
-adaptive micro-batching flushes a *window* of requests into one call — right for
-stateless fns, wrong for autoregressive decode, where a batch admitted
+adaptive micro-batching flushes a *window* of requests into one call —
+right for stateless fns, wrong for autoregressive decode, where a batch admitted
 together must otherwise run until its LONGEST member finishes while
 finished slots sit idle. This engine schedules at token granularity:
 
@@ -43,6 +42,13 @@ prompt's KV pages as the sequence retires (``take_export``); a *decode*
 replica rebinds them into its own pages and enters the decode batch
 mid-flight (``adopt_request``), so a long prompt never stalls its
 in-flight decode streams.
+
+Tracing: each sequence carries the trace ctx of its ``__llm_open__``
+call; on finish the engine records ``llm.queue`` / ``llm.kv_alloc`` /
+``llm.prefix_lookup`` / ``llm.prefill`` / ``llm.decode`` /
+``llm.kv_ship`` / ``llm.draft`` / ``llm.verify`` phase spans, so a
+trace's critical path attributes time-to-first-token vs inter-token
+latency per request.
 
 Tokens stream out through per-sequence cursors (``poll``), which the
 replica exposes as ``__llm_next__`` and the router/proxy turn into
@@ -120,6 +126,7 @@ class Sequence:
     request_id: Optional[str]
     prompt: List[int]
     sampling: SamplingParams
+    trace_ctx: Optional[Dict[str, str]] = None
     status: str = WAITING
     tokens: List[int] = field(default_factory=list)   # generated
     finish_reason: Optional[str] = None
@@ -131,9 +138,13 @@ class Sequence:
     import_lane: Optional[str] = None
     draft_proposed: int = 0
     draft_accepted: int = 0
-    # phase timestamps for TTFT/ITL telemetry
+    draft_s: float = 0.0
+    verify_s: float = 0.0
+    # phase timestamps for spans + TTFT/ITL telemetry
     t_arrival: float = field(default_factory=time.time)
     t_alloc: Optional[float] = None
+    t_prefill_start: Optional[float] = None
+    t_prefill_end: Optional[float] = None
     t_first_token: Optional[float] = None
     t_finish: Optional[float] = None
     t_import_start: Optional[float] = None
@@ -206,6 +217,7 @@ class LLMEngine:
     def add_request(self, prompt_tokens: List[int],
                     sampling: Optional[SamplingParams] = None,
                     request_id: Optional[str] = None,
+                    trace_ctx: Optional[Dict[str, str]] = None,
                     _export_kv: bool = False) -> str:
         """Enqueue a sequence; returns its stream id. Sheds retriably
         (``ReplicaOverloadedError``) when draining, when the waiting
@@ -239,7 +251,7 @@ class LLMEngine:
             self._seq_counter += 1
             seq_id = f"seq-{self._seq_counter}"
             seq = Sequence(seq_id, request_id, list(prompt_tokens),
-                           sampling)
+                           sampling, trace_ctx=trace_ctx)
             seq.export_kv = _export_kv
             if sampling.temperature > 0:
                 seq.rng = random.Random(
@@ -256,14 +268,15 @@ class LLMEngine:
 
     def prefill_export(self, prompt_tokens: List[int],
                        sampling: Optional[SamplingParams] = None,
-                       request_id: Optional[str] = None) -> str:
+                       request_id: Optional[str] = None,
+                       trace_ctx: Optional[Dict[str, str]] = None) -> str:
         """Prefill-role entry: run the prompt and exactly ONE decode
         step, snapshotting the prompt's KV pages on finish for
         shipment to a decode replica (``take_export``)."""
         sampling = sampling or SamplingParams()
         one = dataclasses.replace(sampling, max_new_tokens=1)
         return self.add_request(prompt_tokens, one, request_id,
-                                _export_kv=True)
+                                trace_ctx, _export_kv=True)
 
     def take_export(self, seq_id: str,
                     max_wait_s: float = 5.0) -> Optional[Dict[str, Any]]:
@@ -285,6 +298,7 @@ class LLMEngine:
                       kv_blob: Optional[Dict[str, Any]],
                       sampling: Optional[SamplingParams] = None,
                       request_id: Optional[str] = None,
+                      trace_ctx: Optional[Dict[str, str]] = None,
                       lane: str = "inline",
                       t_ship_start: Optional[float] = None) -> str:
         """Decode-role entry: rebind a shipped prompt KV snapshot into
@@ -314,7 +328,7 @@ class LLMEngine:
             self._seq_counter += 1
             seq_id = f"seq-{self._seq_counter}"
             seq = Sequence(seq_id, request_id, list(prompt_tokens),
-                           sampling)
+                           sampling, trace_ctx=trace_ctx)
             seq.adopted = True
             seq.cached_tokens = n_prompt    # zero prefill work here
             seq.import_lane = lane
@@ -554,6 +568,7 @@ class LLMEngine:
                < self.config.max_running):
             seq = self._seqs[self._waiting[0]]
             n_prompt = len(seq.prompt)
+            t0 = time.time()
             shared_pages: List[int] = []
             cached = 0
             if self.prefix_cache is not None:
@@ -593,6 +608,7 @@ class LLMEngine:
                         self.cache.allocate(seq.seq_id,
                                             seq.budget_tokens())
                 seq.t_alloc = time.time()
+                seq._t_alloc_start = t0  # type: ignore[attr-defined]
             except OutOfKVBlocksError:
                 break  # pages free up as running sequences finish
             seq.cached_tokens = cached
@@ -643,7 +659,9 @@ class LLMEngine:
                 windows.append([int(s.tokens[-1])])
                 continue
             w = min(k + 1, remaining + 1)
+            td = time.time()
             props = self._draft.propose(s.prompt + s.tokens, w - 1)
+            s.draft_s += time.time() - td
             win = [int(s.tokens[-1])]
             for p in props:
                 p = int(p)
@@ -653,12 +671,18 @@ class LLMEngine:
             s.draft_proposed += len(win) - 1
             self._total_draft += len(win) - 1
             windows.append(win)
+        tv = time.time()
         rows = self.adapter.decode_window(seqs, windows)
-        self._commit_window(seqs, windows, rows, step_t0=t0)
+        verify_dt = time.time() - tv
+        self._commit_window(seqs, windows, rows, step_t0=t0,
+                            verify_dt=verify_dt)
 
     def _prefill(self, seqs: List[Sequence]):
         t0 = time.time()
+        for s in seqs:
+            s.t_prefill_start = t0
         logits = self.adapter.prefill(seqs)     # [B, V]
+        t1 = time.time()
         if self.prefix_cache is not None:
             # publish the finished prompts' full pages to the radix
             # tree (before _commit can free a finished seq's pages)
@@ -668,6 +692,7 @@ class LLMEngine:
                     self.prefix_cache.insert(s.prompt, table)
         with self._lock:
             for s in seqs:
+                s.t_prefill_end = t1
                 s.status = RUNNING
                 self._running.append(s.seq_id)
         self._commit(seqs, logits, step_t0=t0)
@@ -729,7 +754,7 @@ class LLMEngine:
 
     def _commit_window(self, seqs: List[Sequence],
                        windows: List[List[int]], rows,
-                       *, step_t0: float):
+                       *, step_t0: float, verify_dt: float):
         """Speculative publish: per sequence, accept the drafted
         prefix the target agrees with (greedy_verify), commit the
         correction/bonus, and roll the KV cache back over rejected
@@ -748,6 +773,7 @@ class LLMEngine:
                 if len(win) == 1:
                     committed = [self._sample(seq, row[0])]
                 else:
+                    seq.verify_s += verify_dt / max(1, len(seqs))
                     argmaxes = [int(r.argmax()) for r in row]
                     committed = greedy_verify(win, argmaxes)
                     acc = max(0, len(committed) - 1)
@@ -823,6 +849,7 @@ class LLMEngine:
             self._token_ledger.append(
                 (seq.request_id, len(seq.tokens), reason,
                  len(seq.prompt), seq.cached_tokens))
+        self._record_spans(seq)
 
     def _fail_all(self, err: Exception):
         """A model-step failure fails the sequences it was computing —
@@ -843,3 +870,64 @@ class LLMEngine:
                 self.adapter.release(sid)
                 self.cache.free(sid)
             self._out_cv.notify_all()
+
+    # ------------------------------------------------------------ tracing
+
+    def _record_spans(self, seq: Sequence):
+        """Phase spans for the PR 9 trace plane: queue / kv-alloc /
+        prefix-lookup / prefill / decode (+ kv_ship for adopted
+        sequences, draft/verify aggregates for speculative ones),
+        parented under the ``__llm_open__`` call's replica execute
+        span — TTFT = queue + kv_alloc + prefill, inter-token latency
+        = decode / n_tokens."""
+        ctx = seq.trace_ctx
+        if not ctx or not ctx.get("trace_id"):
+            return
+        from ray_tpu_torch._private import tracing
+        tid, parent = ctx["trace_id"], ctx.get("span_id")
+
+        def span(name, phase, t0, t1, attrs=None, min_width=None):
+            if t0 is None or t1 is None:
+                return
+            if min_width is not None:
+                t1 = max(t1, t0 + min_width)
+            elif t1 - t0 <= 1e-5:
+                return
+            tracing.record_span(
+                tid, tracing.new_span_id(), name,
+                parent_span_id=parent, kind="serve.llm", phase=phase,
+                start_ts=t0, end_ts=t1, attrs=attrs)
+
+        alloc_start = getattr(seq, "_t_alloc_start", None)
+        span("llm.queue", "queue", seq.t_arrival,
+             alloc_start or seq.t_prefill_start)
+        span("llm.kv_alloc", "schedule", alloc_start, seq.t_alloc)
+        if seq.cached_tokens and not seq.adopted:
+            # sub-µs radix walk: clamp so the span survives recording
+            span("llm.prefix_lookup", "schedule", alloc_start,
+                 seq.t_alloc, attrs={"cached_tokens": seq.cached_tokens},
+                 min_width=2e-5)
+        span("llm.prefill", "execute", seq.t_prefill_start,
+             seq.t_prefill_end,
+             attrs={"prompt_tokens": len(seq.prompt),
+                    "cached_tokens": seq.cached_tokens})
+        if seq.adopted:
+            span("llm.kv_ship", "transfer", seq.t_import_start,
+                 seq.t_import_end,
+                 attrs={"prompt_tokens": len(seq.prompt),
+                        "lane": seq.import_lane or "inline"},
+                 min_width=2e-5)
+        span("llm.decode", "execute", seq.t_first_token, seq.t_finish,
+             attrs={"tokens": len(seq.tokens),
+                    "finish_reason": seq.finish_reason})
+        if seq.draft_proposed and seq.t_first_token is not None:
+            span("llm.draft", "execute", seq.t_first_token,
+                 seq.t_first_token + seq.draft_s,
+                 attrs={"proposed": seq.draft_proposed,
+                        "accepted": seq.draft_accepted},
+                 min_width=2e-5)
+            span("llm.verify", "execute", seq.t_first_token,
+                 seq.t_first_token + seq.verify_s,
+                 attrs={"proposed": seq.draft_proposed,
+                        "accepted": seq.draft_accepted},
+                 min_width=2e-5)

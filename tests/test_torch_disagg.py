@@ -24,7 +24,7 @@ from ray_tpu.serve.llm import LLMEngine as JLLMEngine
 from ray_tpu.serve.llm import SamplingParams as JSamplingParams
 from ray_tpu.serve.llm import ToyAdapter as JToyAdapter
 from ray_tpu_torch.serve.exceptions import ReplicaOverloadedError
-from ray_tpu_torch.serve.llm import (EngineConfig, KVShipError, KVShipper,
+from ray_tpu_torch.serve.llm import (EngineConfig, KVShipper,
                                      LLMEngine, LLMServer, SamplingParams,
                                      TorchModelAdapter, ToyAdapter)
 
@@ -79,8 +79,7 @@ def _disagg(side, make_adapter, prompts, ntok):
     ship -> receive -> adopt_request on a second engine."""
     pe = side["Engine"](make_adapter(), side["Config"](**_CFG))
     de = side["Engine"](make_adapter(), side["Config"](**_CFG))
-    shipper = (side["Shipper"]("test") if side is JAX
-               else side["Shipper"]())
+    shipper = side["Shipper"]("test")
     try:
         outs, firsts = [], []
         for i, p in enumerate(prompts):
@@ -186,9 +185,10 @@ def test_gpt2_disagg_matches_flax_adapter(flax_adapter):
 def test_shipper_crc_length_and_lane():
     """test_llm_fleet.py:375: a flipped byte fails the CRC and receive()
     returns None (re-prefill), not garbage; so does a frame of the wrong
-    length; a lane this side cannot fetch raises KVShipError; torch
-    tensors cross intact."""
-    shipper = KVShipper()
+    length; so does a plasmax descriptor whose ring slot this side
+    cannot reach (no object store connected); torch tensors cross
+    intact."""
+    shipper = KVShipper("test")
     pages = torch.arange(64, dtype=torch.float32).reshape(2, 8, 4)
     desc = shipper.ship({"kv": {"kind": "toy", "n": 3, "pages": pages,
                                 "bf16": pages.to(torch.bfloat16)}})
@@ -201,8 +201,8 @@ def test_shipper_crc_length_and_lane():
     assert shipper.receive(dict(desc, b=bytes(body))) is None
     assert shipper.receive(dict(desc, b=desc["b"][:-1])) is None
     assert shipper.receive(dict(desc, b=None)) is None
-    with pytest.raises(KVShipError):
-        shipper.receive({"lane": "plasmax", "o": "00", "crc": 0, "n": 0})
+    assert shipper.receive({"lane": "plasmax", "o": "00", "crc": 0,
+                            "n": 0}) is None
 
 
 def _toy_server(**engine):

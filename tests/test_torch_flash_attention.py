@@ -69,16 +69,19 @@ def _settings():
     return s
 
 
-def _assert_o_close(o_t, o_j, o_64, tol):
-    """assert_allclose(o_t, o_j); on a failure the message also holds
-    each side against the f64 function and the settings above."""
+def _assert_close(what, got_t, got_j, ref_64, tol):
+    """assert_allclose(got_t, got_j); on a failure the message also
+    holds each side against the f64 function (``ref_64``, the same
+    output of ``whole_attention_forward_f64``) and the settings above,
+    so it says which side strays."""
     try:
-        np.testing.assert_allclose(_np(o_t), _np(o_j), **tol)
+        np.testing.assert_allclose(_np(got_t), _np(got_j), **tol)
     except AssertionError as err:
-        ref = o_64.numpy()
+        ref = ref_64.numpy()
         raise AssertionError(
-            f"{err}\nmax |port o - f64| {np.abs(_np(o_t) - ref).max():.3e}, "
-            f"max |jax o - f64| {np.abs(_np(o_j) - ref).max():.3e}; "
+            f"{err}\nmax |port {what} - f64| "
+            f"{np.abs(_np(got_t) - ref).max():.3e}, "
+            f"max |jax {what} - f64| {np.abs(_np(got_j) - ref).max():.3e}; "
             f"settings {_settings()}") from None
 
 
@@ -99,15 +102,15 @@ def test_whole_forward_and_lse_match_jax(s, d, causal, dtype):
     o_t, lse_t = TA.whole_attention_forward((tq * scale).to(td), tk, tv,
                                             causal=causal)
     assert o_t.dtype == td and lse_t.dtype == torch.float32
-    o_64, _ = TA.whole_attention_forward_f64((tq * scale).to(td), tk, tv,
-                                             causal=causal)
-    _assert_o_close(o_t, o_j, o_64, tol)
-    np.testing.assert_allclose(_np(lse_t), _np(lse_j), **F32)
+    o_64, lse_64 = TA.whole_attention_forward_f64((tq * scale).to(td), tk,
+                                                  tv, causal=causal)
+    _assert_close("o", o_t, o_j, o_64, tol)
+    _assert_close("lse", lse_t, lse_j, lse_64, F32)
     # and the public op, dispatch included
     out_j = JA.flash_attention(jq, jk, jv, causal=causal, force_pallas=True,
                                interpret=True)
     out_t = TA.flash_attention(tq, tk, tv, causal=causal)
-    np.testing.assert_allclose(_np(out_t), _np(out_j), **tol)
+    _assert_close("public op out", out_t, out_j, o_64, tol)
 
 
 @pytest.mark.parametrize("d,causal,dtype", [

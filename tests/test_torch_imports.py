@@ -82,6 +82,14 @@ def test_port_files_found():
     for mod in ("checkpoint/manager", "checkpoint/async_checkpointer",
                 "serve/llm/disagg"):
         assert f"ray_tpu_torch/{mod}.py" in rel
+    for mod in ("serve/__init__", "serve/exceptions", "serve/api",
+                "serve/batching", "serve/controller", "serve/drivers",
+                "serve/handle", "serve/http_adapters", "serve/http_proxy",
+                "serve/ingress", "serve/schema", "serve/_private/autoscaling",
+                "serve/_private/journal", "serve/_private/long_poll",
+                "serve/_private/replica", "serve/_private/router",
+                "gameday/__init__", "gameday/store"):
+        assert f"ray_tpu_torch/{mod}.py" in rel
     for mod in ("__init__", "actor", "remote_function", "exceptions",
                 "common/ids", "common/config", "common/options",
                 "util/placement_group", "util/scheduling_strategies",
