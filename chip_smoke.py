@@ -6,7 +6,9 @@
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. device   — a CUDA card of compute capability 9.0; prints its name and
-              power limit (nvidia-smi); TF32 off for the f32 checks.
+              power limit (nvidia-smi) and how long ``import torch``
+              took here and in a fresh process (keep_bytecode); TF32
+              off for the f32 checks.
 2. build    — compiles every kernel in ray_tpu_torch/kernels/csrc from
               the checkout, one nvcc per source, in parallel; prints
               the registers, spills and shared memory per CTA of the
@@ -221,8 +223,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
               one SAC update at its own init); (a) bench.sac_loop: SAC on
               Pendulum-v1 at pendulum-sac.yaml's settings (256 x 256,
               batch 256, fragments of 1, 256 steps before learning, a
-              100,000-row buffer), 1,000 timed iterations;
-              bench.ddpg_loop("TD3"): TD3Config's defaults, 1,000;
+              100,000-row buffer), 300 timed iterations (CUT_TIMED;
+              the bench's 1,000 is one yaml iteration);
+              bench.ddpg_loop("TD3"): TD3Config's defaults, 300;
               bench.offline_loop for CQL (25 timed iterations: past its
               200 BC steps), CRR, MARWIL and BC (3 each) on a
               100,000-row Pendulum set (500 episodes x 200 steps of the
@@ -270,9 +273,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
               (a) bench.qmix_loop (QMixConfig's defaults, 100 timed
               iterations), bench.maddpg_loop (MADDPGConfig's, 50),
               bench.maml_loop (MAMLConfig's: 4,000 env steps and one
-              meta-update an iteration, 5), bench.mbmpo_loop
-              (MBMPOConfig's: K = 4, 60 model updates, 16 real episodes,
-              4 x 2 imaginations, one meta-update an iteration, 10),
+              meta-update an iteration, 2 of the bench's 5),
+              bench.mbmpo_loop (MBMPOConfig's: K = 4, 60 model updates,
+              16 real episodes, 4 x 2 imaginations, one meta-update an
+              iteration, 4 of 10; CUT_TIMED),
               each with one learn phase profiled (PPO_PROFILE_GROUPS):
               finite losses, weights that moved, replays that grew,
               QMIX's epsilon falling and its target synced at its
@@ -295,11 +299,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
               MultiAgentCartPole, 2 policies of 256 x 256); each by
               phase 18b's rule (hold_update); (a) bench.dreamer_loop
               (DreamerConfig's defaults: prefill 1,000, then 200 env
-              steps + 20 updates an iteration, 5 timed),
-              bench.alphazero_loop (24 games x 25 sims, 8 x 256 SGD, 3
-              timed), bench.alphastar_loop (64 matches an iteration, 10
-              timed, the 10th snapshotting main), bench.ma_ppo_loop
-              (512 / 128 x 6, 2 policies, 5 timed), each with one learn
+              steps + 20 updates an iteration, 3 timed of the bench's
+              5), bench.alphazero_loop (24 games x 25 sims, 8 x 256 SGD,
+              2 of 3 timed), bench.alphastar_loop (64 matches an
+              iteration, 10 timed, the 10th snapshotting main),
+              bench.ma_ppo_loop (512 / 128 x 6, 2 policies, 3 of 5
+              timed; CUT_TIMED), each with one learn
               phase profiled (PPO_PROFILE_GROUPS): finite losses,
               weights that moved, the widths, Dreamer's reconstruction
               loss on a held batch falling across the timed window,
@@ -338,8 +343,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
               CUDA_VISIBLE_DEVICES == "0", the kernel libraries loaded,
               not rebuilt; a second num_gpus=1 actor (an LLMServer on
               phase 4's weights) stays queued while the first holds the
-              GPU, starts after kill() of the first, and serves 4 of
-              phase 4's prompts, each alone, to the tokens of this
+              GPU, starts after kill() of the first, and serves
+              RUNTIME_PROMPTS (2) of phase 4's prompts, each alone, to
+              the tokens of this
               process's server on the same prompts alone, through the
               paged-decode kernel; a num_gpus=0 task sees
               CUDA_VISIBLE_DEVICES "" and no CUDA. Host numbers: put
@@ -376,8 +382,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
               sync_weights their weights are byte-equal to the
               learner's host copy; (b) bench.ppo_remote_loop: PPO-Atari
               at atari-ppo.yaml's 10 remote workers x 5 envs (one torch
-              thread each), the learner on the card, one warm-up and 3
-              timed iterations, one learn phase profiled
+              thread each), the learner on the card, one warm-up and 2
+              timed iterations (CUT_TIMED; the bench's 3), one learn
+              phase profiled
               (PPO_PROFILE_GROUPS); env steps/s beside phase 15's
               one-local-worker form (remote_vs_local), the timers'
               split, the sampling share, the learn phase's idle share,
@@ -386,14 +393,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
               bench.impala_remote_loop: IMPALA-Atari with the async
               learner thread fed by remote workers of 5 envs x 50 steps
               (atari-impala.yaml's 32 cut to the machine's CPUs less 2),
-              5 timed iterations: the learner queue's depth after each,
+              3 timed iterations (of the bench's 5): the learner
+              queue's depth after each,
               the learner thread's steps, rows and empty-queue wait,
               env steps/s against phase 16's; (d)
               bench.remote_algo_loops: DDPPO, Ape-X DQN, Ape-X DDPG,
               A3C, ES, ARS and PPO with an evaluation WorkerSet (each
               with 2 remote workers and the learner on the card, all
-              built first so their actors start together, 3 timed
-              iterations each): weights that moved, the remote workers
+              built first so their actors start together, 2 timed
+              iterations each, of the bench's 3): weights that moved,
+              the remote workers
               holding the learner's weights after a sync (ES: the
               policy holding theta), the steps and learner counts each
               config implies; (e) the launch counts, zeroed at the
@@ -420,14 +429,47 @@ Phases, each of which fails the run (non-zero exit, no result line):
               the replica's start, decode steps and launches. The
               router's two-hop disaggregation is bypassed (it needs
               two GPU-granted replicas; this machine has one GPU).
+26. tune    — Tune on the runtime, init(num_cpus=4) with the one GPU:
+              (a) tune.run of tune_gpt2_trial, a function trainable that
+              trains phase 6's GPT-2 small (bench.gpt2_train_shape,
+              init(0), gpt2_steps' batch) at config["learning_rate"],
+              one step an iteration, a ShardedCheckpoint of the state on
+              the host every 2 iterations, over a grid of four rates
+              (TUNE_LRS, the trainer's default 3e-4 first) under
+              ASHAScheduler(metric="loss", mode="min", max_t=4,
+              grace_period=1, reduction_factor=2), each trial
+              {"CPU": 1, "GPU": 1}, max_concurrent_trials=4: three
+              trials wait for the card; (b) the same at 3e-4 with
+              max_failures=1, raising once after its checkpoint at
+              iteration 2, restarted from it on the card; (c)
+              Tuner(PPO) over two rates, one iteration each, in phase
+              15's one-local-worker PPO-Atari configuration, the policy
+              on cuda (a PPO subclass adds the launch counts and the
+              grant to its results). Checks: the 3e-4 trial's losses
+              and grad norms bit-equal to gpt2_steps(4) in this
+              process, every trial's first iteration too; in every
+              GPT-2 trial the whole-kv kernels and the delta pass
+              launched n_layer times a step in its process and nothing
+              else; every trial's grant [0] with CUDA_VISIBLE_DEVICES
+              "0", the params on cuda; each attempt started after the
+              previous one was done with the card, in a process of its
+              own; ASHA stopped a trial before max_t and the best trial
+              reached it; (b)'s iterations 3-4 bit-equal to (a)'s; (c)
+              5,000 env steps a trial and no launch of the port's
+              kernels; no kernel library rebuilt. Prints each attempt's
+              wait for the card, actor start, build and first step, the
+              card's idle time since the previous attempt's last step,
+              step ms, checkpoint writes and each run's wall time.
 13. summary — nvidia-smi's card line, the kernels line (each kernel's
               launches by the path that counted them: phases 4, 5b, 6,
-              8, 12, 14, 21, 22, 23 and 25; paged decode's entry also
+              8, 12, 14, 21, 22, 23, 25 and 26; paged decode's entry also
               carries its Llama serve case, the streaming kernels' the
               ring's), then the device line, last.
 
 Exits non-zero without printing a result when CUDA is absent or when
-the repository's package is not beside this script.
+the repository's package is not beside this script. However it ends, it
+then stops every process of the run that is still running and names
+them on stderr (stop_leftovers).
 """
 
 from __future__ import annotations
@@ -437,6 +479,7 @@ import dataclasses
 import json
 import math
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -539,9 +582,11 @@ CKPT_RESUME_REL = 0.0
 NEAR_TIE_FACTOR = 2.0
 # phase 22: GPT-2 small steps in a GPU-granted actor against the same
 # steps in this process (bit-equal: same kernels, same shapes, same
-# bytes in), and how many of phase 4's prompts the second actor serves
-RUNTIME_STEPS = 3
-RUNTIME_PROMPTS = 4
+# bytes in; phase 26 holds its trials to the same driver steps), and
+# how many of phase 4's prompts the second actor serves (cut from 4 to
+# keep the whole script inside its time limit)
+RUNTIME_STEPS = 4
+RUNTIME_PROMPTS = 2
 ATARI_BF16_RATIO = (3.0, 1.5)
 # phase 24: the cluster's CPUs (atari-ppo.yaml's 10 rollout workers hold
 # one each; 24d's loops, built together, 12) and the remote learner's
@@ -549,6 +594,25 @@ ATARI_BF16_RATIO = (3.0, 1.5)
 # against the CPU learner's (PPO's MLP at 256 x 256, a 512-row batch)
 REMOTE_CPUS = 12
 REMOTE_LEARNER_UPDATES = 3
+# timed iterations of the RL loops of phases 17, 19, 20 and 24, cut
+# below their bench's defaults (in each loop's docstring) so that the
+# whole script, phase 26 included, keeps inside its time limit on the
+# card machine: the cuts shorten timed windows, not what is checked
+CUT_TIMED = {"sac": 300, "td3": 300, "maml": 2, "mbmpo": 4, "dreamer": 3,
+             "alphazero": 2, "ma_ppo": 3, "ppo_remote": 2,
+             "impala_remote": 3, "remote_algos": 2}
+# phase 26: Tune on the runtime. The sweep's learning rates, the
+# trainer's default (3e-4) first: after the first update the loss falls
+# with the rate over this range, so ASHA's rung at iteration 2 stops the
+# trials that follow it on the one card; ASHA's max_t (grace 1 and
+# reduction 2 at the call); a checkpoint of the trainer's state
+# every TUNE_CKPT_EVERY iterations; run (b)'s planned failure; run (c)'s
+# PPO rates (PPO's default 3e-4 and one below)
+TUNE_LRS = (3e-4, 1e-4, 3e-5, 1e-5)
+TUNE_MAX_T = 4
+TUNE_CKPT_EVERY = 2
+TUNE_FAIL_AT = 2
+TUNE_PPO_LRS = (3e-4, 1e-4)
 # the PPO learn phase's groups: cuDNN's convs, the products (the
 # 7,744 x 512 Dense and the heads), Adam's foreach kernels, the
 # host-to-device copies of each minibatch, then the rest
@@ -2146,11 +2210,13 @@ def offpolicy_phase(name, card) -> dict:
         return profile_step(learn, PPO_PROFILE_GROUPS)
 
     res = {}
-    for p, r in (("sac", bench.sac_loop(profile=prof)),
-                 ("td3", bench.ddpg_loop("TD3", profile=prof))):
+    for p, r in (("sac", bench.sac_loop(profile=prof,
+                                        timed=CUT_TIMED["sac"])),
+                 ("td3", bench.ddpg_loop("TD3", profile=prof,
+                                         timed=CUT_TIMED["td3"]))):
         show(f"{p}_train", r, f"{p}_profile")
         require(r[f"{p}_hidden"] == 256 and r[f"{p}_train_batch_size"] == 256
-                and r[f"{p}_iters_timed"] == 1000
+                and r[f"{p}_iters_timed"] == CUT_TIMED[p]
                 and r[f"{p}_replay_capacity"] == 100_000, f"{p} widths: {r}")
         require(r[f"{p}_losses_finite"], f"{p}: non-finite loss")
         require(r[f"{p}_weights_moved"] > 0, f"{p}: the weights did not move")
@@ -2446,7 +2512,7 @@ def multiagent_meta_phase(name, card) -> dict:
     res = {}
     for p, loop in (("qmix", bench.qmix_loop), ("maddpg", bench.maddpg_loop),
                     ("maml", bench.maml_loop), ("mbmpo", bench.mbmpo_loop)):
-        r = loop(profile=prof)
+        r = loop(profile=prof, timed=CUT_TIMED.get(p))
         profile = r.pop(f"{p}_profile")
         print(f"{p}_train", json.dumps({**r, "device": name,
                                         "nvidia_smi": card}), flush=True)
@@ -2619,7 +2685,7 @@ def model_based_phase(name, card) -> dict:
                     ("alphazero", bench.alphazero_loop),
                     ("alphastar", bench.alphastar_loop),
                     ("ma_ppo", bench.ma_ppo_loop)):
-        r = loop(profile=prof)
+        r = loop(profile=prof, timed=CUT_TIMED.get(p))
         profile = r.pop(f"{p}_profile")
         print(f"{p}_train", json.dumps({**r, "device": name,
                                         "nvidia_smi": card}), flush=True)
@@ -3241,7 +3307,7 @@ def runtime_phase(name, card, prompts) -> dict:
     torch.cuda.empty_cache()
     print("runtime", json.dumps(out), flush=True)
     return {**out, "train_launches": there["launches"],
-            "serve_launches": served["launches"]}
+            "serve_launches": served["launches"], "driver_steps": here}
 
 
 def framework_phase(name, card, phase6, phase11) -> dict:
@@ -3516,7 +3582,7 @@ def rl_remote_phase(name, card, phase15, phase16) -> dict:
             return profile
 
         p = bench.ppo_remote_loop(profile=lambda learn: profile_step(
-            learn, PPO_PROFILE_GROUPS))
+            learn, PPO_PROFILE_GROUPS), timed=CUT_TIMED["ppo_remote"])
         ppo_profile = show("ppo_remote_train", p, "ppo_remote_profile")
         require(p["ppo_remote_obs_shape"] == [84, 84, 4]
                 and p["ppo_remote_num_workers"] == 10
@@ -3548,7 +3614,7 @@ def rl_remote_phase(name, card, phase15, phase16) -> dict:
             **ppo, "device": name, "nvidia_smi": card}), flush=True)
 
         # 24c
-        i = bench.impala_remote_loop()
+        i = bench.impala_remote_loop(timed=CUT_TIMED["impala_remote"])
         show("impala_remote_train", i, "impala_remote_profile")
         require(i["impala_remote_obs_shape"] == [84, 84, 4]
                 and i["impala_remote_num_envs_per_worker"] == 5
@@ -3580,7 +3646,7 @@ def rl_remote_phase(name, card, phase15, phase16) -> dict:
 
         # 24d
         small = {}
-        loops = bench.remote_algo_loops()
+        loops = bench.remote_algo_loops(timed=CUT_TIMED["remote_algos"])
         for algo in bench.REMOTE_ALGOS:
             pre = algo.lower().replace("-", "_")
             r = {k: v for k, v in loops.items() if k.startswith(pre + "_")}
@@ -3855,8 +3921,493 @@ def ragged(rng, B, lo, hi):
     return [int(n) for n in lens]
 
 
-def main() -> int:
+def tune_gpt2_trial(config):
+    """Phase 26's function trainable: phase 6's GPT-2 small trainer
+    (``bench.gpt2_train_shape``, ``init(0)``, ``gpt2_steps``' batch) at
+    ``config["learning_rate"]`` on ``config["device"]``, one step an
+    iteration up to TUNE_MAX_T,
+    with a ``ShardedCheckpoint`` of the state (copied to the host, under
+    ``config["scratch"]``) every TUNE_CKPT_EVERY steps; it resumes from
+    the session's checkpoint. Each report carries the loss, the grad
+    norm, the step's host time (closed by the loss's read), the wall
+    clock of the function's start, of its trainer's readiness and of the
+    step, the kernels' launch counts in this process and the grant. With
+    ``config["fail_at"]`` it raises once after that iteration's report
+    (a marker in the trial's directory keeps it from raising again)."""
+    fn_start = time.time()
+    marks = {}
+    import importlib
+    import threading
+
     import torch
+    marks["import_torch"] = time.time()
+    dev = torch.device(config["device"])
+    warm = {}
+
+    def warm_up():
+        # the card's context and the optimizer's first import
+        # (torch._dynamo, from AdamW) while the model initialises on the
+        # host: the two are independent, and each costs seconds
+        t0 = time.time()
+        torch.zeros(1, device=dev)
+        importlib.import_module("torch._dynamo")
+        warm["s"] = time.time() - t0
+
+    warmer = threading.Thread(target=warm_up, daemon=True)
+    warmer.start()
+    import ray_tpu_torch
+    from ray_tpu_torch import bench, kernels
+    from ray_tpu_torch.air import session
+    from ray_tpu_torch.air.checkpoint import Checkpoint, ShardedCheckpoint
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+    from ray_tpu_torch.train import spmd
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, batch, seq = bench.gpt2_train_shape(dev)
+    trainer = spmd.make_causal_lm_trainer(
+        cfg, spec=MeshSpec(dp=1), device=dev,
+        learning_rate=config["learning_rate"])
+    marks["import_port_and_trainer"] = time.time()
+    state = trainer.init(0)
+    warmer.join()
+    marks["init"] = time.time()
+    restored = session.get_checkpoint()
+    if restored is not None:
+        state = spmd.restore_spmd_state(state, checkpoint=restored)
+    marks["restore"] = time.time()
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, seq), dtype=np.int32)
+    resident = spmd.put_batch(trainer, {"input_ids": tokens,
+                                        "labels": tokens})
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    ready = marks["batch"] = time.time()
+    prev, build_parts = fn_start, {"warm_thread": warm.get("s")}
+    for k, v in marks.items():
+        build_parts[k] = v - prev
+        prev = v
+    trial = session.get_trial_name()
+    marker = os.path.join(config["experiment_dir"], trial, "failed_once")
+    steps_here = 0
+    while state["step"] < TUNE_MAX_T:
+        t0 = time.time()
+        m = trainer.step(state, resident)[1]
+        loss, norm = float(m["loss"]), float(m["grad_norm"])
+        t1 = time.time()
+        steps_here += 1
+        it = state["step"]
+        launches = kernels.launch_counts()
+        ckpt, ckpt_s = None, 0.0
+        if it % TUNE_CKPT_EVERY == 0:
+            path = os.path.join(config["scratch"],
+                                f"{trial}-step{it}-pid{os.getpid()}")
+            ShardedCheckpoint(path).save(state)
+            ckpt = Checkpoint.from_directory(path)
+            ckpt_s = time.time() - t1
+        session.report({
+            "loss": loss, "grad_norm": norm, "step": it,
+            "step_ms": (t1 - t0) * 1e3, "step_start": t0, "step_end": t1,
+            "fn_start": fn_start, "ready": ready, "ckpt_write_s": ckpt_s,
+            "build_parts_s": build_parts,
+            "restored": restored is not None, "steps_here": steps_here,
+            "launches": launches, "n_layer": cfg.n_layer,
+            "gpu_ids": ray_tpu_torch.get_gpu_ids(),
+            "session_gpu_ids": list(session.get_gpu_ids()),
+            "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "device_count": torch.cuda.device_count(),
+            "param_device": str(next(state["model"].parameters()).device),
+            "pid": os.getpid()}, checkpoint=ckpt)
+        if it == config.get("fail_at") and not os.path.exists(marker):
+            open(marker, "w").close()
+            raise RuntimeError(f"phase 26: the planned failure after "
+                               f"iteration {it}")
+
+
+class TrialClock:
+    """Phase 26's driver-side Tune callback: when each trial was started
+    (its actor asked for), each result processed and each trial
+    completed (its actor killed), on this process's wall clock."""
+
+    def __init__(self):
+        self.started, self.results, self.completed = {}, {}, {}
+
+    def on_trial_start(self, trial):
+        self.started.setdefault(trial.trial_id, []).append(time.time())
+
+    def on_trial_result(self, trial, result):
+        self.results.setdefault(trial.trial_id, []).append(time.time())
+
+    def on_trial_complete(self, trial):
+        self.completed[trial.trial_id] = time.time()
+
+
+def hold_gpt2_trial(tag, trial, here):
+    """Phase 26's checks of one GPT-2 trial's reports against
+    ``gpt2_steps``' in this process (``here``): at the trainer's default
+    rate, and at every rate in the first iteration (the loss before any
+    update), the same losses and grad norms bit for bit; the whole-kv
+    kernels and the delta pass each ``n_layer`` times a step in the
+    trial's process and nothing else launched, the grant [0] with
+    CUDA_VISIBLE_DEVICES "0", the params on cuda."""
+    names = {"whole_attention_forward", "whole_attention_backward",
+             "attention_delta"}
+    for r in trial.results:
+        it = r["step"]
+        require(r["loss"] == here["losses"][it - 1]
+                and r["grad_norm"] == here["grad_norms"][it - 1]
+                if r["lr"] == 3e-4 or it == 1 else math.isfinite(r["loss"]),
+                f"{tag}: iteration {it} gave loss {r['loss']} grad norm "
+                f"{r['grad_norm']} against the driver's "
+                f"{here['losses'][it - 1]} {here['grad_norms'][it - 1]}")
+        want = r["n_layer"] * r["steps_here"]
+        require(set(r["launches"]) == names and all(
+            r["launches"][k] == want for k in names),
+            f"{tag}: iteration {it} after {r['steps_here']} steps in its "
+            f"process launched {r['launches']}, want {want} of each of "
+            f"{sorted(names)}")
+        require(r["gpu_ids"] == [0] and r["session_gpu_ids"] == [0]
+                and r["cuda_visible_devices"] == "0"
+                and r["device_count"] == 1
+                and r["param_device"].startswith("cuda"),
+                f"{tag}: the grant at iteration {it}: {r['gpu_ids']} "
+                f"{r['session_gpu_ids']} {r['cuda_visible_devices']} "
+                f"{r['device_count']} {r['param_device']}")
+    require([r["step"] for r in trial.results]
+            == list(range(1, 1 + len(trial.results))),
+            f"{tag}: iterations {[r['step'] for r in trial.results]}")
+
+
+def trial_timeline(analysis, clock, t_run) -> list:
+    """Phase 26: each attempt of each trial of a run (a restart after a
+    failure is a second attempt) in the order its function started: when
+    its actor was asked for and when it was done with the card (the
+    trial's completion on the driver; a failed attempt's last step), the
+    wait for the card, the actor's start and the first step, and the
+    card's idle time since the previous attempt's last reported step."""
+    rows = []
+    for t in analysis.trials:
+        starts = sorted({r["fn_start"] for r in t.results})
+        for i, attempt in enumerate(starts):
+            mine = [r for r in t.results if r["fn_start"] == attempt]
+            asked = clock.started[t.trial_id]
+            rows.append({
+                "trial": t.trial_name, "status": t.status,
+                "lr": t.config.get("learning_rate", t.config.get("lr")),
+                "fn_start": attempt, "ready": mine[0].get("ready"),
+                "build_parts_s": mine[0].get("build_parts_s"),
+                "first_step_start": mine[0]["step_start"],
+                "first_step_end": mine[0]["step_end"],
+                "last_step_end": mine[-1]["step_end"],
+                "asked": asked[min(i, len(asked) - 1)],
+                "done": (clock.completed.get(t.trial_id)
+                         if i == len(starts) - 1 else mine[-1]["step_end"]),
+                "pid": mine[0]["pid"]})
+    rows.sort(key=lambda r: r["fn_start"])
+    prev_done, prev_end = t_run, None
+    for r in rows:
+        free_since = max(prev_done, r["asked"])
+        r["wait_for_card_s"] = free_since - r["asked"]
+        r["actor_start_s"] = r["fn_start"] - free_since
+        r["first_step_s"] = r["first_step_end"] - r["fn_start"]
+        r["build_s"] = r["ready"] - r["fn_start"] if r["ready"] else None
+        r["card_idle_since_previous_s"] = (
+            None if prev_end is None else r["first_step_start"] - prev_end)
+        prev_done, prev_end = r["done"], r["last_step_end"]
+    return rows
+
+
+def hold_one_at_a_time(tag, rows):
+    """Phase 26: no two attempts of a run held the card at once: each
+    function started after the previous attempt was done with it (its
+    trial completed on the driver, or its last step before a failure),
+    each in a process of its own."""
+    for a, b in zip(rows, rows[1:]):
+        require(a["done"] is not None and b["fn_start"] >= a["done"],
+                f"{tag}: {b['trial']} started at {b['fn_start']} while "
+                f"{a['trial']} held the card until {a['done']}")
+    require(len({r["pid"] for r in rows}) == len(rows),
+            f"{tag}: attempts shared a process: {rows}")
+
+
+def tune_phase(name, card, driver_steps=None) -> dict:
+    """Phase 26 (module docstring): Tune on the runtime, with every trial
+    granted the one card. ``driver_steps``: ``gpt2_steps`` of at least
+    TUNE_MAX_T steps already run in this process (phase 22's), else they
+    are run here. Returns the printed measurements and the launch
+    counts of the GPT-2 trials' path."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import bench, kernels, tune
+    from ray_tpu_torch.air.config import RunConfig
+    from ray_tpu_torch.rllib.algorithms.ppo import PPO
+    from ray_tpu_torch.tune import logger as tune_logger
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    built = {n: kernels._lib_path(n) for n in kernels.sources()}
+    mtimes = {n: os.path.getmtime(p) for n, p in built.items()}
+    # the driver's reference: gpt2_steps' steps at the trainer's default
+    here = driver_steps
+    if here is None or len(here["losses"]) < TUNE_MAX_T:
+        here = gpt2_steps(TUNE_MAX_T)
+        torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="tune_phase26_")
+    disk_free = shutil.disk_usage(root).free
+    shm = os.statvfs("/dev/shm") if os.path.isdir("/dev/shm") else None
+    store = 512 << 20 if shm is None else min(
+        512 << 20, shm.f_bavail * shm.f_frsize // 2)
+    out = {"device": name, "nvidia_smi": card, "tmp_free_bytes": disk_free,
+           "driver_losses": here["losses"],
+           "driver_grad_norms": here["grad_norms"]}
+    t0 = time.perf_counter()
+    rt.init(num_cpus=4, object_store_memory=store)
+    out["init_s"] = time.perf_counter() - t0
+    try:
+        res = rt.cluster_resources()
+        require(res.get("GPU") == 1.0, f"cluster_resources: {res}")
+
+        # (a) the sweep: four rates under ASHA, three trials queued
+        scratch = os.path.join(root, "scratch")
+        os.makedirs(scratch)
+        exp_a = os.path.join(root, "results", "gpt2_asha")
+        clock = TrialClock()
+        t0 = time.perf_counter()
+        t_run = time.time()
+        sweep = tune.run(
+            tune_gpt2_trial,
+            config={"learning_rate": tune.grid_search(list(TUNE_LRS)),
+                    "device": "cuda", "scratch": scratch,
+                    "experiment_dir": exp_a},
+            metric="loss", mode="min",
+            scheduler=tune.ASHAScheduler(
+                metric="loss", mode="min", max_t=TUNE_MAX_T,
+                grace_period=1, reduction_factor=2),
+            resources_per_trial={"CPU": 1, "GPU": 1},
+            max_concurrent_trials=4, name="gpt2_asha",
+            local_dir=os.path.join(root, "results"),
+            callbacks=tune_logger.default_callbacks() + [clock])
+        sweep_s = time.perf_counter() - t0
+        errors = [(t.trial_name, t.error) for t in sweep.trials if t.error]
+        require(not errors, f"sweep: trial errors {errors}")
+        require([t.config["learning_rate"] for t in sweep.trials]
+                == list(TUNE_LRS) and all(
+                    t.status == "TERMINATED" for t in sweep.trials),
+                f"sweep: {[(t.config, t.status) for t in sweep.trials]}")
+        for t in sweep.trials:
+            for r in t.results:
+                r["lr"] = t.config["learning_rate"]
+            hold_gpt2_trial(f"sweep lr {t.config['learning_rate']}", t,
+                            here)
+        default = sweep.trials[list(TUNE_LRS).index(3e-4)]
+        require(len(default.results) == TUNE_MAX_T,
+                f"sweep: the 3e-4 trial ran {len(default.results)} "
+                f"iterations, not {TUNE_MAX_T}")
+        iters = {t.config["learning_rate"]: len(t.results)
+                 for t in sweep.trials}
+        require(min(iters.values()) < TUNE_MAX_T,
+                f"sweep: ASHA stopped no trial before max_t: {iters}")
+        best = sweep.best_trial
+        require(best is not None and len(best.results) == TUNE_MAX_T,
+                f"sweep: the best trial {best} did not reach max_t")
+        rows_a = trial_timeline(sweep, clock, t_run)
+        hold_one_at_a_time("sweep", rows_a)
+        ckpts_a = {t.config["learning_rate"]: len(t.ckpt_manager.checkpoints)
+                   for t in sweep.trials}
+        require(all(n == iters[lr] // TUNE_CKPT_EVERY
+                    for lr, n in ckpts_a.items()),
+                f"sweep: checkpoints kept {ckpts_a} for iterations {iters}")
+        launches_a = {}
+        for t in sweep.trials:
+            for k, v in t.results[-1]["launches"].items():
+                launches_a[k] = launches_a.get(k, 0) + v
+        # a stopped trial's actor may still be writing when it is killed
+        shutil.rmtree(scratch, ignore_errors=True)
+        shutil.rmtree(exp_a, ignore_errors=True)
+        scratch = os.path.join(root, "scratch_b")
+        os.makedirs(scratch)
+
+        # (b) a restore after a failure: the default rate, one planned
+        # failure after the checkpoint at iteration 2
+        exp_b = os.path.join(root, "results", "gpt2_restore")
+        clock_b = TrialClock()
+        t0 = time.perf_counter()
+        t_run = time.time()
+        restore = tune.run(
+            tune_gpt2_trial,
+            config={"learning_rate": 3e-4, "device": "cuda",
+                    "scratch": scratch, "experiment_dir": exp_b,
+                    "fail_at": TUNE_FAIL_AT},
+            metric="loss", mode="min",
+            resources_per_trial={"CPU": 1, "GPU": 1}, max_failures=1,
+            name="gpt2_restore", local_dir=os.path.join(root, "results"),
+            callbacks=tune_logger.default_callbacks() + [clock_b])
+        restore_s = time.perf_counter() - t0
+        tb = restore.trials[0]
+        require(tb.status == "TERMINATED" and tb.num_failures == 1
+                and "planned failure" in (tb.error or ""),
+                f"restore: status {tb.status}, failures {tb.num_failures}, "
+                f"error {tb.error}")
+        for r in tb.results:
+            r["lr"] = 3e-4
+        hold_gpt2_trial("restore", tb, here)
+        after = [r for r in tb.results if r["restored"]]
+        require([r["step"] for r in after] == [3, 4]
+                and [(r["loss"], r["grad_norm"]) for r in after]
+                == [(r["loss"], r["grad_norm"])
+                    for r in default.results[2:4]],
+                f"restore: iterations after the restore "
+                f"{[(r['step'], r['loss'], r['grad_norm']) for r in after]}"
+                f" against the sweep's "
+                f"{[(r['loss'], r['grad_norm']) for r in default.results]}")
+        rows_b = trial_timeline(restore, clock_b, t_run)
+        hold_one_at_a_time("restore", rows_b)
+        launches_b = {}
+        for attempt in {r["fn_start"] for r in tb.results}:
+            last = [r for r in tb.results if r["fn_start"] == attempt][-1]
+            for k, v in last["launches"].items():
+                launches_b[k] = launches_b.get(k, 0) + v
+        shutil.rmtree(scratch, ignore_errors=True)
+
+        # (c) Tuner(PPO): phase 15's one-local-worker PPO-Atari, the
+        # policy on the card, two rates, one iteration each
+        class TunePPO(PPO):
+            """PPO whose results also carry the port's kernel launches in
+            its process, its grant and where its policy lives."""
+
+            def setup(self, config):
+                import importlib
+                import threading
+
+                import torch as th
+                from ray_tpu_torch import kernels as ks
+                th.backends.cuda.matmul.allow_tf32 = False
+                th.backends.cudnn.allow_tf32 = False
+                self._fn_start = time.time()
+                # Adam's first step imports torch._dynamo (seconds in a
+                # fresh process): import it while the envs sample
+                threading.Thread(target=importlib.import_module,
+                                 args=("torch._dynamo",),
+                                 daemon=True).start()
+                super().setup(config)
+                self._ready = time.time()
+                ks.reset_launch_counts()
+
+            def step(self):
+                import ray_tpu_torch as r
+                from ray_tpu_torch import kernels as ks
+                t_step = time.time()
+                out = super().step()
+                policy = self.get_policy()
+                out.update({
+                    "launches": ks.launch_counts(),
+                    "gpu_ids": r.get_gpu_ids(),
+                    "cuda_visible_devices": os.environ.get(
+                        "CUDA_VISIBLE_DEVICES"),
+                    "policy_device": str(next(
+                        policy.model.parameters()).device),
+                    "fn_start": self._fn_start, "ready": self._ready,
+                    "step_start": t_step,
+                    "step_end": time.time(), "pid": os.getpid()})
+                return out
+
+        space = {**bench.ppo_atari_config("cuda", 0, 50).to_dict(),
+                 "lr": tune.grid_search(list(TUNE_PPO_LRS))}
+        clock_c = TrialClock()
+        t0 = time.perf_counter()
+        t_run = time.time()
+        grid = tune.Tuner(
+            tune.with_resources(TunePPO, {"CPU": 1, "GPU": 1}),
+            param_space=space,
+            tune_config=tune.TuneConfig(metric="episode_reward_mean",
+                                        mode="max",
+                                        max_concurrent_trials=2),
+            run_config=RunConfig(
+                name="ppo_atari", storage_path=os.path.join(root, "results"),
+                stop={"training_iteration": 1},
+                callbacks=tune_logger.default_callbacks() + [clock_c])).fit()
+        ppo_s = time.perf_counter() - t0
+        require(not grid.errors, f"Tuner(PPO): {grid.errors}")
+        ppo_rows = []
+        for r in grid:
+            t = r.trial
+            require(t.status == "TERMINATED" and len(t.results) == 1,
+                    f"Tuner(PPO): {t} {t.status}")
+            m = t.results[0]
+            seen = {k: m[k] for k in (
+                "num_env_steps_sampled_this_iter", "launches", "gpu_ids",
+                "cuda_visible_devices", "policy_device",
+                "learner/total_loss")}
+            require(seen["num_env_steps_sampled_this_iter"] == 5000
+                    and seen["launches"] == {} and seen["gpu_ids"] == [0]
+                    and seen["cuda_visible_devices"] == "0"
+                    and seen["policy_device"].startswith("cuda")
+                    and math.isfinite(seen["learner/total_loss"]),
+                    f"Tuner(PPO) lr {t.config['lr']}: {seen}")
+            ppo_rows.append({"lr": t.config["lr"],
+                             "env_steps": m["num_env_steps_sampled_this_iter"],
+                             "env_steps_per_sec": m["env_steps_per_sec"],
+                             "timers": m["timers"],
+                             "total_loss": m["learner/total_loss"]})
+        rows_c = trial_timeline(grid._analysis, clock_c, t_run)
+        hold_one_at_a_time("Tuner(PPO)", rows_c)
+    finally:
+        rt.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    rebuilt = [n for n, p in built.items() if os.path.getmtime(p) != mtimes[n]]
+    require(not rebuilt, f"kernel libraries rebuilt during phase 26: "
+            f"{rebuilt}")
+
+    def timeline(rows):
+        keep = ("trial", "lr", "status", "pid", "wait_for_card_s",
+                "actor_start_s", "build_s", "build_parts_s",
+                "first_step_s", "card_idle_since_previous_s")
+        return [{k: r.get(k) for k in keep} for r in rows]
+
+    sweep_out = {
+        "model": "gpt2-small", "batch": 16, "seq_len": 1024,
+        "learning_rates": list(TUNE_LRS), "iterations": iters,
+        "best_lr": best.config["learning_rate"],
+        "losses": {t.config["learning_rate"]: [r["loss"] for r in t.results]
+                   for t in sweep.trials},
+        "step_ms": {t.config["learning_rate"]: [r["step_ms"]
+                                                for r in t.results]
+                    for t in sweep.trials},
+        "ckpt_write_s": [r["ckpt_write_s"] for t in sweep.trials
+                         for r in t.results if r["ckpt_write_s"]],
+        # from a checkpointed step's report to its result on the driver,
+        # Tune's persist of the checkpoint (copy, CRC, fsync) included
+        "ckpt_result_lag_s": [
+            clock.results[t.trial_id][i] - r["step_end"] - r["ckpt_write_s"]
+            for t in sweep.trials for i, r in enumerate(t.results)
+            if r["ckpt_write_s"]],
+        "trials": timeline(rows_a), "wall_s": sweep_s,
+        "launches": launches_a, "bit_equal_to_driver": True}
+    restore_out = {"wall_s": restore_s, "trials": timeline(rows_b),
+                   "losses": [r["loss"] for r in tb.results],
+                   "bit_equal_after_restore": True, "launches": launches_b}
+    ppo_out = {"config": "ppo_atari_config('cuda', 0, 50)",
+               "trials": ppo_rows, "timeline": timeline(rows_c),
+               "wall_s": ppo_s}
+    out.update({"sweep": sweep_out, "restore": restore_out,
+                "ppo": ppo_out, "phase_s": time.perf_counter() - t_phase})
+    print("tune", json.dumps(out), flush=True)
+    torch.cuda.empty_cache()
+    total = dict(launches_a)
+    for k, v in launches_b.items():
+        total[k] = total.get(k, 0) + v
+    return {**out, "gpt2_launches": total}
+
+
+def main() -> int:
+    t0 = time.perf_counter()
+    import torch
+    import_s = time.perf_counter() - t0
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -3871,9 +4422,28 @@ def main() -> int:
     card = card_line()
     print(f"device: {name} | nvidia-smi: {card} | torch {torch.__version__}"
           f" cuda {torch.version.cuda}", flush=True)
+    # this process's import of torch (which wrote the bytecode cache when
+    # it was empty), then a fresh process's with the cache
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-c", "import torch"], check=True)
+    print("python_imports", json.dumps({
+        "driver_import_torch_s": import_s,
+        "child_import_torch_s": time.perf_counter() - t0,
+        "pycache_prefix": sys.pycache_prefix,
+        "env_dont_write_bytecode": BYTECODE_ENV}), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.set_device(0)
+    # each phase's wall time on the host clock, by its number (printed
+    # before the summary)
+    phase_wall, t_mark = {}, [time.perf_counter()]
+
+    def mark(label):
+        now = time.perf_counter()
+        phase_wall[label] = now - t_mark[0]
+        t_mark[0] = now
+
+    mark("1")
 
     # 2. build
     t0 = time.time()
@@ -3887,6 +4457,8 @@ def main() -> int:
          if not r["kernel"].endswith("_kernel")]
         + kernels.resource_usage("attention_delta")
         + A.paged_resource_usage()), flush=True)
+
+    mark("2")
 
     # 3. kernel against its plain version
     # a 1 GB write evicts the 50 MB L2 and lasts ~0.3 ms, longer than a
@@ -3991,6 +4563,8 @@ def main() -> int:
                 "does not pass 50")
     del scratch, flush
 
+    mark("3")
+
     # 4. serve GPT-2 small through the port's entry points
     cfg = gpt2.GPT2Config.small()
     server = phase4_server()
@@ -4021,6 +4595,8 @@ def main() -> int:
         "ttft_p50_s": ttft[len(ttft) // 2], "ttft_p99_s": ttft[-1],
         "decode_steps": steps, "kernel_launches": launches,
         "device": name, "nvidia_smi": card}), flush=True)
+
+    mark("4")
 
     # 5. decode-step numerics in f32: kernel vs plain vs full forward
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32,
@@ -4078,11 +4654,15 @@ def main() -> int:
     del m32, caches, via_kernel, via_plain
     torch.cuda.empty_cache()
 
+    mark("5")
+
     # 5b. serve Llama-2-7B at full width and depth; 5c. its decode step
     # and speculative decoding in f32, at 32 and at 8 kv heads
     llama_serve_res = llama_serve(name, card)
     for n_kv_heads in (32, 8):
         llama_serve_numerics(n_kv_heads)
+
+    mark("5b")
 
     # 6. train GPT-2 small through the port's trainer: the bench's
     # gpt2_loop (launch counts zeroed after its warm-up, read after its
@@ -4109,12 +4689,16 @@ def main() -> int:
     print("train_profile", json.dumps(profile), flush=True)
     torch.cuda.empty_cache()
 
+    mark("6")
+
     # 7. one training step through the kernels against one through
     # their plain versions, in f32 and in bf16 compute
     tokens = np.random.default_rng(SEED).integers(
         0, cfg.vocab_size, (4, 1024), dtype=np.int32)
     train_parity(dataclasses.replace(cfg, n_layer=2), tokens)
     torch.cuda.empty_cache()
+
+    mark("7")
 
     # 8. train a Llama-2-7B-wide decoder at 2 x 4096 through the loop
     from ray_tpu_torch.models import llama
@@ -4175,11 +4759,15 @@ def main() -> int:
     del model, opt, step_losses
     torch.cuda.empty_cache()
 
+    mark("8")
+
     # 9. one Llama loop step through the streaming kernels against one
     # through their plain versions, in f32 and in bf16 compute
     llama_parity(dataclasses.replace(lcfg, n_layers=2), ids[:1])
     del ids
     torch.cuda.empty_cache()
+
+    mark("9")
 
     # 10. the port's entry(): the (4, 512) GPT-2-small forward
     from ray_tpu_torch.entry import entry
@@ -4197,6 +4785,8 @@ def main() -> int:
                                "dtype": str(logits.dtype),
                                "launches": entry_counts}), flush=True)
     del fn, args, logits
+
+    mark("10")
 
     # 11. ResNet: (a) the narrow step on the card against the CPU; (b)
     # ResNet-50 at 256 x 224 x 224 bf16 through the bench's
@@ -4217,9 +4807,13 @@ def main() -> int:
     del r
     torch.cuda.empty_cache()
 
+    mark("11")
+
     # 12. mesh: the same trainers on a NCCL process group of one rank
     mesh_counts = mesh_phase(cfg, tokens, g, phase11, name, card)
     torch.cuda.empty_cache()
+
+    mark("12")
 
     # 14. parallel: the ring's schedule at full width, the ring and the
     # pipeline through their trainers on a NCCL group of one rank, MoE
@@ -4230,42 +4824,62 @@ def main() -> int:
     moe_phase()
     torch.cuda.empty_cache()
 
+    mark("14")
+
     # 15. RLlib's local PPO path at the Atari widths: none of the port's
     # kernels
     phase15 = ppo_phase(name, card)
+
+    mark("15")
 
     # 16. IMPALA/APPO, the learner thread and DQN at the Atari widths:
     # none of the port's kernels
     phase16 = rl_algos_phase(name, card)["impala"]
 
+    mark("16")
+
     # 17. SAC and TD3 on Pendulum, CQL, CRR, MARWIL and BC offline: none
     # of the port's kernels
     offpolicy_phase(name, card)
+
+    mark("17")
 
     # 18. LocalAlgorithm: R2D2, SlateQ, DT and the bandits: none of the
     # port's kernels
     local_algos_phase(name, card)
 
+    mark("18")
+
     # 19. QMIX and MADDPG, MAML and MBMPO: none of the port's kernels
     multiagent_meta_phase(name, card)
+
+    mark("19")
 
     # 20. Dreamer, AlphaZero, AlphaStar and multi-agent PPO: none of the
     # port's kernels
     model_based_phase(name, card)
+
+    mark("20")
 
     # 21. (a) checkpoints of GPT-2 small's trainer: save, restore,
     # resume; (b) prefill/decode disaggregation of phase 4's streams
     ckpt = checkpoint_phase(name, card)
     disagg = disagg_phase(name, card, phase4)
 
+    mark("21")
+
     # 22. the runtime: GPT-2 small trained and served inside GPU-granted
     # actors, a CPU task that sees no GPU, the host's numbers
     runtime = runtime_phase(name, card, phase4["prompts"])
+
+    mark("22")
 
     # 23. the headline bench's framework path: ResNet-50 and GPT-2 small
     # in a GPU-granted train worker that DataParallelTrainer.fit()
     # started, fed by the Dataset through iter_device_batches
     framework = framework_phase(name, card, g, phase11)
+
+    mark("23")
 
     # 24. RLlib's runtime half: a learner actor on the card, PPO-Atari at
     # 10 remote workers x 5 envs, IMPALA's async learner fed by remote
@@ -4273,9 +4887,19 @@ def main() -> int:
     # none of the port's kernels
     rl_remote_phase(name, card, phase15, phase16)
 
+    mark("24")
+
     # 25. serve on the runtime: the LLM server as a GPU-granted replica
     # behind the controller, the router and the HTTP proxy (SSE)
     serve_rt = serve_runtime_phase(name, card, phase4)
+
+    mark("25")
+
+    # 26. Tune on the runtime: an ASHA sweep of GPT-2 small in trials
+    # granted the card, a restore after a failure, Tuner(PPO)
+    tuned = tune_phase(name, card, runtime["driver_steps"])
+
+    mark("26")
 
     # 13. summary
     def kernel_entry(case, kname, source, line, by_path):
@@ -4301,7 +4925,8 @@ def main() -> int:
                   ("pipelined_train", pipe_counts),
                   ("checkpoint_train", ckpt["checkpoint"]["launches"]),
                   ("runtime_actor_train", runtime["train_launches"]),
-                  ("framework_gpt2_train", framework["gpt2_launches"]))
+                  ("framework_gpt2_train", framework["gpt2_launches"]),
+                  ("tune_gpt2_trials", tuned["gpt2_launches"]))
     streaming_paths = (("llama_train", llama_counts),
                        ("mesh_gpt2_exact", mesh_counts["gpt2_exact"]),
                        ("ring_schedule", ring["launches"]),
@@ -4341,6 +4966,7 @@ def main() -> int:
                                 *streaming_paths)),
          "replaces_note": "jnp.sum in _whole_backward (:262) and "
                           "_flash_backward (:528): XLA, no Pallas kernel"}]}
+    print("phase_wall_s", json.dumps(phase_wall), flush=True)
     print(card)                  # nvidia-smi's name, power.limit line
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {
@@ -4349,5 +4975,75 @@ def main() -> int:
     return 0
 
 
+# an environment variable every process of this run inherits, so that
+# stop_leftovers finds them wherever they were reparented
+RUN_MARK = "RTT_CHIP_SMOKE_RUN"
+# PYTHONDONTWRITEBYTECODE as this run found it (printed in phase 1)
+BYTECODE_ENV = os.environ.get("PYTHONDONTWRITEBYTECODE")
+
+
+def keep_bytecode():
+    """Compiled bytecode kept in the checkout's ``.pycache/`` (listed in
+    .gitignore), for this process and every process it starts. The card
+    machine sets PYTHONDONTWRITEBYTECODE and its torch ships no bytecode,
+    so each process compiled torch from source: ``import torch`` took
+    ~8.5 s and ``torch._dynamo`` ~9 s more, in the driver and again in
+    every runtime worker (phases 22-26). Only beside the package."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(here, "ray_tpu_torch")):
+        return
+    sys.pycache_prefix = os.path.join(here, ".pycache")
+    sys.dont_write_bytecode = False
+    os.environ["PYTHONPYCACHEPREFIX"] = sys.pycache_prefix
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+
+
+def stop_leftovers(timeout_s: float = 30.0) -> list:
+    """Every other process that carries this run's RUN_MARK (the
+    runtime's GCS, raylets and workers start in sessions of their own,
+    and a worker outlives its raylet until it notices): kill it and wait
+    until it is gone. Returns [(pid, command)] of those found."""
+    want = f"{RUN_MARK}={os.environ.get(RUN_MARK)}".encode()
+    found = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit() or int(d) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{d}/environ", "rb") as f:
+                if want not in f.read().split(b"\0"):
+                    continue
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue                    # gone, or a zombie
+        found.append((int(d), cmd.strip()))
+    for pid, _ in found:
+        with contextlib.suppress(OSError):
+            os.kill(pid, signal.SIGKILL)
+    deadline = time.monotonic() + timeout_s
+    for pid, _ in found:
+        while time.monotonic() < deadline:
+            with contextlib.suppress(ChildProcessError):
+                os.waitpid(pid, os.WNOHANG)     # a child of this process
+            try:
+                with open(f"/proc/{pid}/stat") as f:
+                    if f.read().rsplit(")", 1)[1].split()[0] == "Z":
+                        break
+            except OSError:
+                break
+            time.sleep(0.05)
+    return found
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    keep_bytecode()
+    os.environ[RUN_MARK] = f"{os.getpid()}-{time.time_ns()}"
+    rc = 1
+    try:
+        rc = main()
+    finally:
+        left = stop_leftovers()
+        if left:
+            print(f"chip_smoke: stopped {len(left)} process(es) left "
+                  f"running: {left}", file=sys.stderr, flush=True)
+    sys.exit(rc)

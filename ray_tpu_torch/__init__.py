@@ -46,7 +46,11 @@ Ported so far:
     (Datasets over object-store blocks; ``iter_device_batches`` copies
     batches to the card through pinned memory on a side stream);
     ``bench.framework_main`` runs the headline ResNet-50 bench through
-    them.
+    them;
+  - Tune on the runtime (``tune``: ``tune.run``, ``Tuner``, function and
+    class trainables, the searchers and schedulers, the loggers and the
+    resumable experiment), each trial an actor, granted a GPU with
+    ``resources_per_trial={"GPU": 1}`` or ``tune.with_resources``.
 
 ROADMAP.md lists the slices to come.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

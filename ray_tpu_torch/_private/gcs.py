@@ -11,7 +11,9 @@ gcs_health_check_manager). One asyncio process holds:
   - cluster scheduler: hybrid pack/spread node selection for spillback and
     actor placement, TPU-slice aware
   - actor directory + state machine (DEPENDENCIES_UNREADY → PENDING_CREATION →
-    ALIVE ⇄ RESTARTING → DEAD, reference: src/ray/design_docs/actor_states.rst)
+    ALIVE ⇄ RESTARTING → DEAD, reference: src/ray/design_docs/actor_states.rst);
+    pending actors of one demand are placed in the order they arrived (the
+    port's addition to the JAX package's GCS: ``_older_actor_waiting``)
   - placement groups with 2-phase commit against raylets (reference:
     gcs_placement_group_scheduler.cc Prepare/Commit/CancelResourceReserve)
   - KV store (function blobs, runtime-env URIs, cluster metadata, rendezvous)
@@ -391,6 +393,11 @@ class GcsServer:
         self._ephemeral_allocs: Dict[str, List[Tuple[float, Dict[str,
                                                                  float]]]] = {}
         self._spread_rr = -1
+        # actors waiting for a node, by arrival: equal demands are placed
+        # in this order (_older_actor_waiting)
+        self._actor_tickets: Dict[str, int] = {}
+        self._actors_waiting: Set[str] = set()   # no node found yet
+        self._next_actor_ticket = 0
         self.next_job_index = 1
         self._server = protocol.Server(self._handlers())
         self._actor_creation_waiters: Dict[str, List[asyncio.Future]] = {}
@@ -1205,12 +1212,47 @@ class GcsServer:
         info["state"] = PENDING_CREATION
         demand = info.get("resources", {})
         sched = info.get("scheduling", {})
+        self._next_actor_ticket += 1
+        self._actor_tickets[aid] = self._next_actor_ticket
+        try:
+            await self._place_actor(aid, info, demand, sched)
+        finally:
+            self._actor_tickets.pop(aid, None)
+            self._actors_waiting.discard(aid)
+
+    def _older_actor_waiting(self, aid: str, demand, sched) -> bool:
+        """Another actor with this demand and strategy has waited longer
+        for capacity: it takes the capacity first, so equal pending
+        actors (trials queued behind one GPU) start in the order they
+        were created, as the reference's per-class queue starts them.
+        One that found a node and is being created holds nobody back:
+        actors that fit start together. The JAX runtime's GCS lets each
+        waiting actor poll on its own, and the first poll after a
+        release wins."""
+        mine = self._actor_tickets[aid]
+        for other, ticket in self._actor_tickets.items():
+            if ticket >= mine or other not in self._actors_waiting:
+                continue
+            o = self.actors.get(other)
+            if o is not None and o["state"] == PENDING_CREATION and \
+                    o.get("resources", {}) == demand and \
+                    o.get("scheduling", {}) == sched:
+                return True
+        return False
+
+    async def _place_actor(self, aid: str, info: Dict[str, Any],
+                           demand: Dict[str, float], sched: Dict[str, Any]):
         deadline = time.monotonic() + self.config.worker_lease_timeout_s * 10
         while time.monotonic() < deadline:
+            if info["state"] == DEAD:
+                return      # killed while it waited: never create it
             node_id = self._pick_node(demand, sched)
-            if node_id is None:
+            if node_id is None or \
+                    self._older_actor_waiting(aid, demand, sched):
+                self._actors_waiting.add(aid)
                 await asyncio.sleep(0.2)  # wait for resources/nodes
                 continue
+            self._actors_waiting.discard(aid)
             node = self.nodes[node_id]
             try:
                 reply = await node.conn.call("create_actor_worker", {
@@ -1221,11 +1263,15 @@ class GcsServer:
             except Exception as e:
                 logger.warning("actor %s creation on %s failed: %s",
                                aid[:8], node_id[:8], e)
+                self._actors_waiting.add(aid)
                 await asyncio.sleep(0.2)
                 continue
             if reply.get("error"):
                 err = reply["error"]
                 if reply.get("retryable", True):
+                    # the node had no room after all (the view is as old
+                    # as its last report): waiting still, in its place
+                    self._actors_waiting.add(aid)
                     await asyncio.sleep(0.2)
                     continue
                 await self._mark_actor_dead(aid, err)

@@ -68,7 +68,8 @@ class NodeProcesses:
         for proc in (self.raylet_proc, self.gcs_proc):
             if proc is not None:
                 try:
-                    proc.wait(timeout=5)
+                    # the raylet reaps its workers first (up to 10 s)
+                    proc.wait(timeout=15)
                 except subprocess.TimeoutExpired:
                     proc.kill()
         # The raylet unlinks its shm segment in its SIGTERM handler; if it had

@@ -269,6 +269,10 @@ class Raylet:
         self._spill_lock: Optional[asyncio.Lock] = None
 
         self.workers: Dict[str, WorkerHandle] = {}
+        # every worker process this raylet started and has not yet seen
+        # exit, including those retired or killed after they left
+        # ``workers``: shutdown kills and reaps them all
+        self._spawned: List[subprocess.Popen] = []
         self.idle_workers: Dict[str, List[WorkerHandle]] = {}  # keyed by env hash
         self._spilling_classes: set = set()
         self._peer_raylets: Dict[str, Any] = {}
@@ -527,6 +531,8 @@ class Raylet:
         proc = subprocess.Popen(
             cmd, env=env, cwd=cwd, stdout=out, stderr=err,
             start_new_session=True)
+        self._spawned = [p for p in self._spawned if p.poll() is None]
+        self._spawned.append(proc)
         handle = WorkerHandle(worker_id, proc,
                               runtime_env_hash=_env_hash(runtime_env),
                               gpu_ids=gpu_ids)
@@ -2663,11 +2669,20 @@ class Raylet:
                 self._netx_server.close()
             except Exception:
                 pass
-        for h in self.workers.values():
+        for proc in self._spawned:
+            if proc.poll() is None:
+                try:
+                    proc.kill()
+                except OSError:
+                    pass  # already dead
+        # reap them: a worker still tearing down (a CUDA context) when
+        # this process exits would outlive the cluster
+        deadline = time.monotonic() + 10.0
+        for proc in self._spawned:
             try:
-                h.proc.kill()
-            except OSError:
-                pass  # already dead
+                proc.wait(timeout=max(0.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                pass
         self.server.close()
         self.store.unlink()
         try:

@@ -641,7 +641,7 @@ def ppo_loop(device="cuda", profile=None) -> dict:
                     3 if dev.type == "cuda" else 1, profile)
 
 
-def ppo_remote_loop(device="cuda", profile=None) -> dict:
+def ppo_remote_loop(device="cuda", profile=None, timed=None) -> dict:
     """``ppo_loop`` at atari-ppo.yaml's topology: 10 remote rollout
     workers x 5 envs (on ``cpu``: 2 x 2), each an actor of the port's
     runtime on the CPU with one torch thread, the learner on ``device``.
@@ -653,12 +653,14 @@ def ppo_remote_loop(device="cuda", profile=None) -> dict:
     iteration's host time spent waiting for the workers' batches, GAE
     included: it runs in the workers) and whether every worker holds
     the learner's weights byte for byte after the last iteration's
-    ``sync_weights``. Timed iterations: 3 on ``cuda``, 1 on ``cpu``."""
+    ``sync_weights``. Timed iterations: ``timed``, by default 3 on
+    ``cuda``, 1 on ``cpu``."""
     dev = resolve_device(device)
     workers, envs = (10, 5) if dev.type == "cuda" else (2, 2)
     with rl_cluster(workers):
         return _ppo_run("ppo_remote", ppo_atari_config(dev, workers, envs),
-                        dev, 3 if dev.type == "cuda" else 1, profile)
+                        dev, timed or (3 if dev.type == "cuda" else 1),
+                        profile)
 
 
 IMPALA_YAML_WORKERS = 32   # atari-impala.yaml's num_workers
@@ -799,7 +801,7 @@ def impala_loop(device="cuda", profile=None, algo="IMPALA",
                        algo)
 
 
-def impala_remote_loop(device="cuda", profile=None) -> dict:
+def impala_remote_loop(device="cuda", profile=None, timed=None) -> dict:
     """IMPALA-Atari at atari-impala.yaml's topology: remote rollout
     workers of 5 envs x fragments of 50 (on ``cpu``: 2 workers of 2 x
     16) feeding the async learner thread on ``device``, 8 reaped batches
@@ -811,7 +813,8 @@ def impala_remote_loop(device="cuda", profile=None) -> dict:
     ``impala_remote_``, plus the worker count, each actor's start, the
     learner thread's steps, rows, time and empty-queue wait in the
     timed window and its queue's depth after each iteration. Timed
-    iterations: 5 on ``cuda``, 1 on ``cpu``. ``profile``: one
+    iterations: ``timed``, by default 5 on ``cuda``, 1 on ``cpu``.
+    ``profile``: one
     ``learn_on_batch`` on a batch from one worker, after the learner
     thread has stopped."""
     dev = resolve_device(device)
@@ -822,7 +825,8 @@ def impala_remote_loop(device="cuda", profile=None) -> dict:
     with rl_cluster(workers):
         out = _impala_run(
             "impala_remote", impala_atari_config(dev, "IMPALA", workers),
-            dev, 5 if dev.type == "cuda" else 1, profile, "IMPALA")
+            dev, timed or (5 if dev.type == "cuda" else 1), profile,
+            "IMPALA")
     if dev.type == "cuda":
         out["impala_remote_workers_cut"] = (
             None if workers == IMPALA_YAML_WORKERS
@@ -925,13 +929,13 @@ def _rollout_actors(algo_obj) -> list:
     return list(algo_obj.workers.remote_workers)
 
 
-def remote_algo_loops(device="cuda") -> dict:
+def remote_algo_loops(device="cuda", timed: int = 3) -> dict:
     """Each of ``REMOTE_ALGOS`` (``remote_algo_config``) through
     ``Algorithm.step``, their actors started together: every algorithm
     is built first, so all their workers' processes start at once (each
     start is mostly ``import torch``), then each runs iterations until
     its learner has stepped once (Ape-X fills its replay to
-    ``learning_starts`` first; at most 40) and 3 timed ones, and is
+    ``learning_starts`` first; at most 40) and ``timed`` ones, and is
     cleaned up. A cluster that is up needs CPUs for all their rollout
     workers at once (2 an algorithm, 4 for ``"PPO-eval"``; ES's hold
     none: 12 in all); else one of 12 is started. Returns, under each
@@ -946,7 +950,7 @@ def remote_algo_loops(device="cuda") -> dict:
     byte for byte after a ``sync_weights`` (ES: the local policy holds
     ``theta``; the evaluation workers too), the kernels' launches and
     the learner's device."""
-    algos, timed = REMOTE_ALGOS, 3
+    algos = REMOTE_ALGOS
     import ray_tpu_torch as rt
     dev = resolve_device(device)
     out = {}

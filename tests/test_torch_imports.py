@@ -69,6 +69,12 @@ def test_port_files_found():
                 "algorithms/apex_ddpg", "algorithms/es"):
         assert f"ray_tpu_torch/rllib/{mod}.py" in rel
     assert "ray_tpu_torch/tune/trainable.py" in rel
+    for mod in ("__init__", "sample", "trial", "schedulers", "logger",
+                "syncer", "tune", "tuner", "search/__init__",
+                "search/_space", "search/searcher", "search/basic_variant",
+                "search/tpe", "search/bayesopt", "search/bohb",
+                "search/external"):
+        assert f"ray_tpu_torch/tune/{mod}.py" in rel
     assert "ray_tpu_torch/air/checkpoint.py" in rel
     for mod in ("air/config", "air/session", "train/data_parallel_trainer",
                 "train/torch_trainer", "train/_internal/backend_executor",

@@ -14,6 +14,7 @@ as ``tests/test_tpu_detection.py`` does for the TPU.
 """
 
 import os
+import time
 from unittest import mock
 
 import pytest
@@ -63,6 +64,30 @@ def _in_bundle(pg, index=0, num_gpus=1):
             pg, placement_group_bundle_index=index))(_report)
 
 
+def _wait_gpus_free(want=float(len(INHERITED)), timeout=30.0):
+    """Poll until the cluster's available GPU has read ``want`` for longer
+    than the raylet's report period. A finished GPU task's grant is
+    freed when the raylet handles its ``task_done``, which may come after
+    the owner's ``get`` returns; the GCS's view (``available_resources``)
+    follows the raylet's reports, pushed on a release and otherwise once
+    a ``health_check_period_s`` (1 s), so a read of ``want`` alone may
+    predate the grant. A run of ``want`` that spans a report shows the
+    raylet's own count after the ``get``. Polled with a deadline, as
+    tests/test_worker_lease.py waits for an idle lease."""
+    from ray_tpu_torch.common.config import global_config
+    span = global_config().health_check_period_s * 1.5
+    deadline = time.time() + timeout
+    since = None
+    while time.time() < deadline:
+        free = ray_tpu_torch.available_resources().get("GPU", 0.0)
+        now = time.time()
+        since = (since or now) if free == want else None
+        if since is not None and now - since > span:
+            return
+        time.sleep(0.05)
+    raise AssertionError(f"available GPU did not settle at {want}")
+
+
 def _grant(ids_env):
     """A worker's grant, after checking that its CUDA_VISIBLE_DEVICES
     lists exactly its ``get_gpu_ids()``."""
@@ -78,6 +103,7 @@ def test_grants_name_inherited_devices(gpu4):
     one = _grant(ray_tpu_torch.get(
         ray_tpu_torch.remote(num_gpus=1)(_report).remote(), timeout=60))
     assert len(one) == 1 and one[0] in INHERITED
+    _wait_gpus_free()
     pgs = [placement_group([{"CPU": 1, "GPU": 2}]) for _ in range(2)]
     halves = []
     for pg in pgs:
@@ -86,6 +112,7 @@ def test_grants_name_inherited_devices(gpu4):
             _in_bundle(pg, num_gpus=2).remote(), timeout=60)))
     for pg in pgs:
         remove_placement_group(pg)
+    _wait_gpus_free()
     assert sorted(halves) == [[3, 5], [6, 7]]
     pg = placement_group([{"CPU": 1, "GPU": 1}, {"CPU": 1, "GPU": 3}])
     assert pg.ready(timeout=30)
