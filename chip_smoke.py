@@ -122,13 +122,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
               |grad| passes PARAM_MASK; the ResNet by phase 11a's
               rule (RESNET_LOSS_REL, RESNET_TOL) on logits, params and
               batch stats. (a) bench.gpt2_loop on the mesh route (GPT-2
-              small, 16 x 1024 bf16): each whole-kv kernel and the delta
+              small, 16 x 1024 bf16; 2 timed windows of the bench's 6,
+              CUT_WINDOWS): each whole-kv kernel and the delta
               pass exactly n_layer times a step, collectives counted;
               step time and tokens/s beside phase 6's; one profiled
               step. A 2-layer GPT-2 at full width, 2 x 4096,
               exact=True: one step launches each streaming kernel and
               the delta pass once per layer, no whole-kv kernel. (b) bench.resnet_loop on the mesh route
-              (ResNet-50, 256 x 224 x 224 bf16): one batch-norm
+              (ResNet-50, 256 x 224 x 224 bf16; 3 timed windows of 8):
+              one batch-norm
               all_gather per norm layer a step (the global statistics),
               no kernel of the port; step time and img/s beside phase
               11's; one profiled step by RESNET_PROFILE_GROUPS. The group
@@ -152,7 +154,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
               GPT-2 small with attention_backend="ring" on a NCCL group
               of one rank (sp = 1: one causal block a layer), 16 x
               1024: one step within MESH_REL of the exact=True route's,
-              then bench.gpt2_loop with it: each streaming kernel and
+              then bench.gpt2_loop with it (2 timed windows of 6): each
+              streaming kernel and
               the delta pass once a layer a step, no whole-kv launch;
               step time beside phase 6's. (c) make_pipelined_lm_trainer
               on GPT-2 small at pp = 1 on the same group, M = 4
@@ -178,7 +181,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
               through FrameStackConnector(4), the Nature CNN, 50 envs x
               100 steps = 5,000 a batch, minibatch 500 x 10 epochs, the
               atari-ppo.yaml settings, seed 0): one warm-up iteration
-              and 3 timed ones; finite losses, weights that moved;
+              and 1 timed one (CUT_TIMED; the bench's 3); finite
+              losses, weights that moved;
               prints env steps/s, the sample / postprocess / learn
               split, peak memory and one learn phase profiled by kernel
               group (PPO_PROFILE_GROUPS) with its idle share; (c) the
@@ -200,13 +204,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
               PPO_F32, check_error() clean; (a) bench.impala_loop:
               IMPALA on PixelCatcher-v0 at 84 x 84 x 4, 10 envs x 50
               steps = 500 a learn step (atari-impala.yaml's fragment
-              and batch), one warm-up and 10 timed iterations, one
-              learn phase profiled (PPO_PROFILE_GROUPS); one APPO
+              and batch), one warm-up and 2 timed iterations (of the
+              bench's 10), one learn phase profiled (PPO_PROFILE_GROUPS); one APPO
               iteration through the same config; bench.dqn_loop: DQN
               at the same widths, 8 envs x 4 steps, batch 32, double-Q,
               a uniform buffer of 50,000 rows, the buffer filled to
-              1,000 rows, one warm-up and 200 timed iterations, one
-              learn phase of 10 updates profiled; finite losses,
+              1,000 rows, one warm-up and 25 timed iterations (of the
+              bench's 200), one learn phase of 10 updates profiled; finite losses,
               weights that moved, DQN's buffer grown, epsilon fallen,
               target synced; (c) the launch counts, zeroed at the
               phase's start and read at its end, are empty.
@@ -223,9 +227,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
               one SAC update at its own init); (a) bench.sac_loop: SAC on
               Pendulum-v1 at pendulum-sac.yaml's settings (256 x 256,
               batch 256, fragments of 1, 256 steps before learning, a
-              100,000-row buffer), 300 timed iterations (CUT_TIMED;
+              100,000-row buffer), 50 timed iterations (CUT_TIMED;
               the bench's 1,000 is one yaml iteration);
-              bench.ddpg_loop("TD3"): TD3Config's defaults, 300;
+              bench.ddpg_loop("TD3"): TD3Config's defaults, 50;
               bench.offline_loop for CQL (25 timed iterations: past its
               200 BC steps), CRR, MARWIL and BC (3 each) on a
               100,000-row Pendulum set (500 episodes x 200 steps of the
@@ -245,14 +249,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
               CartPole set), one SlateQ update (batch 128 from its
               replay); stats and params within PPO_F32 of their scale;
               (a) bench.r2d2_loop: R2D2 on CartPole-v1 at R2D2Config's
-              defaults, 40 timed iterations; bench.slateq_loop: SlateQ
-              at SlateQConfig's defaults (20 docs, slates of 3, 6
-              topics, batch 128), 20; bench.dt_loop: DT at DTConfig's
+              defaults, 10 timed iterations (of the bench's 40);
+              bench.slateq_loop: SlateQ at SlateQConfig's defaults (20
+              docs, slates of 3, 6 topics, batch 128), 10 (of 20); bench.dt_loop: DT at DTConfig's
               defaults on the offline CartPole set (120 episodes capped
               at 120 steps of the JAX DT fixture's noisy heuristic,
-              written by JsonWriter and read back), 10 iterations of 20
-              learn steps; bench.bandit_loop: LinUCB and LinTS on the
-              host; R2D2's and SlateQ's learn phases and one DT
+              written by JsonWriter and read back), 2 iterations of 20
+              learn steps (of the bench's 10); bench.bandit_loop: LinUCB
+              and LinTS on the host, 25 iterations (of 50); R2D2's and SlateQ's learn phases and one DT
               iteration profiled (PPO_PROFILE_GROUPS); finite losses,
               weights that moved, replays that grew, epsilon that fell,
               targets synced at their period (equal to the online net
@@ -270,13 +274,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
               bootstrap rows) and one imagination (16 episodes x 20
               steps) with fed noise; stats and grads within PPO_F32 of
               their scale, params by phase 18b's rule (hold_update);
-              (a) bench.qmix_loop (QMixConfig's defaults, 100 timed
-              iterations), bench.maddpg_loop (MADDPGConfig's, 50),
-              bench.maml_loop (MAMLConfig's: 4,000 env steps and one
-              meta-update an iteration, 2 of the bench's 5),
+              (a) bench.qmix_loop (QMixConfig's defaults, 25 timed
+              iterations of the bench's 100), bench.maddpg_loop (MADDPGConfig's, 10 of
+              50), bench.maml_loop (MAMLConfig's: 4,000 env steps and
+              one meta-update an iteration, 1 of the bench's 5),
               bench.mbmpo_loop (MBMPOConfig's: K = 4, 60 model updates,
               16 real episodes, 4 x 2 imaginations, one meta-update an
-              iteration, 4 of 10; CUT_TIMED),
+              iteration, 1 of 10; CUT_TIMED),
               each with one learn phase profiled (PPO_PROFILE_GROUPS):
               finite losses, weights that moved, replays that grew,
               QMIX's epsilon falling and its target synced at its
@@ -299,11 +303,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
               MultiAgentCartPole, 2 policies of 256 x 256); each by
               phase 18b's rule (hold_update); (a) bench.dreamer_loop
               (DreamerConfig's defaults: prefill 1,000, then 200 env
-              steps + 20 updates an iteration, 3 timed of the bench's
+              steps + 20 updates an iteration, 2 timed of the bench's
               5), bench.alphazero_loop (24 games x 25 sims, 8 x 256 SGD,
-              2 of 3 timed), bench.alphastar_loop (64 matches an
+              1 of 3 timed), bench.alphastar_loop (64 matches an
               iteration, 10 timed, the 10th snapshotting main),
-              bench.ma_ppo_loop (512 / 128 x 6, 2 policies, 3 of 5
+              bench.ma_ppo_loop (512 / 128 x 6, 2 policies, 1 of 5
               timed; CUT_TIMED), each with one learn
               phase profiled (PPO_PROFILE_GROUPS): finite losses,
               weights that moved, the widths, Dreamer's reconstruction
@@ -382,8 +386,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
               sync_weights their weights are byte-equal to the
               learner's host copy; (b) bench.ppo_remote_loop: PPO-Atari
               at atari-ppo.yaml's 10 remote workers x 5 envs (one torch
-              thread each), the learner on the card, one warm-up and 2
-              timed iterations (CUT_TIMED; the bench's 3), one learn
+              thread each), the learner on the card, one warm-up and 1
+              timed iteration (CUT_TIMED; the bench's 3), one learn
               phase profiled
               (PPO_PROFILE_GROUPS); env steps/s beside phase 15's
               one-local-worker form (remote_vs_local), the timers'
@@ -393,7 +397,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
               bench.impala_remote_loop: IMPALA-Atari with the async
               learner thread fed by remote workers of 5 envs x 50 steps
               (atari-impala.yaml's 32 cut to the machine's CPUs less 2),
-              3 timed iterations (of the bench's 5): the learner
+              1 timed iteration (of the bench's 5): the learner
               queue's depth after each,
               the learner thread's steps, rows and empty-queue wait,
               env steps/s against phase 16's; (d)
@@ -460,9 +464,42 @@ Phases, each of which fails the run (non-zero exit, no result line):
               wait for the card, actor start, build and first step, the
               card's idle time since the previous attempt's last step,
               step ms, checkpoint writes and each run's wall time.
+27. air     — AIR on the runtime, init(num_cpus=4) with the one GPU:
+              (a) GPT-2 small (GPT2Config.small(), flax's initialisers
+              drawn on the card from SEED, bf16 compute) in a
+              Checkpoint.from_dict({"params": ...}) (497,759,232 B of
+              f32) with a BatchMapper (air_split_tokens: a row's 1,025
+              tokens into input_ids and labels) as its preprocessor;
+              BatchPredictor.from_checkpoint(ckpt, TorchPredictor,
+              apply_fn=air_score).predict(ds, batch_size=16,
+              num_workers=1, num_gpus_per_worker=1) over 64 rows made
+              from SEED (from_numpy, 4 blocks): air_score builds the
+              port's GPT-2 over the predictor's params once and returns
+              each row's mean NLL, its forward inside
+              gpu_profiler.trace(label="predict"). Checks: 64 rows back
+              in order; every NLL bit-equal to this process's forward
+              of the same four batches; the pool actor's grant [0],
+              CUDA_VISIBLE_DEVICES "0", a process of its own; in it #1
+              launched n_layer x 4 = 48 times and nothing else; the
+              driver's timeline_dump() holds 48 whole_fwd_wgmma spans
+              under "predict" at pids >= the device pid base, none
+              recorded here, and tracing.export_chrome over a span
+              around the predict call holds them all. (b)
+              RLTrainer(algorithm=PPO, CartPole-v1, one local worker,
+              AIR_PPO_CONFIG, device "cuda"), 2 iterations,
+              ScalingConfig(num_workers=1, use_gpu=True) (a PPO subclass
+              puts its process's grant into its checkpoint): 2
+              iterations reported, the checkpoint's keys JAX's, the
+              worker's grant [0] with the policy on cuda and no kernel
+              launched; restore_algorithm here, on cuda, gives policy
+              weights bit-equal to the checkpointed state and an action
+              in {0, 1}, with no launch. Prints the actor's first call
+              (start, import, the checkpoint's get, the params to the
+              card), the model's build, each forward, the predict wall
+              time, rows/s and tokens/s, and the RLTrainer's wall time.
 13. summary — nvidia-smi's card line, the kernels line (each kernel's
               launches by the path that counted them: phases 4, 5b, 6,
-              8, 12, 14, 21, 22, 23, 25 and 26; paged decode's entry also
+              8, 12, 14, 21, 22, 23, 25, 26 and 27; paged decode's entry also
               carries its Llama serve case, the streaming kernels' the
               ring's), then the device line, last.
 
@@ -594,13 +631,21 @@ ATARI_BF16_RATIO = (3.0, 1.5)
 # against the CPU learner's (PPO's MLP at 256 x 256, a 512-row batch)
 REMOTE_CPUS = 12
 REMOTE_LEARNER_UPDATES = 3
-# timed iterations of the RL loops of phases 17, 19, 20 and 24, cut
-# below their bench's defaults (in each loop's docstring) so that the
-# whole script, phase 26 included, keeps inside its time limit on the
+# timed iterations of the RL loops of phases 15-20 and 24, cut below
+# their bench's defaults (in each loop's docstring) so that the whole
+# script, phases 26 and 27 included, keeps inside its time limit on the
 # card machine: the cuts shorten timed windows, not what is checked
-CUT_TIMED = {"sac": 300, "td3": 300, "maml": 2, "mbmpo": 4, "dreamer": 3,
-             "alphazero": 2, "ma_ppo": 3, "ppo_remote": 2,
-             "impala_remote": 3, "remote_algos": 2}
+# (a check that compares iterations keeps at least two)
+CUT_TIMED = {"ppo": 1, "impala": 2, "dqn": 25, "sac": 50, "td3": 50,
+             "r2d2": 10, "slateq": 10, "dt": 2, "bandit": 25, "qmix": 25,
+             "maddpg": 10, "maml": 1, "mbmpo": 1, "dreamer": 2,
+             "alphazero": 1, "ma_ppo": 1, "ppo_remote": 1,
+             "impala_remote": 1, "remote_algos": 2}
+# timed windows of the bench's GPT-2 and ResNet-50 loops on the mesh
+# route (phase 12) and of the ring trainer (phase 14), cut from 6 and 8
+# for the same reason (each a window of 5 and 10 steps); phase 6's stay
+# whole: phase 23 holds its train worker's steps to all of them
+CUT_WINDOWS = {"mesh_gpt2": 2, "mesh_resnet": 3, "ring_gpt2": 2}
 # phase 26: Tune on the runtime. The sweep's learning rates, the
 # trainer's default (3e-4) first: after the first update the loss falls
 # with the rate over this range, so ASHA's rung at iteration 2 stops the
@@ -613,6 +658,21 @@ TUNE_MAX_T = 4
 TUNE_CKPT_EVERY = 2
 TUNE_FAIL_AT = 2
 TUNE_PPO_LRS = (3e-4, 1e-4)
+# phase 27: BatchPredictor over GPT-2 small. Rows, each a row's tokens
+# less one (the mapper's input_ids; labels are the row shifted by one),
+# the predictor's batch; the cap of events a gpu_profiler trace merges
+# (four traces stay inside the timeline's 10,000-event ring); the models
+# air_score built in its process; RLTrainer's PPO on CartPole, cut from
+# PPO's defaults (4,000-step batches, 10 epochs of 128) to two short
+# iterations
+AIR_ROWS = 64
+AIR_SEQ = 1024
+AIR_BATCH = 16
+AIR_TRACE_EVENTS = 2000
+AIR_MODELS: dict = {}
+AIR_PPO_CONFIG = {"env": "CartPole-v1", "num_workers": 0,
+                  "train_batch_size": 1000, "sgd_minibatch_size": 250,
+                  "num_sgd_iter": 4}
 # the PPO learn phase's groups: cuDNN's convs, the products (the
 # 7,744 x 512 Dense and the heads), Adam's foreach kernels, the
 # host-to-device copies of each minibatch, then the rest
@@ -1327,7 +1387,8 @@ def mesh_phase(cfg, tokens, phase6, phase11, name, card):
         del mesh_resnet, plain
 
         # (a) GPT-2 small through the bench on the mesh route
-        g = bench.gpt2_loop(profile=profile_step)
+        g = bench.gpt2_loop(profile=profile_step,
+                            windows=CUT_WINDOWS["mesh_gpt2"])
         counts, n_steps = g["gpt2_launches"], g["gpt2_steps_timed"]
         require(all(math.isfinite(x) for x in g["gpt2_losses"]),
                 f"mesh gpt2: non-finite loss {g['gpt2_losses']}")
@@ -1383,7 +1444,7 @@ def mesh_phase(cfg, tokens, phase6, phase11, name, card):
 
         # (b) ResNet-50 through the bench on the mesh route
         r = bench.resnet_loop(profile=lambda step: profile_step(
-            step, RESNET_PROFILE_GROUPS))
+            step, RESNET_PROFILE_GROUPS), windows=CUT_WINDOWS["mesh_resnet"])
         require(all(math.isfinite(x) for x in r["losses"]),
                 f"mesh resnet: non-finite loss {r['losses']}")
         require(r["launches"] == {}, f"mesh resnet launched {r['launches']}")
@@ -1569,7 +1630,7 @@ def ring_trainer_phase(phase6, name, card) -> dict:
                                            "tol": MESH_REL}), flush=True)
     require(max(rel.values()) <= MESH_REL,
             f"ring trainer vs exact=True: {rel}")
-    g = bench.gpt2_loop(config=ring_cfg)
+    g = bench.gpt2_loop(config=ring_cfg, windows=CUT_WINDOWS["ring_gpt2"])
     counts, n_steps = g["gpt2_launches"], g["gpt2_steps_timed"]
     want = {k: cfg.n_layer * n_steps for k in
             ("flash_attention_forward", "flash_attention_backward_dkv",
@@ -1766,7 +1827,7 @@ def ppo_phase(name, card) -> dict:
     ppo_learn_parity("cuda")
     atari_cnn_parity("cuda")
     r = bench.ppo_loop(profile=lambda learn: profile_step(
-        learn, PPO_PROFILE_GROUPS))
+        learn, PPO_PROFILE_GROUPS), timed=CUT_TIMED["ppo"])
     launches = kernels.launch_counts()
     profile = r.pop("ppo_profile")
     print("ppo_train", json.dumps({**r, "device": name, "nvidia_smi": card}),
@@ -1996,7 +2057,7 @@ def rl_algos_phase(name, card) -> dict:
                   flush=True)
 
     r = bench.impala_loop(profile=lambda learn: profile_step(
-        learn, PPO_PROFILE_GROUPS))
+        learn, PPO_PROFILE_GROUPS), timed=CUT_TIMED["impala"])
     show("impala_train", r, "impala_profile")
     require(r["impala_obs_shape"] == [84, 84, 4]
             and r["impala_env_steps_per_iter"] == 500
@@ -2010,7 +2071,7 @@ def rl_algos_phase(name, card) -> dict:
             and all(math.isfinite(x) for x in a["impala_total_losses"])
             and a["impala_weights_moved"] > 0, f"appo: {a}")
     d = bench.dqn_loop(profile=lambda learn: profile_step(
-        learn, PPO_PROFILE_GROUPS))
+        learn, PPO_PROFILE_GROUPS), timed=CUT_TIMED["dqn"])
     show("dqn_train", d, "dqn_profile")
     require(d["dqn_obs_shape"] == [84, 84, 4] and d["dqn_num_envs"] == 8
             and d["dqn_train_batch_size"] == 32
@@ -2376,7 +2437,7 @@ def local_algos_phase(name, card) -> dict:
 
     res = {}
     for p, loop in (("r2d2", bench.r2d2_loop), ("slateq", bench.slateq_loop)):
-        r = loop(profile=prof)
+        r = loop(profile=prof, timed=CUT_TIMED[p])
         show(f"{p}_train", r, f"{p}_profile")
         require(r[f"{p}_losses_finite"], f"{p}: non-finite loss {r}")
         require(r[f"{p}_weights_moved"] > 0, f"{p}: the weights did not move")
@@ -2395,7 +2456,7 @@ def local_algos_phase(name, card) -> dict:
     require(res["slateq"]["slateq_num_docs"] == 20
             and res["slateq"]["slateq_train_batch_size"] == 128,
             f"slateq widths: {res['slateq']}")
-    d = bench.dt_loop(profile=prof)
+    d = bench.dt_loop(profile=prof, timed=CUT_TIMED["dt"])
     show("dt_train", d, "dt_profile")
     require(d["dt_embed_dim"] == 64 and d["dt_context_length"] == 8
             and d["dt_train_batch_size"] == 64 and d["dt_episodes"] == 120,
@@ -2403,7 +2464,7 @@ def local_algos_phase(name, card) -> dict:
     require(d["dt_losses_finite"], f"dt: non-finite loss {d['dt_action_nll']}")
     require(d["dt_weights_moved"] > 0, "dt: the weights did not move")
     res["dt"] = d
-    b = bench.bandit_loop()
+    b = bench.bandit_loop(timed=CUT_TIMED["bandit"])
     print("bandit_train", json.dumps({**b, "device": "host (numpy)",
                                       "nvidia_smi": card}), flush=True)
     require(all(math.isfinite(v) for k, v in b.items()
@@ -4404,6 +4465,339 @@ def tune_phase(name, card, driver_steps=None) -> dict:
     return {**out, "gpt2_launches": total}
 
 
+def air_split_tokens(batch):
+    """Phase 27's preprocessor (a BatchMapper on the checkpoint): a row's
+    AIR_SEQ + 1 tokens -> GPT-2's input_ids and the next-token labels."""
+    t = np.asarray(batch["tokens"])
+    return {"input_ids": t[:, :-1], "labels": t[:, 1:]}
+
+
+def gpt2_row_nll(model, input_ids, labels):
+    """Each row's mean next-token NLL (f32) of a GPT-2's bf16 logits,
+    the cross entropy taken over rows of the vocabulary (over the logits
+    transposed to [B, V, S], a batch of 16 x 1024 took 94 ms on the
+    H100, against 34 ms so)."""
+    import torch.nn.functional as F
+    logits = model(input_ids).float()
+    B, S, V = logits.shape
+    return F.cross_entropy(logits.reshape(B * S, V), labels.reshape(B * S),
+                           reduction="none").view(B, S).mean(-1)
+
+
+def air_model(params):
+    """GPT-2 small (attention through ops.attention.flash_attention: #1
+    at b16 h12 s1024 d64) over ``params``, a state_dict of tensors on
+    the card, which it takes without a copy. Built on the params' device
+    and not on "meta": the default inits on meta tensors import
+    torch._dynamo (~5 s in a fresh process)."""
+    import torch
+    from ray_tpu_torch.models import gpt2
+    with torch.device(next(iter(params.values())).device):
+        model = gpt2.GPT2(gpt2.GPT2Config.small())
+    model.load_state_dict(params, assign=True)
+    return model.eval()
+
+
+def air_score(params, x):
+    """Phase 27's apply_fn, run by the TorchPredictor in the Dataset's
+    pool actor: GPT-2 small built over the predictor's params at its
+    first call (AIR_MODELS), then each row's mean NLL of a batch, the
+    forward inside gpu_profiler.trace(label="predict"). Besides "nll",
+    columns that repeat per row: the actor's grant, pid and CUDA
+    devices, the port's kernel launches in its process so far (JSON),
+    when it entered, its build and its forward's seconds."""
+    import torch
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import kernels
+    from ray_tpu_torch.util import gpu_profiler
+    t_enter = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False   # as the driver's
+    torch.backends.cudnn.allow_tf32 = False
+    model, build_s = AIR_MODELS.get(id(params)), 0.0
+    if model is None:
+        t0 = time.perf_counter()
+        model = AIR_MODELS[id(params)] = air_model(params)
+        build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with gpu_profiler.trace(label="predict", max_events=AIR_TRACE_EVENTS):
+        nll = gpt2_row_nll(model, x["input_ids"], x["labels"])
+    forward_s = time.perf_counter() - t0
+    n = int(nll.shape[0])
+    return {"nll": nll,
+            "gpu_ids": np.asarray([rt.get_gpu_ids()] * n),
+            "cuda_visible_devices": np.asarray(
+                [os.environ.get("CUDA_VISIBLE_DEVICES")] * n),
+            "pid": np.full(n, os.getpid()),
+            "launches": np.asarray([json.dumps(kernels.launch_counts())] * n),
+            "t_enter": np.full(n, t_enter), "build_s": np.full(n, build_s),
+            "forward_s": np.full(n, forward_s)}
+
+
+def host_memory() -> dict:
+    """This host's memory from /proc/meminfo: the used share (1 -
+    MemAvailable / MemTotal, the raylet's measure without a cgroup
+    limit), shared memory (/dev/shm and the object store), this
+    process's resident and locked bytes."""
+    def kb(path, keys):
+        out = {}
+        with open(path) as f:
+            for line in f:
+                k, _, rest = line.partition(":")
+                if k in keys:
+                    out[k] = int(rest.split()[0]) * 1024
+        return out
+    m = kb("/proc/meminfo", ("MemTotal", "MemAvailable", "Shmem"))
+    me = kb("/proc/self/status", ("VmRSS", "VmLck", "VmPin"))
+    return {"used_share": 1.0 - m["MemAvailable"] / m["MemTotal"],
+            "total_bytes": m["MemTotal"], "shmem_bytes": m["Shmem"],
+            "driver_rss_bytes": me.get("VmRSS"),
+            "driver_locked_bytes": me.get("VmLck"),
+            "driver_pinned_bytes": me.get("VmPin")}
+
+
+def air_phase(name, card) -> dict:
+    """Phase 27 (module docstring): (a) GPT-2 small batch-scored through
+    BatchPredictor and a TorchPredictor in a GPU-granted Dataset pool
+    actor, its kernels' spans merged into the driver's timeline by
+    gpu_profiler; (b) RLTrainer(PPO) in a GPU-granted train worker.
+    Returns the printed measurements and the pool actor's launches."""
+    import gc
+    import pickle
+
+    import torch
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import bench, kernels
+    from ray_tpu_torch import data as rdata
+    from ray_tpu_torch._private import tracing
+    from ray_tpu_torch.air import (BatchMapper, BatchPredictor, Checkpoint,
+                                   ScalingConfig, TorchPredictor)
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.rllib.algorithms import ppo
+    from ray_tpu_torch.train import RLTrainer
+    from ray_tpu_torch.util import gpu_profiler, timeline
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the host's memory as the phase starts: the raylet kills a busy
+    # worker when its used share passes memory_usage_threshold
+    print("air_host_memory", json.dumps(host_memory()), flush=True)
+    built = {n: kernels._lib_path(n) for n in kernels.sources()}
+    mtimes = {n: os.path.getmtime(p) for n, p in built.items()}
+    cfg = gpt2.GPT2Config.small()
+    # the params: flax's initialisers drawn on the card from SEED, kept
+    # on the host in f32 for the checkpoint
+    t0 = time.perf_counter()
+    with torch.device("cuda"):
+        init = gpt2.GPT2(cfg)
+        init.init_weights(torch.Generator(device="cuda").manual_seed(SEED))
+    on_card = {k: v.detach() for k, v in init.state_dict().items()}
+    params = {k: v.cpu().numpy() for k, v in on_card.items()}
+    del init
+    tokens = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (AIR_ROWS, AIR_SEQ + 1), dtype=np.int64)
+    params_bytes = sum(a.nbytes for a in params.values())
+    out = {"device": name, "nvidia_smi": card, "model": "gpt2-small",
+           "rows": AIR_ROWS, "seq_len": AIR_SEQ, "batch": AIR_BATCH,
+           "params_bytes": params_bytes,
+           "params_s": time.perf_counter() - t0}
+    # the driver's reference: the same four batches through the same
+    # mapper, the same tensors and the same forward, in this process
+    model = air_model(on_card)
+    ref, ref_ms = [], []
+    with torch.inference_mode():
+        for s in range(0, AIR_ROWS, AIR_BATCH):
+            b = air_split_tokens({"tokens": tokens[s:s + AIR_BATCH]})
+            x = {k: torch.as_tensor(np.asarray(v)).to("cuda")
+                 for k, v in b.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref.append(gpt2_row_nll(model, x["input_ids"],
+                                    x["labels"]).cpu().numpy())
+            ref_ms.append((time.perf_counter() - t0) * 1e3)
+    ref = np.concatenate(ref)
+    out["driver_forward_ms"] = ref_ms
+    del model, on_card
+    gc.collect()
+    torch.cuda.empty_cache()
+    require(bool(np.isfinite(ref).all()), f"driver NLL not finite: {ref}")
+
+    ckpt = Checkpoint.from_dict({"params": params}).with_preprocessor(
+        BatchMapper(air_split_tokens))
+    store = bench.store_bytes()
+    require(store >= 3 * params_bytes // 2,
+            f"object store of {store} B: too small for {params_bytes} B")
+    t0 = time.perf_counter()
+    rt.init(num_cpus=4, object_store_memory=store)
+    out["init_s"] = time.perf_counter() - t0
+    try:
+        res = rt.cluster_resources()
+        require(res.get("GPU") == 1.0, f"cluster_resources: {res}")
+
+        # (a) batch scoring in a GPU-granted pool actor
+        ds = rdata.from_numpy({"tokens": tokens},
+                              parallelism=AIR_ROWS // AIR_BATCH)
+        bp = BatchPredictor.from_checkpoint(
+            ckpt, TorchPredictor, apply_fn=air_score,
+            input_column=["input_ids", "labels"])
+        local_before = len([e for e in timeline.collect()
+                            if e.get("cat") == "predict"])
+        span_start = time.time()
+        t0 = time.perf_counter()
+        rows = bp.predict(ds, batch_size=AIR_BATCH, num_workers=1,
+                          num_gpus_per_worker=1).take_all()
+        predict_s = time.perf_counter() - t0
+        span_end = time.time()
+        require(len(rows) == AIR_ROWS, f"predict gave {len(rows)} rows")
+        in_order = all(
+            np.array_equal(r["input_ids"], tokens[i, :-1])
+            and np.array_equal(r["labels"], tokens[i, 1:])
+            for i, r in enumerate(rows))
+        require(in_order, "predict's rows are not the dataset's, in order")
+        got = np.asarray([float(r["nll"]) for r in rows], np.float32)
+        diff = float(np.abs(got - ref).max())
+        require(np.array_equal(got, ref.astype(np.float32)),
+                f"pool actor's NLLs differ from the driver's: max {diff}")
+        grants = {tuple(np.asarray(r["gpu_ids"]).tolist()) for r in rows}
+        visible = {str(r["cuda_visible_devices"]) for r in rows}
+        pids = {int(r["pid"]) for r in rows}
+        require(grants == {(0,)} and visible == {"0"} and len(pids) == 1
+                and os.getpid() not in pids,
+                f"pool actor: grants {grants}, CUDA_VISIBLE_DEVICES "
+                f"{visible}, pids {pids}")
+        launches = json.loads(str(rows[-1]["launches"]))
+        n_batches = AIR_ROWS // AIR_BATCH
+        require(launches == {"whole_attention_forward":
+                             cfg.n_layer * n_batches},
+                f"pool actor launched {launches}, want "
+                f"{cfg.n_layer * n_batches} whole-kv forwards only")
+        builds = [float(r["build_s"]) for r in rows]
+        t_first = min(float(r["t_enter"]) for r in rows)
+        # the spans gpu_profiler merged in the actor, in the driver's
+        # timeline: none was recorded here
+        dump = timeline.timeline_dump()
+        base = gpu_profiler._DEVICE_PID_BASE
+        spans = [e for e in dump if e.get("cat") == "predict"
+                 and e.get("ph") == "X" and e.get("pid", 0) >= base]
+        kernel_spans = [e for e in spans
+                        if "whole_fwd_wgmma" in e.get("name", "")]
+        local = len([e for e in timeline.collect()
+                     if e.get("cat") == "predict"])
+        require(local == local_before and len(kernel_spans)
+                == cfg.n_layer * n_batches,
+                f"timeline: {len(kernel_spans)} whole_fwd_wgmma spans "
+                f"under 'predict' (want {cfg.n_layer * n_batches}), "
+                f"{local - local_before} recorded in the driver")
+        doc = tracing.export_chrome([{
+            "trace_id": "air", "span_id": "predict", "name": "predict",
+            "kind": "task", "phase": "execute", "start_ts": span_start,
+            "end_ts": span_end, "pid": os.getpid(), "status": "ok"}])
+        exported = [e for e in doc if "whole_fwd_wgmma" in e.get("name", "")
+                    and e.get("cat") == "predict"]
+        require(len(exported) == len(kernel_spans),
+                f"export_chrome: {len(exported)} of {len(kernel_spans)} "
+                "whole_fwd_wgmma spans")
+        out["predict"] = {
+            "wall_s": predict_s,
+            "rows_per_s": AIR_ROWS / predict_s,
+            "tokens_per_s": AIR_ROWS * AIR_SEQ / predict_s,
+            "actor_first_call_s": t_first - span_start,
+            "build_s": max(builds),
+            "forward_s": sorted({float(r["forward_s"]) for r in rows}),
+            "pool_actor_pid": pids.pop(), "launches": launches,
+            "nll_bit_equal_to_driver": True,
+            "nll_mean": float(got.mean()),
+            "timeline_spans": len(spans),
+            "timeline_whole_fwd_spans": len(kernel_spans),
+            "timeline_whole_fwd_us": sorted(
+                e.get("dur", 0) for e in kernel_spans)[len(kernel_spans)
+                                                       // 2],
+            "export_chrome_events": len(doc)}
+
+        # (b) RLTrainer(PPO) in a GPU-granted train worker
+        class PPO(ppo.PPO):
+            """ppo.PPO whose checkpoint also carries its process's grant,
+            where its policy lives and the port's kernel launches there;
+            named PPO so that the checkpoint names the algorithm that
+            restore_algorithm rebuilds."""
+
+            def setup(self, config):
+                import importlib
+                import threading
+                # Adam's first step imports torch._dynamo (seconds in a
+                # fresh process): import it while the envs sample
+                threading.Thread(target=importlib.import_module,
+                                 args=("torch._dynamo",),
+                                 daemon=True).start()
+                super().setup(config)
+
+            def save_checkpoint(self):
+                import ray_tpu_torch as r
+                from ray_tpu_torch import kernels as ks
+                state = super().save_checkpoint()
+                state["probe"] = {
+                    "gpu_ids": r.get_gpu_ids(),
+                    "cuda_visible_devices": os.environ.get(
+                        "CUDA_VISIBLE_DEVICES"),
+                    "policy_device": str(next(
+                        self.get_policy().model.parameters()).device),
+                    "launches": ks.launch_counts(), "pid": os.getpid()}
+                return state
+
+        t0 = time.perf_counter()
+        result = RLTrainer(
+            algorithm=PPO, config=dict(AIR_PPO_CONFIG, device="cuda"),
+            num_iterations=2,
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True)).fit()
+        rl_s = time.perf_counter() - t0
+        require(result.error is None, f"RLTrainer: {result.error}")
+        m = result.metrics
+        d = result.checkpoint.to_dict()
+        state = pickle.loads(d["rllib_state.pkl"])
+        probe = state["probe"]
+        require(m["training_iteration"] == 2 and d["algorithm"] == "PPO"
+                and sorted(d) == ["algorithm", "config", "rllib_state.pkl"],
+                f"RLTrainer: {m} {sorted(d)}")
+        require(probe["gpu_ids"] == [0]
+                and probe["cuda_visible_devices"] == "0"
+                and probe["policy_device"].startswith("cuda")
+                and probe["launches"] == {} and probe["pid"] != os.getpid(),
+                f"RLTrainer's worker: {probe}")
+        kernels.reset_launch_counts()
+        algo = RLTrainer.restore_algorithm(result.checkpoint)
+        try:
+            policy = algo.get_policy()
+            weights = policy.get_weights()
+            saved = state["policy_state"]["weights"]
+            same = weights.keys() == saved.keys() and all(
+                weights[k].dtype == saved[k].dtype
+                and np.array_equal(weights[k], saved[k]) for k in saved)
+            device = str(next(policy.model.parameters()).device)
+            action = algo.compute_single_action(np.zeros(4, np.float32))
+        finally:
+            algo.cleanup()
+        here = kernels.launch_counts()
+        require(same and device.startswith("cuda") and action in (0, 1)
+                and here == {},
+                f"restore_algorithm: weights bit-equal {same}, on {device},"
+                f" action {action}, launches {here}")
+        out["rl_trainer"] = {
+            "algorithm": "PPO", "config": AIR_PPO_CONFIG, "wall_s": rl_s,
+            "training_iteration": m["training_iteration"],
+            "episode_reward_mean": m["episode_reward_mean"],
+            "worker": probe, "restored_device": device,
+            "restored_weights_bit_equal": True}
+    finally:
+        rt.shutdown()
+    rebuilt = [n for n, p in built.items() if os.path.getmtime(p) != mtimes[n]]
+    require(not rebuilt, f"kernel libraries rebuilt during phase 27: "
+            f"{rebuilt}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print("air", json.dumps(out), flush=True)
+    torch.cuda.empty_cache()
+    return {**out, "predict_launches": launches}
+
+
 def main() -> int:
     t0 = time.perf_counter()
     import torch
@@ -4901,6 +5295,13 @@ def main() -> int:
 
     mark("26")
 
+    # 27. AIR: GPT-2 small batch-scored through BatchPredictor in a
+    # GPU-granted Dataset pool actor, its kernels' spans in the driver's
+    # timeline through gpu_profiler; RLTrainer(PPO) on the card
+    air = air_phase(name, card)
+
+    mark("27")
+
     # 13. summary
     def kernel_entry(case, kname, source, line, by_path):
         """``by_path``: {path: launches of ``kname`` in its counted
@@ -4926,7 +5327,8 @@ def main() -> int:
                   ("checkpoint_train", ckpt["checkpoint"]["launches"]),
                   ("runtime_actor_train", runtime["train_launches"]),
                   ("framework_gpt2_train", framework["gpt2_launches"]),
-                  ("tune_gpt2_trials", tuned["gpt2_launches"]))
+                  ("tune_gpt2_trials", tuned["gpt2_launches"]),
+                  ("air_batch_predict", air["predict_launches"]))
     streaming_paths = (("llama_train", llama_counts),
                        ("mesh_gpt2_exact", mesh_counts["gpt2_exact"]),
                        ("ring_schedule", ring["launches"]),

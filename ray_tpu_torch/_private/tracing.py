@@ -573,8 +573,8 @@ def aggregate_critical_path(traces: List[List[Dict[str, Any]]]
 def chrome_events(spans: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
     """Spans -> chrome-trace 'X' events (one row per process, nested by
     tree depth), wall-clock microseconds — the same time axis
-    ``util/timeline.py`` and the XLA device spans merged by
-    ``util/tpu_profiler.py`` already use, so the outputs concatenate
+    ``util/timeline.py`` and the CUDA device spans merged by
+    ``util/gpu_profiler.py`` already use, so the outputs concatenate
     into one chrome://tracing document."""
     depths = _depths(spans)
     out = []
@@ -595,3 +595,33 @@ def chrome_events(spans: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
                      "kind": s.get("kind")},
         })
     return [{k: v for k, v in e.items() if v is not None} for e in out]
+
+
+def export_chrome(spans: List[Dict[str, Any]],
+                  device_events: Optional[List[Dict[str, Any]]] = None,
+                  pad_s: float = 0.05) -> List[Dict[str, Any]]:
+    """One chrome-trace document for a trace: its spans plus any device
+    spans (``gpu_profiler`` rows in the merged timeline, pids >=
+    ``_DEVICE_PID_BASE``) that overlap the trace window. Pass
+    ``device_events=None`` to pull the merged timeline automatically."""
+    out = chrome_events(spans)
+    if not out:
+        return out
+    t0 = min(e["ts"] for e in out) - pad_s * 1e6
+    t1 = max(e["ts"] + e.get("dur", 0) for e in out) + pad_s * 1e6
+    if device_events is None:
+        try:
+            from ray_tpu_torch.util import timeline
+            device_events = timeline.timeline_dump()
+        except Exception:
+            device_events = []
+    from ray_tpu_torch.util.gpu_profiler import _DEVICE_PID_BASE
+    for e in device_events or ():
+        pid = e.get("pid", 0)
+        if not isinstance(pid, int) or pid < _DEVICE_PID_BASE:
+            continue
+        if e.get("ph") == "M":  # process_name rows label the device lanes
+            out.append(e)
+        elif e.get("ph") == "X" and t0 <= e.get("ts", 0) <= t1:
+            out.append(e)
+    return out

@@ -239,10 +239,19 @@ def _store_actor_result(w, state: PendingTaskState, ret: Dict[str, Any]):
 
 
 def _store_actor_error(w, state: PendingTaskState, e: Exception):
+    """A call that failed in transport or with its actor's death. A
+    return the actor already sealed in this node's plasma resolves to
+    its value: ``wait`` reports such a return ready before the reply
+    arrives, so a caller may kill the actor (a Dataset actor pool does,
+    once every block is ready) and lose the reply, not the result."""
     _release_submitted_args(w, state)
     payload = serialization.serialize_error(e).to_bytes()
     for oid in state.return_ids:
-        w.memory_store.put(oid, payload)
+        if w.plasma is not None and w.plasma.contains(oid):
+            w.memory_store.put(oid, serialization.serialize(
+                worker_mod._PlasmaIndirect(w.node_id)).to_bytes())
+        else:
+            w.memory_store.put(oid, payload)
     state.done = True
     state.result_event.set()
 

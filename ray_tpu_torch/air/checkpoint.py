@@ -105,10 +105,11 @@ class Checkpoint:
     def with_preprocessor(self, preprocessor) -> "Checkpoint":
         """Attach a fitted preprocessor so inference applies the exact
         training-time transform (the preprocessor rides the checkpoint,
-        pickled; the JAX package uses cloudpickle, whose output pickle
-        reads)."""
+        cloudpickled as in the JAX package, so a ``BatchMapper`` over a
+        lambda or a script's function travels too; pickle reads it)."""
+        import cloudpickle
         data = self.to_dict()
-        data[self._PREPROCESSOR_KEY] = pickle.dumps(preprocessor)
+        data[self._PREPROCESSOR_KEY] = cloudpickle.dumps(preprocessor)
         return Checkpoint.from_dict(data)
 
     def get_preprocessor(self):

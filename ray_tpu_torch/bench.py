@@ -171,7 +171,8 @@ def _timed_run(step, warmup: int, windows: int, per_window: int,
     return out
 
 
-def resnet_loop(device="cuda", make_feed=None, profile=None) -> dict:
+def resnet_loop(device="cuda", make_feed=None, profile=None,
+                windows=None) -> dict:
     """ResNet-50 training throughput, ``bench.py:bench_loop``'s keys.
 
     On ``cuda``: batch 256 at 224 x 224, bf16, 3 warm-up steps, best of
@@ -181,7 +182,7 @@ def resnet_loop(device="cuda", make_feed=None, profile=None) -> dict:
     ``np.random.default_rng(0)``. ``make_feed(trainer, batch_size)``:
     an endless iterator of device batches in place of the resident one
     (the framework path's feed, ``_train_loop_per_worker``). ``profile``:
-    see ``_timed_run``."""
+    see ``_timed_run``. ``windows``: the timed windows (default above)."""
     from ray_tpu_torch.models.resnet import create_resnet
     from ray_tpu_torch.parallel.mesh import MeshSpec
     from ray_tpu_torch.train.spmd import (make_image_classifier_trainer,
@@ -191,10 +192,11 @@ def resnet_loop(device="cuda", make_feed=None, profile=None) -> dict:
     n_dev = _n_chips()
     if dev.type == "cuda":
         batch, image_size, dtype = 256 * n_dev, 224, torch.bfloat16
-        windows, per_window, warmup = 8, 10, 3
+        n_windows, per_window, warmup = 8, 10, 3
     else:
         batch, image_size, dtype = 8 * n_dev, 32, torch.float32
-        windows, per_window, warmup = 1, 3, 1
+        n_windows, per_window, warmup = 1, 3, 1
+    windows = windows or n_windows
 
     t0 = time.perf_counter()
     model = create_resnet("resnet50", num_classes=1000, dtype=dtype)
@@ -265,7 +267,8 @@ def gpt2_train_shape(dev: torch.device):
                       dtype=torch.float32), 2, 32
 
 
-def gpt2_loop(device="cuda", profile=None, config=None) -> dict:
+def gpt2_loop(device="cuda", profile=None, config=None,
+              windows=None) -> dict:
     """GPT-2 small train-step throughput, ``bench.py:gpt2_loop``'s keys.
 
     On ``cuda``: GPT-2 small (flash attention, bf16), batch 16 x 1024,
@@ -273,7 +276,8 @@ def gpt2_loop(device="cuda", profile=None, config=None) -> dict:
     GPT-2 (2 layers, 64 wide, plain attention, f32), batch 2 x 32, 1
     warm-up step, 1 window of 2. Seeded tokens, repeated. ``config``
     (a ``GPT2Config``) replaces the model's configuration (the batch
-    and the windows stay). ``profile``: see ``_timed_run``."""
+    and the windows stay). ``profile``: see ``_timed_run``. ``windows``:
+    the timed windows (default above)."""
     from ray_tpu_torch.parallel.mesh import MeshSpec
     from ray_tpu_torch.train.spmd import make_causal_lm_trainer, put_batch
 
@@ -282,9 +286,10 @@ def gpt2_loop(device="cuda", profile=None, config=None) -> dict:
     cfg, batch, seq = gpt2_train_shape(dev)
     batch *= n_dev
     if dev.type == "cuda":
-        windows, per_window, warmup = 6, 5, 2
+        n_windows, per_window, warmup = 6, 5, 2
     else:
-        windows, per_window, warmup = 1, 2, 1
+        n_windows, per_window, warmup = 1, 2, 1
+    windows = windows or n_windows
     cfg = config or cfg
 
     trainer = make_causal_lm_trainer(cfg, spec=MeshSpec(dp=n_dev),
@@ -619,13 +624,13 @@ def _same_weights(a, b) -> bool:
         a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in a)
 
 
-def ppo_loop(device="cuda", profile=None) -> dict:
+def ppo_loop(device="cuda", profile=None, timed=None) -> dict:
     """PPO-Atari throughput through ``Algorithm.step``
     (``ppo_atari_config``) in the one-local-worker form: one worker of
     50 envs in the learner's process on ``cuda`` (4 on ``cpu``).
 
-    One warm-up iteration, then timed ones (3 on ``cuda``, 1 on
-    ``cpu``); ``ppo_launches`` counts the kernels' launches in them (the
+    One warm-up iteration, then ``timed`` ones (default 3 on ``cuda``, 1
+    on ``cpu``); ``ppo_launches`` counts the kernels' launches in them (the
     counts are read, not zeroed, so a caller's count across the loop
     stays whole). ``ppo_env_steps_per_sec`` is the median of the timed
     iterations' ``env_steps_per_sec`` (``Algorithm.step``'s: env steps
@@ -638,7 +643,7 @@ def ppo_loop(device="cuda", profile=None) -> dict:
     dev = resolve_device(device)
     n_envs = 50 if dev.type == "cuda" else 4
     return _ppo_run("ppo", ppo_atari_config(dev, 0, n_envs), dev,
-                    3 if dev.type == "cuda" else 1, profile)
+                    timed or (3 if dev.type == "cuda" else 1), profile)
 
 
 def ppo_remote_loop(device="cuda", profile=None, timed=None) -> dict:
@@ -1010,11 +1015,11 @@ def dqn_atari_config(device="cuda"):
             .resources(device=str(dev)).debugging(seed=0))
 
 
-def dqn_loop(device="cuda", profile=None) -> dict:
+def dqn_loop(device="cuda", profile=None, timed=None) -> dict:
     """DQN-Atari throughput through ``Algorithm.step``
     (``dqn_atari_config``): iterations until the buffer holds
     ``learning_starts`` rows, one warm-up iteration that learns, then
-    timed ones (200 on ``cuda``, 8 on ``cpu``). Keys as
+    ``timed`` ones (default 200 on ``cuda``, 8 on ``cpu``). Keys as
     ``ppo_loop``'s with the prefix ``dqn_``: the median env steps/s and
     the rate over the whole timed run, DQN's ``timers`` (sample, replay,
     learn), the losses, weights that moved, the replay buffer's size,
@@ -1027,7 +1032,7 @@ def dqn_loop(device="cuda", profile=None) -> dict:
     policy = algo.get_policy()
     cfg = algo.config
     w0 = policy.get_weights()
-    timed = 200 if dev.type == "cuda" else 8
+    timed = timed or (200 if dev.type == "cuda" else 8)
     t0 = time.perf_counter()
     fill = 0
     while len(algo.replay) < cfg["learning_starts"]:

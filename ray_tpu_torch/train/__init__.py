@@ -4,7 +4,10 @@ The train gang: ``DataParallelTrainer`` / ``TorchTrainer`` run a
 train_func in each of ``ScalingConfig.num_workers`` actors (one GPU each
 with ``use_gpu``), joined by a ``torch.distributed`` group
 (``TorchConfig``); the ``session`` reports results, hands out dataset
-shards and checkpoints. The training steps themselves
+shards and checkpoints. ``TransformersTrainer``, ``LightningTrainer``,
+``SklearnTrainer``, the GBDT trainers and ``RLTrainer`` run their
+framework's fit in that gang; each imports its framework only inside
+the worker. The training steps themselves
 (``spmd.make_causal_lm_trainer``, ``spmd.make_pipelined_lm_trainer``,
 ``spmd.make_image_classifier_trainer``) run on one device or a mesh.
 """
@@ -23,8 +26,16 @@ from ray_tpu_torch.air.config import (  # noqa: F401
     CheckpointConfig, FailureConfig, RunConfig, ScalingConfig)
 from ray_tpu_torch.checkpoint import (  # noqa: F401
     CheckpointManager, PendingCheckpoint)
+from ray_tpu_torch.train.gbdt_trainer import (  # noqa: F401
+    GBDTTrainer, LightGBMTrainer, SklearnGBDTTrainer, XGBoostTrainer)
 from ray_tpu_torch.train.torch_trainer import (  # noqa: F401
     TorchConfig, TorchTrainer, prepare_data_loader, prepare_model)
+from ray_tpu_torch.train.transformers_trainer import (  # noqa: F401
+    HuggingFaceTrainer, TransformersTrainer)
+from ray_tpu_torch.train.sklearn_trainer import SklearnTrainer  # noqa: F401
+from ray_tpu_torch.train.lightning_trainer import (  # noqa: F401
+    LightningTrainer)
+from ray_tpu_torch.train.rl_trainer import RLTrainer  # noqa: F401
 
 
 def __getattr__(name):

@@ -1,19 +1,29 @@
 """The port stands alone: no module of ``ray_tpu_torch/`` and not
 ``chip_smoke.py`` imports JAX, flax, optax, the JAX package or
 ``transformers`` (the card machine has none of them; the HF imports
-read local state_dicts).
+read local state_dicts). One import of ``transformers`` is allowed:
+inside the train loop that ``train/transformers_trainer.py``'s
+``_make_train_loop`` returns, which runs only in a train worker of a
+``TransformersTrainer`` (``ALLOWED``).
 
 Checked on the source (AST), not on ``sys.modules``: a process may
-have JAX loaded for reasons of its own.
+have JAX loaded for reasons of its own. A fresh interpreter then
+imports ``ray_tpu_torch.train``, ``.air`` and ``.util`` with sklearn,
+transformers and lightning made unimportable, and must not load torch.
 """
 
 import ast
 import os
+import subprocess
+import sys
 
 import pytest
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ray_tpu", "transformers")
+# (file, enclosing functions, module): the forbidden imports allowed
+ALLOWED = {("ray_tpu_torch/train/transformers_trainer.py",
+            ("_make_train_loop", "_loop"), "transformers")}
 
 
 def _port_files():
@@ -43,6 +53,32 @@ def _imported_roots(path):
 def _forbidden(module):
     root = module.split(".")[0]
     return root in FORBIDDEN
+
+
+def _enclosing_functions(path):
+    """{lineno of an import: the names of the functions around it}."""
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), filename=path)
+    out = {}
+
+    def visit(node, funcs):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            funcs = funcs + (node.name,)
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            out[node.lineno] = funcs
+        for child in ast.iter_child_nodes(node):
+            visit(child, funcs)
+
+    visit(tree, ())
+    return out
+
+
+def _violations(path):
+    rel = os.path.relpath(path, REPO_ROOT)
+    funcs = _enclosing_functions(path)
+    return [f"{rel}:{line}: {mod}" for line, mod in _imported_roots(path)
+            if _forbidden(mod)
+            and (rel, funcs.get(line), mod) not in ALLOWED]
 
 
 def test_port_files_found():
@@ -114,15 +150,50 @@ def test_port_files_found():
                 "_private/tracing", "_private/usage/__init__",
                 "_private/node"):
         assert f"ray_tpu_torch/{mod}.py" in rel
+    for mod in ("air/preprocessor", "air/batch_predictor",
+                "train/gbdt_trainer", "train/sklearn_trainer",
+                "train/rl_trainer", "train/transformers_trainer",
+                "train/lightning_trainer", "util/gpu_profiler",
+                "util/actor_pool", "util/queue"):
+        assert f"ray_tpu_torch/{mod}.py" in rel
     assert len(files) > 10
 
 
 @pytest.mark.parametrize("path", _port_files(),
                          ids=lambda p: os.path.relpath(p, REPO_ROOT))
 def test_no_jax_or_ray_tpu_imports(path):
-    bad = [f"{os.path.relpath(path, REPO_ROOT)}:{line}: {mod}"
-           for line, mod in _imported_roots(path) if _forbidden(mod)]
-    assert bad == []
+    assert _violations(path) == []
+
+
+def test_transformers_only_in_the_hf_train_loop():
+    """The one allowed import is there, inside the loop, and nowhere
+    else in the file."""
+    path = os.path.join(REPO_ROOT, "ray_tpu_torch", "train",
+                        "transformers_trainer.py")
+    funcs = _enclosing_functions(path)
+    found = [(funcs[line], mod) for line, mod in _imported_roots(path)
+             if _forbidden(mod)]
+    assert found == [(("_make_train_loop", "_loop"), "transformers")]
+
+
+def test_train_air_util_import_without_optional_deps():
+    code = (
+        "import sys\n"
+        "for m in ('sklearn', 'transformers', 'pytorch_lightning',"
+        " 'lightning'):\n"
+        "    sys.modules[m] = None\n"
+        "import ray_tpu_torch.train, ray_tpu_torch.air, ray_tpu_torch.util\n"
+        "from ray_tpu_torch.train import (RLTrainer, SklearnTrainer,"
+        " TransformersTrainer, LightningTrainer, XGBoostTrainer)\n"
+        "from ray_tpu_torch.air import BatchPredictor, TorchPredictor\n"
+        "from ray_tpu_torch.util import ActorPool, Queue\n"
+        "print('torch' in sys.modules)\n")
+    env = dict(os.environ, PYTHONPATH=REPO_ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "False"
 
 
 def test_checker_catches_forbidden_imports(tmp_path):
@@ -132,3 +203,18 @@ def test_checker_catches_forbidden_imports(tmp_path):
                  "import importlib\nimportlib.import_module('optax')\n")
     found = [m for _, m in _imported_roots(str(p)) if _forbidden(m)]
     assert found == ["jax.numpy", "ray_tpu.ops", "flax", "optax"]
+
+
+def test_checker_allows_transformers_only_where_listed(tmp_path):
+    p = tmp_path / "m.py"
+    p.write_text("def _make_train_loop(f):\n"
+                 "    def _loop(config):\n"
+                 "        import transformers\n"
+                 "    return _loop\n"
+                 "import transformers\n")
+    funcs = _enclosing_functions(str(p))
+    assert funcs == {3: ("_make_train_loop", "_loop"), 5: ()}
+    assert [(funcs[line], m) for line, m in _imported_roots(str(p))
+            if _forbidden(m)
+            and ("ray_tpu_torch/train/transformers_trainer.py",
+                 funcs[line], m) not in ALLOWED] == [((), "transformers")]
