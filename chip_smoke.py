@@ -326,8 +326,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
               saved state; 3 saves leave 2 committed, verified steps;
               12 launches of each whole-kv kernel a step; then
               bench.ckpt_loop (sync against async saves between real
-              steps). (b) bench.disagg_loop on phase 4's prompts and
-              weights: two LLMServers, __llm_prefill__ then
+              steps; one save of each, CUT_SAVES). (b)
+              bench.disagg_loop on phase 4's prompts and weights: two
+              LLMServers, __llm_prefill__ then
               __llm_adopt__; each prompt alone gives the unified
               server's tokens exactly; concurrently, each stream equals
               phase 4's or leaves it at a near-tie (NEAR_TIE_FACTOR),
@@ -437,8 +438,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
               (a) tune.run of tune_gpt2_trial, a function trainable that
               trains phase 6's GPT-2 small (bench.gpt2_train_shape,
               init(0), gpt2_steps' batch) at config["learning_rate"],
-              one step an iteration, a ShardedCheckpoint of the state on
-              the host every 2 iterations, over a grid of four rates
+              one step an iteration (the 3e-4 trial also saves a
+              ShardedCheckpoint of the state on the host at iteration
+              2: CUT_SAVES), over a grid of four rates
               (TUNE_LRS, the trainer's default 3e-4 first) under
               ASHAScheduler(metric="loss", mode="min", max_t=4,
               grace_period=1, reduction_factor=2), each trial
@@ -497,9 +499,37 @@ Phases, each of which fails the run (non-zero exit, no result line):
               (start, import, the checkpoint's get, the params to the
               card), the model's build, each forward, the predict wall
               time, rows/s and tokens/s, and the RLTrainer's wall time.
+28. cluster — a two-raylet Cluster (_private/cluster_utils.py): the
+              head (2 CPUs, num_gpus=0, a "head" resource) and an added
+              node (2 CPUs, num_gpus=1), this process connected to the
+              head. Phase 27's 64 rows scored by the graph
+              scorer.score.bind(prep.split.bind(inp)): DagPrep (numpy
+              only, num_cpus=1 on the head) splits a [16, 1025] int64
+              batch, DagScorer (num_gpus=1, named DAG_SCORER) builds
+              GPT-2 small on its card as phase 27's driver does and
+              returns each row's mean NLL (f32; bf16 compute) with its
+              launch counts; the four batches dynamically
+              (dag.execute), then compiled (dag.compile()), then one
+              batch DAG_TIMED times on each path (p50, p99). Checks: two
+              alive nodes, the card on the added one; the scorer on the
+              added node with grant [0], Prep on the head without
+              torch; the graph compiled, not degraded, no execution
+              re-run on the dynamic path (CompiledDAG.stats()); both
+              batch hops through ring slots (the driver's ring into the
+              head's store, Prep's slot read from the added raylet:
+              dag.channel.ring_counts() in each process); the 64 NLLs
+              bit-equal on both paths and to phase 27's driver forward;
+              #1 launched n_layer = 12 times a batch in the scorer and
+              nothing else. (b) a ClientServer in this process and a
+              ray:// driver in a fresh one: get_actor(DAG_SCORER), one
+              batch scored bit-equal to (a)'s, a put and get of
+              CLIENT_PUT_BYTES, torch and the kernels never loaded
+              there, 12 more launches in the scorer. (c)
+              cluster.shutdown(), then stop_leftovers finds no process;
+              no kernel library rebuilt.
 13. summary — nvidia-smi's card line, the kernels line (each kernel's
               launches by the path that counted them: phases 4, 5b, 6,
-              8, 12, 14, 21, 22, 23, 25, 26 and 27; paged decode's entry also
+              8, 12, 14, 21, 22, 23, 25, 26, 27 and 28; paged decode's entry also
               carries its Llama serve case, the streaming kernels' the
               ring's), then the device line, last.
 
@@ -646,6 +676,12 @@ CUT_TIMED = {"ppo": 1, "impala": 2, "dqn": 25, "sac": 50, "td3": 50,
 # for the same reason (each a window of 5 and 10 steps); phase 6's stay
 # whole: phase 23 holds its train worker's steps to all of them
 CUT_WINDOWS = {"mesh_gpt2": 2, "mesh_resnet": 3, "ring_gpt2": 2}
+# saves past the first of each kind, cut to make room for phase 28:
+# bench.ckpt_loop's saves per mode in phase 21 (the bench's 2), and
+# phase 26's GPT-2 checkpoints: one a Tune run, by its trial at the
+# default rate (TUNE_LRS[0]) at iteration TUNE_CKPT_EVERY (before: every
+# trial, every TUNE_CKPT_EVERY iterations)
+CUT_SAVES = {"ckpt_loop": 1, "tune_gpt2": 1}
 # phase 26: Tune on the runtime. The sweep's learning rates, the
 # trainer's default (3e-4) first: after the first update the loss falls
 # with the rate over this range, so ASHA's rung at iteration 2 stops the
@@ -673,6 +709,12 @@ AIR_MODELS: dict = {}
 AIR_PPO_CONFIG = {"env": "CartPole-v1", "num_workers": 0,
                   "train_batch_size": 1000, "sgd_minibatch_size": 250,
                   "num_sgd_iter": 4}
+# phase 28: phase 27's rows scored by a compiled DAG across two raylets.
+# Executions of one batch timed on each path; the scorer's actor name
+# (a ray:// driver finds it by it); the bytes the driver puts and gets
+DAG_TIMED = 20
+DAG_SCORER = "phase28_scorer"
+CLIENT_PUT_BYTES = 1 << 20
 # the PPO learn phase's groups: cuDNN's convs, the products (the
 # 7,744 x 512 Dense and the heads), Adam's foreach kernels, the
 # host-to-device copies of each minibatch, then the rest
@@ -2892,7 +2934,13 @@ def checkpoint_phase(name, card) -> dict:
     print("checkpoint", json.dumps(res), flush=True)
     del state, restored, trainer, batches
     torch.cuda.empty_cache()
-    c = bench.ckpt_loop()
+    c = bench.ckpt_loop(saves=CUT_SAVES["ckpt_loop"])
+    # what a second save of each mode would have taken (the depth cut),
+    # reckoned from this run's save: its write and commit, and the step
+    # before it
+    c["ckpt_cut_s_reckoned"] = (2 - CUT_SAVES["ckpt_loop"]) * sum(
+        c[f"ckpt_{m}_write_ms_per_save"] + c[f"ckpt_{m}_commit_ms_per_save"]
+        + c["ckpt_step_ms_no_write"] for m in ("sync", "async")) / 1e3
     print("ckpt_loop", json.dumps({**c, "device": name, "nvidia_smi": card}),
           flush=True)
     require(c["ckpt_async_blocked_ms_per_save"]
@@ -3988,7 +4036,9 @@ def tune_gpt2_trial(config):
     ``config["learning_rate"]`` on ``config["device"]``, one step an
     iteration up to TUNE_MAX_T,
     with a ``ShardedCheckpoint`` of the state (copied to the host, under
-    ``config["scratch"]``) every TUNE_CKPT_EVERY steps; it resumes from
+    ``config["scratch"]``) every TUNE_CKPT_EVERY steps, the first
+    CUT_SAVES["tune_gpt2"] of them, at the default rate only; it resumes
+    from
     the session's checkpoint. Each report carries the loss, the grad
     norm, the step's host time (closed by the loss's read), the wall
     clock of the function's start, of its trainer's readiness and of the
@@ -4060,7 +4110,9 @@ def tune_gpt2_trial(config):
         it = state["step"]
         launches = kernels.launch_counts()
         ckpt, ckpt_s = None, 0.0
-        if it % TUNE_CKPT_EVERY == 0:
+        if it % TUNE_CKPT_EVERY == 0 and \
+                it // TUNE_CKPT_EVERY <= CUT_SAVES["tune_gpt2"] and \
+                config["learning_rate"] == TUNE_LRS[0]:
             path = os.path.join(config["scratch"],
                                 f"{trial}-step{it}-pid{os.getpid()}")
             ShardedCheckpoint(path).save(state)
@@ -4280,7 +4332,9 @@ def tune_phase(name, card, driver_steps=None) -> dict:
         hold_one_at_a_time("sweep", rows_a)
         ckpts_a = {t.config["learning_rate"]: len(t.ckpt_manager.checkpoints)
                    for t in sweep.trials}
-        require(all(n == iters[lr] // TUNE_CKPT_EVERY
+        require(all(n == (min(iters[lr] // TUNE_CKPT_EVERY,
+                              CUT_SAVES["tune_gpt2"])
+                          if lr == TUNE_LRS[0] else 0)
                     for lr, n in ckpts_a.items()),
                 f"sweep: checkpoints kept {ckpts_a} for iterations {iters}")
         launches_a = {}
@@ -4455,8 +4509,27 @@ def tune_phase(name, card, driver_steps=None) -> dict:
     ppo_out = {"config": "ppo_atari_config('cuda', 0, 50)",
                "trials": ppo_rows, "timeline": timeline(rows_c),
                "wall_s": ppo_s}
+
+    def cut_s(trials, clk):
+        """What the saves CUT_SAVES dropped would have taken in these
+        trials (the depth cut): each trial's iterations that saved
+        before (every TUNE_CKPT_EVERY) and save no more, each reckoned as
+        the run's kept save: its write and its result's lag to the
+        driver (the persist)."""
+        kept, dropped = [], 0
+        for t in trials:
+            seen = clk.results.get(t.trial_id, [])
+            kept += [seen[i] - r["step_end"] for i, r in enumerate(t.results)
+                     if r["ckpt_write_s"] and i < len(seen)]
+            dropped += sum(1 for r in t.results
+                           if r["step"] % TUNE_CKPT_EVERY == 0
+                           and not r["ckpt_write_s"])
+        return dropped * kept[0] if kept else 0.0
+
     out.update({"sweep": sweep_out, "restore": restore_out,
-                "ppo": ppo_out, "phase_s": time.perf_counter() - t_phase})
+                "ppo": ppo_out, "phase_s": time.perf_counter() - t_phase,
+                "ckpt_cut_s_reckoned": cut_s(sweep.trials, clock)
+                + cut_s(restore.trials, clock_b)})
     print("tune", json.dumps(out), flush=True)
     torch.cuda.empty_cache()
     total = dict(launches_a)
@@ -4588,14 +4661,9 @@ def air_phase(name, card) -> dict:
     # the params: flax's initialisers drawn on the card from SEED, kept
     # on the host in f32 for the checkpoint
     t0 = time.perf_counter()
-    with torch.device("cuda"):
-        init = gpt2.GPT2(cfg)
-        init.init_weights(torch.Generator(device="cuda").manual_seed(SEED))
-    on_card = {k: v.detach() for k, v in init.state_dict().items()}
+    on_card = air_card_params()
     params = {k: v.cpu().numpy() for k, v in on_card.items()}
-    del init
-    tokens = np.random.default_rng(SEED).integers(
-        0, cfg.vocab_size, (AIR_ROWS, AIR_SEQ + 1), dtype=np.int64)
+    tokens = air_tokens()
     params_bytes = sum(a.nbytes for a in params.values())
     out = {"device": name, "nvidia_smi": card, "model": "gpt2-small",
            "rows": AIR_ROWS, "seq_len": AIR_SEQ, "batch": AIR_BATCH,
@@ -4795,7 +4863,335 @@ def air_phase(name, card) -> dict:
     out["phase_s"] = time.perf_counter() - t_phase
     print("air", json.dumps(out), flush=True)
     torch.cuda.empty_cache()
-    return {**out, "predict_launches": launches}
+    return {**out, "predict_launches": launches, "driver_nll": ref}
+
+
+def air_tokens():
+    """Phase 27's rows: AIR_ROWS x (AIR_SEQ + 1) GPT-2 token ids from
+    SEED."""
+    from ray_tpu_torch.models import gpt2
+    return np.random.default_rng(SEED).integers(
+        0, gpt2.GPT2Config.small().vocab_size, (AIR_ROWS, AIR_SEQ + 1),
+        dtype=np.int64)
+
+
+def air_card_params():
+    """GPT-2 small's state_dict on the card: flax's initialisers drawn
+    there from SEED (phase 27's params)."""
+    import torch
+    from ray_tpu_torch.models import gpt2
+    with torch.device("cuda"):
+        init = gpt2.GPT2(gpt2.GPT2Config.small())
+        init.init_weights(torch.Generator(device="cuda").manual_seed(SEED))
+    return {k: v.detach() for k, v in init.state_dict().items()}
+
+
+def air_card_model():
+    """GPT-2 small as phase 27's driver scores with it."""
+    return air_model(air_card_params())
+
+
+def air_pair_nll(model, input_ids, labels):
+    """Each row's mean NLL, as phase 27's driver computes it: the same
+    tensors and forward."""
+    import torch
+    with torch.inference_mode():
+        return gpt2_row_nll(
+            model, torch.as_tensor(np.asarray(input_ids)).to("cuda"),
+            torch.as_tensor(np.asarray(labels)).to("cuda")).cpu().numpy()
+
+
+def air_batch_nll(model, batch):
+    """air_pair_nll of one batch of phase 27's rows through its mapper."""
+    b = air_split_tokens({"tokens": batch})
+    return air_pair_nll(model, b["input_ids"], b["labels"])
+
+
+class DagPrep:
+    """Phase 28's first stage (numpy only: its process never loads
+    torch): a batch of rows into input_ids and the next-token labels."""
+
+    def split(self, batch):
+        b = air_split_tokens({"tokens": batch})
+        return b["input_ids"], b["labels"]
+
+    def probe(self):
+        import ray_tpu_torch as rt
+        from ray_tpu_torch.dag import channel
+        return {"node_id": rt.get_runtime_context().get_node_id(),
+                "pid": os.getpid(), "ring": channel.ring_counts(),
+                "torch_loaded": "torch" in sys.modules}
+
+
+class DagScorer:
+    """Phase 28's GPU stage: GPT-2 small built on its card as phase 27's
+    driver builds it (no weight is put), each row's mean NLL of a split
+    batch (bf16 compute, f32 NLLs) with the port's launch counts in
+    this process so far."""
+
+    def __init__(self):
+        import torch
+        torch.backends.cuda.matmul.allow_tf32 = False   # as the driver's
+        torch.backends.cudnn.allow_tf32 = False
+        t0 = time.perf_counter()
+        self.model = air_card_model()
+        torch.cuda.synchronize()
+        self.build_s = time.perf_counter() - t0
+
+    def score(self, xy):
+        from ray_tpu_torch import kernels
+        x, y = xy
+        nll = air_pair_nll(self.model, x, y)
+        return {"nll": nll.astype(np.float32),
+                "launches": kernels.launch_counts()}
+
+    def probe(self):
+        import ray_tpu_torch as rt
+        from ray_tpu_torch import kernels
+        from ray_tpu_torch.dag import channel
+        return {"node_id": rt.get_runtime_context().get_node_id(),
+                "gpu_ids": rt.get_gpu_ids(), "pid": os.getpid(),
+                "cuda_visible_devices": os.environ.get(
+                    "CUDA_VISIBLE_DEVICES"),
+                "build_s": self.build_s, "ring": channel.ring_counts(),
+                "launches": kernels.launch_counts()}
+
+
+# phase 28's ray:// driver: a fresh process that scores one batch of
+# phase 27's rows through the named scorer, puts and gets
+# CLIENT_PUT_BYTES, and says whether it loaded torch or the kernels
+CLIENT_DRIVER = """
+import json, sys, time
+import numpy as np
+import ray_tpu_torch as rt
+t0 = time.perf_counter()
+rt.init("ray://127.0.0.1:{port}")
+h = rt.get_actor("{name}")
+rows = np.random.default_rng({seed}).integers(
+    0, {vocab}, ({rows}, {seq} + 1), dtype=np.int64)[:{batch}]
+t1 = time.perf_counter()
+out = rt.get(h.score.remote((rows[:, :-1], rows[:, 1:])), timeout=300)
+t2 = time.perf_counter()
+blob = np.random.default_rng(1).integers(0, 256, {nbytes}, dtype=np.uint8)
+back = rt.get(rt.put(blob), timeout=120)
+t3 = time.perf_counter()
+rt.shutdown()
+print("CLIENT " + json.dumps({{
+    "nll": [float(v) for v in out["nll"]], "launches": out["launches"],
+    "put_get_equal": bool(np.array_equal(back, blob)),
+    "torch_loaded": "torch" in sys.modules,
+    "kernels_loaded": "ray_tpu_torch.kernels" in sys.modules,
+    "connect_s": t1 - t0, "score_s": t2 - t1, "put_get_s": t3 - t2}}))
+"""
+
+
+def pct(ms, q) -> float:
+    return float(np.percentile(np.asarray(ms), q))
+
+
+def cluster_phase(name, card, driver_nll=None) -> dict:
+    """Phase 28 (module docstring): a two-raylet Cluster, phase 27's rows
+    scored by a compiled DAG whose GPU stage runs on the added raylet,
+    and by a ray:// driver. ``driver_nll``: phase 27's driver NLLs (else
+    computed here the same way). Returns the printed measurements and
+    the scorer's launches by path."""
+    import gc
+
+    import torch
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import kernels
+    from ray_tpu_torch._private.cluster_utils import Cluster
+    from ray_tpu_torch.dag import InputNode
+    from ray_tpu_torch.dag import channel
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.util.client.server import ClientServer
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    built = {n: kernels._lib_path(n) for n in kernels.sources()}
+    mtimes = {n: os.path.getmtime(p) for n, p in built.items()}
+    tokens = air_tokens()
+    batches = [tokens[s:s + AIR_BATCH] for s in range(0, AIR_ROWS, AIR_BATCH)]
+    if driver_nll is None:
+        model = air_card_model()
+        driver_nll = np.concatenate([air_batch_nll(model, b)
+                                     for b in batches])
+        del model
+        torch.cuda.empty_cache()
+    driver_nll = np.asarray(driver_nll, np.float32)
+    n_layer = gpt2.GPT2Config.small().n_layer
+    out = {"device": name, "nvidia_smi": card, "rows": AIR_ROWS,
+           "batch": AIR_BATCH, "seq_len": AIR_SEQ}
+
+    t0 = time.perf_counter()
+    cluster = Cluster(head_node_args={"num_cpus": 2, "num_gpus": 0,
+                                      "resources": {"head": 1}})
+    added = cluster.add_node(num_cpus=2, num_gpus=1)
+    cluster.connect()
+    cluster.wait_for_nodes()
+    out["cluster_up_s"] = time.perf_counter() - t0
+    srv = None
+    try:
+        alive = [n for n in rt.nodes() if n["alive"]]
+        gpus = {n["node_id"]: n["resources"].get("GPU", 0.0) for n in alive}
+        here = rt.get_runtime_context().get_node_id()
+        require(len(alive) == 2 and gpus.get(added["node_id"]) == 1.0
+                and sum(gpus.values()) == 1.0
+                and here != added["node_id"],
+                f"cluster: nodes {gpus}, the driver on {here}, the added "
+                f"node {added['node_id']}")
+
+        # (a) the graph: Prep on the head, the scorer on the added node
+        Prep = rt.remote(num_cpus=1, resources={"head": 1})(DagPrep)
+        Scorer = rt.remote(num_gpus=1)(DagScorer)
+        with InputNode() as inp:
+            prep = Prep.bind()
+            scorer = Scorer.options(name=DAG_SCORER).bind()
+            dag = scorer.score.bind(prep.split.bind(inp))
+        t0 = time.perf_counter()
+        dynamic = [rt.get(dag.execute(batches[0]), timeout=300)]
+        out["first_execute_s"] = time.perf_counter() - t0
+        dynamic += [rt.get(dag.execute(b), timeout=120)
+                    for b in batches[1:]]
+        s_probe = rt.get(scorer._cached_actor.probe.remote(), timeout=60)
+        p_probe = rt.get(prep._cached_actor.probe.remote(), timeout=60)
+        require(s_probe["node_id"] == added["node_id"]
+                and s_probe["gpu_ids"] == [0]
+                and s_probe["cuda_visible_devices"] == "0"
+                and p_probe["node_id"] == here
+                and not p_probe["torch_loaded"],
+                f"stages: scorer {s_probe}, prep {p_probe}")
+        drv0 = channel.ring_counts()
+        t0 = time.perf_counter()
+        cdag = dag.compile()
+        out["compile_s"] = time.perf_counter() - t0
+        compiled = [cdag.execute(b, timeout=120) for b in batches]
+        stats = cdag.stats()
+        drv1 = channel.ring_counts()
+        p1 = rt.get(prep._cached_actor.probe.remote(), timeout=60)["ring"]
+        s1 = rt.get(scorer._cached_actor.probe.remote(), timeout=60)["ring"]
+        require(stats["compiled"] and not stats["fallback_only"]
+                and stats["compile_failures"] == 0
+                and stats["compiled_executions"] == len(batches)
+                and stats["dynamic_executions"] == 0
+                and stats["dynamic_reruns"] == 0,
+                f"the graph did not run compiled: {stats}")
+        n = len(batches)
+
+        def delta(a, b):
+            return {k: b[k] - a.get(k, 0) for k in b}
+
+        hops = {"driver": delta(drv0, drv1),
+                "prep": delta(p_probe["ring"], p1),
+                "scorer": delta(s_probe["ring"], s1)}
+        # the input hop (driver -> Prep, the head's store) and the
+        # stage-to-stage hop (Prep's slot, read from the added raylet)
+        require(hops["driver"]["ring_writes"] == n
+                and hops["driver"]["ring_fallbacks"] == 0
+                and hops["prep"]["ring_reads"] == n
+                and hops["prep"]["foreign_ring_reads"] == 0
+                and hops["prep"]["ring_writes"] == n
+                and hops["prep"]["ring_fallbacks"] == 0
+                and hops["scorer"]["foreign_ring_reads"] == n,
+                f"a batch hop went inline: {hops}")
+        nll_dyn = np.concatenate([r["nll"] for r in dynamic])
+        nll_cmp = np.concatenate([r["nll"] for r in compiled])
+        for tag, got in (("dynamic", nll_dyn), ("compiled", nll_cmp)):
+            require(got.dtype == np.float32 and got.shape == (AIR_ROWS,)
+                    and np.isfinite(got).all()
+                    and np.array_equal(got, driver_nll),
+                    f"{tag} NLLs differ from phase 27's driver forward: "
+                    f"max {float(np.abs(got - driver_nll).max())}")
+        counts = [{}] + [r["launches"] for r in dynamic + compiled]
+        steps = [delta(a, b) for a, b in zip(counts, counts[1:])]
+        require(all(d == {"whole_attention_forward": n_layer}
+                        for d in steps),
+                f"the scorer launched {steps} per batch, want "
+                f"{n_layer} whole-kv forwards only")
+
+        # one batch, DAG_TIMED times on each path
+        comp_ms, dyn_ms = [], []
+        for _ in range(DAG_TIMED):
+            t0 = time.perf_counter()
+            r = cdag.execute(batches[0], timeout=120)
+            comp_ms.append((time.perf_counter() - t0) * 1e3)
+            require(np.array_equal(r["nll"], compiled[0]["nll"]),
+                    "a timed compiled execution changed its NLLs")
+        for _ in range(DAG_TIMED):
+            t0 = time.perf_counter()
+            r = rt.get(dag.execute(batches[0]), timeout=120)
+            dyn_ms.append((time.perf_counter() - t0) * 1e3)
+            require(np.array_equal(r["nll"], compiled[0]["nll"]),
+                    "a timed dynamic execution changed its NLLs")
+        stats = cdag.stats()
+        require(stats["compiled"] and stats["dynamic_reruns"] == 0
+                and stats["compiled_executions"] == n + DAG_TIMED,
+                f"timed compiled executions: {stats}")
+        dag_launches = r["launches"]
+        out.update({
+            "scorer": {k: s_probe[k] for k in ("node_id", "gpu_ids", "pid",
+                                               "build_s")},
+            "prep": {k: p_probe[k] for k in ("node_id", "pid",
+                                             "torch_loaded")},
+            "added_node": added["node_id"], "driver_node": here,
+            "stats": stats, "ring_hops": hops,
+            "nll_bit_equal": True, "nll_mean": float(nll_cmp.mean()),
+            "compiled_ms_p50": pct(comp_ms, 50),
+            "compiled_ms_p99": pct(comp_ms, 99),
+            "dynamic_ms_p50": pct(dyn_ms, 50),
+            "dynamic_ms_p99": pct(dyn_ms, 99),
+            "compiled_ms": comp_ms, "dynamic_ms": dyn_ms,
+            "dag_launches": dag_launches})
+
+        # (b) a ray:// driver in a process of its own
+        srv = ClientServer(port=0, host="127.0.0.1")
+        code = CLIENT_DRIVER.format(
+            port=srv.port, name=DAG_SCORER, seed=SEED,
+            vocab=gpt2.GPT2Config.small().vocab_size, rows=AIR_ROWS,
+            seq=AIR_SEQ, batch=AIR_BATCH, nbytes=CLIENT_PUT_BYTES)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", code],
+                              capture_output=True, text=True, timeout=300,
+                              cwd=os.path.dirname(os.path.abspath(
+                                  __file__)))
+        client_s = time.perf_counter() - t0
+        lines = [ln for ln in proc.stdout.splitlines()
+                 if ln.startswith("CLIENT ")]
+        require(proc.returncode == 0 and lines,
+                f"ray:// driver: rc {proc.returncode}\n"
+                f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+        c = json.loads(lines[-1][len("CLIENT "):])
+        client_nll = np.asarray(c["nll"], np.float32)
+        client_launches = delta(dag_launches, c["launches"])
+        require(np.array_equal(client_nll, compiled[0]["nll"])
+                and c["put_get_equal"] and not c["torch_loaded"]
+                and not c["kernels_loaded"]
+                and client_launches == {"whole_attention_forward": n_layer},
+                f"ray:// driver: NLLs equal "
+                f"{np.array_equal(client_nll, compiled[0]['nll'])}, "
+                f"{ {k: v for k, v in c.items() if k != 'nll'} }, "
+                f"launches {client_launches}")
+        out["client"] = {**{k: v for k, v in c.items() if k != "nll"},
+                         "wall_s": client_s, "nll_bit_equal": True,
+                         "launches": client_launches}
+        cdag.teardown()
+    finally:
+        if srv is not None:
+            srv.stop()
+        # (c) every process of the cluster is gone
+        t0 = time.perf_counter()
+        cluster.shutdown()
+        out["shutdown_s"] = time.perf_counter() - t0
+    left = stop_leftovers()
+    require(not left, f"processes left after the cluster's shutdown: {left}")
+    rebuilt = [n for n, p in built.items() if os.path.getmtime(p) != mtimes[n]]
+    require(not rebuilt, f"kernel libraries rebuilt during phase 28: "
+            f"{rebuilt}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print("cluster", json.dumps(out), flush=True)
+    return {**out, "scorer_launches": {
+        "dag": dag_launches, "client": client_launches}}
 
 
 def main() -> int:
@@ -5302,6 +5698,12 @@ def main() -> int:
 
     mark("27")
 
+    # 28. a two-raylet Cluster: phase 27's rows scored by a compiled DAG
+    # whose GPU stage runs on the added raylet, then by a ray:// driver
+    clustered = cluster_phase(name, card, air["driver_nll"])
+
+    mark("28")
+
     # 13. summary
     def kernel_entry(case, kname, source, line, by_path):
         """``by_path``: {path: launches of ``kname`` in its counted
@@ -5328,7 +5730,9 @@ def main() -> int:
                   ("runtime_actor_train", runtime["train_launches"]),
                   ("framework_gpt2_train", framework["gpt2_launches"]),
                   ("tune_gpt2_trials", tuned["gpt2_launches"]),
-                  ("air_batch_predict", air["predict_launches"]))
+                  ("air_batch_predict", air["predict_launches"]),
+                  ("compiled_dag_stage", clustered["scorer_launches"]["dag"]),
+                  ("ray_client", clustered["scorer_launches"]["client"]))
     streaming_paths = (("llama_train", llama_counts),
                        ("mesh_gpt2_exact", mesh_counts["gpt2_exact"]),
                        ("ring_schedule", ring["launches"]),

@@ -50,7 +50,15 @@ Ported so far:
   - Tune on the runtime (``tune``: ``tune.run``, ``Tuner``, function and
     class trainables, the searchers and schedulers, the loggers and the
     resumable experiment), each trial an actor, granted a GPU with
-    ``resources_per_trial={"GPU": 1}`` or ``tune.with_resources``.
+    ``resources_per_trial={"GPU": 1}`` or ``tune.with_resources``;
+  - AIR's batch inference and the other trainers (``air``, ``train``),
+    ``util``'s actor pool, queue and GPU profiler;
+  - the multi-node test cluster (``_private.cluster_utils.Cluster``:
+    raylets added on one host), compiled DAGs (``fn.bind()``,
+    ``Actor.bind().method.bind()``, ``dag.execute()``, ``dag.compile()``
+    over pre-wired channels with plasmax ring slots) and ``ray://``
+    client drivers (``init("ray://host:port")`` against a
+    ``util.client.server.ClientServer``).
 
 ROADMAP.md lists the slices to come.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
@@ -91,7 +99,17 @@ _node_processes: Optional[_node_mod.NodeProcesses] = None
 _storage_env_set = False  # init(storage=...) set RTT_STORAGE this run
 
 
+def _client():
+    """Active ray:// client connection, or None (reference:
+    util/client_connect.py client-mode hooks)."""
+    from ray_tpu_torch.util.client import worker as _cw
+    c = _cw._client
+    return c if (c is not None and c.connected) else None
+
+
 def is_initialized() -> bool:
+    if _client() is not None:
+        return True
     w = _worker_mod._global_worker
     return w is not None and w.connected
 
@@ -118,6 +136,9 @@ def init(address: Optional[str] = None, *,
     with _init_lock:
         if is_initialized():
             if ignore_reinit_error:
+                c = _client()
+                if c is not None:
+                    return dict(c.server_info)
                 return _worker_mod._global_worker.runtime_context
             raise RuntimeError("ray_tpu_torch.init() called twice "
                                "(use ignore_reinit_error=True)")
@@ -127,9 +148,18 @@ def init(address: Optional[str] = None, *,
         if address is None:
             address = os.environ.get("RTT_ADDRESS")
         if address and address.startswith("ray://"):
-            raise NotImplementedError(
-                "ray:// client drivers are not ported to ray_tpu_torch yet "
-                "(ROADMAP A14)")
+            # remote driver: everything routes over the client protocol
+            # (reference: ray.init("ray://...") → util/client_connect.py);
+            # this process starts no worker and loads no torch
+            from ray_tpu_torch.util.client import worker as _cw
+            c = _cw.connect(address[len("ray://"):], namespace=namespace)
+            if storage is not None:
+                os.environ["RTT_STORAGE"] = storage
+                _storage_env_set = True
+                c._call("client_kv", {"op": "put", "key": "@storage/root",
+                                      "value": storage.encode()})
+            return {"address": address, "namespace": namespace,
+                    **{k: v for k, v in c.server_info.items()}}
         res: Dict[str, float] = dict(resources or {})
         if num_cpus is not None:
             res["CPU"] = float(num_cpus)
@@ -210,6 +240,10 @@ def shutdown():
         # don't leak this run's storage root into the next init
         os.environ.pop("RTT_STORAGE", None)
         _storage_env_set = False
+    if _client() is not None:
+        from ray_tpu_torch.util.client import worker as _cw
+        _cw.disconnect()
+        return
     w = _worker_mod._global_worker
     if w is not None and w.connected:
         w.disconnect()
@@ -248,11 +282,19 @@ def method(**opts):
 
 
 def put(value: Any) -> ObjectRef:
+    c = _client()
+    if c is not None:
+        return c.put(value)
     return _worker_mod.global_worker().put_object(value)
 
 
 def get(refs: Union[ObjectRef, List[ObjectRef]], *,
         timeout: Optional[float] = None):
+    c = _client()
+    if c is not None:
+        if isinstance(refs, list):
+            return c.get(refs, timeout=timeout)
+        return c.get([refs], timeout=timeout)[0]
     return _worker_mod.get(refs, timeout=timeout)
 
 
@@ -263,14 +305,25 @@ def wait(refs: Sequence[ObjectRef], *, num_returns: int = 1,
         return [], []
     if num_returns > len(refs):
         raise ValueError("num_returns > len(refs)")
+    c = _client()
+    if c is not None:
+        return c.wait(refs, num_returns, timeout)
     return _worker_mod.global_worker().wait(refs, num_returns, timeout)
 
 
 def kill(actor, *, no_restart: bool = True):
+    c = _client()
+    if c is not None:
+        c.kill_actor(actor._id_hex, no_restart=no_restart)
+        return
     _kill(actor, no_restart=no_restart)
 
 
 def cancel(ref: ObjectRef, *, force: bool = False):
+    c = _client()
+    if c is not None:
+        c.cancel(ref.hex(), force=force)
+        return
     w = _worker_mod.global_worker()
     task_id = ref.id().task_id().hex()
     # leased/parked tasks are invisible to the raylet (direct
@@ -281,16 +334,25 @@ def cancel(ref: ObjectRef, *, force: bool = False):
 
 
 def cluster_resources() -> Dict[str, float]:
+    c = _client()
+    if c is not None:
+        return c.cluster_info("cluster_resources")
     w = _worker_mod.global_worker()
     return w.call_sync(w.gcs, "cluster_resources", {})
 
 
 def available_resources() -> Dict[str, float]:
+    c = _client()
+    if c is not None:
+        return c.cluster_info("available_resources")
     w = _worker_mod.global_worker()
     return w.call_sync(w.gcs, "available_resources", {})
 
 
 def nodes() -> List[Dict[str, Any]]:
+    c = _client()
+    if c is not None:
+        return c.cluster_info("nodes")
     w = _worker_mod.global_worker()
     return w.call_sync(w.gcs, "get_nodes", {})
 

@@ -338,13 +338,16 @@ SCHEMAS: Dict[str, Dict[str, Tuple[Any, bool]]] = {
     "dag_exec": {"d": (_str, True), "t": (_int, True), "s": (_int, True),
                  "b": (_bytes, False), "o": (_str, False),
                  "n": (_int, False),
+                 # the writer's store segment, for a reader on another
+                 # raylet of the same host (dag/channel.py)
+                 "p": (_str, False),
                  # 1.6: {"trace_id","span_id"} — stages record hop
                  # spans chained under it; absent on pre-1.6 graphs
                  "tc": (_dict, False)},
     "dag_result": {"d": (_str, True), "s": (_int, True), "i": (_int, True),
                    "ae": (_bool, False), "b": (_bytes, False),
                    "o": (_str, False), "n": (_int, False),
-                   "tc": (_dict, False)},
+                   "p": (_str, False), "tc": (_dict, False)},
     # ---- worker lifecycle (the second-language worker surface —
     # docs/WIRE_PROTOCOL.md declares this table normative for it)
     "worker_register": {"worker_id": (_str, True),

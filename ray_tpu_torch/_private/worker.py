@@ -302,6 +302,24 @@ class ReferenceCounter:
         if free:
             self._free(oid)
 
+    def on_borrower_dead(self, borrower: str) -> int:
+        """A borrower's process is gone: it counts as having released
+        every ref it borrowed, as Ray's owner drops a borrower whose
+        ``WaitForRefRemoved`` fails. Frees what only it held; returns the
+        number of objects freed. (The JAX package keeps a dead borrower
+        forever, so what it held leaks.)"""
+        freed = []
+        with self.lock:
+            for oid, e in self.table.items():
+                if borrower in e["borrowers"]:
+                    e["borrowers"].discard(borrower)
+                    if e["local"] <= 0 and e["submitted"] <= 0 and \
+                            e["owned"] and not e["borrowers"]:
+                        freed.append(oid)
+        for oid in freed:
+            self._free(oid)
+        return len(freed)
+
     def set_lineage(self, oid: ObjectID, spec: Dict[str, Any]):
         with self.lock:
             self._entry(oid)["lineage"] = spec
@@ -455,6 +473,10 @@ class Worker:
         self._cancelled_tasks: set = set()
         self.gpu_ids: List[int] = []
         self._server: Optional[protocol.Server] = None
+        # owner side of dead-borrower detection: borrower address -> the
+        # connection this process dialed to it, whose close prompts a
+        # check (_check_borrower)
+        self._borrower_watch: Dict[str, protocol.Connection] = {}
         # receive side: highest actor-call seq dispatched per caller +
         # parked out-of-order arrivals (reference:
         # actor_scheduling_queue.cc ordering by sequence_no)
@@ -494,7 +516,8 @@ class Worker:
         self.io = protocol.EventLoopThread()
         sock = os.path.join(session_dir,
                             f"cw_{self.worker_id.hex()[:12]}.sock")
-        self._server = protocol.Server(self._handlers())
+        self._server = protocol.Server(
+            {**self._handlers(), "_on_disconnect": self._on_peer_disconnect})
         self.io.run(self._server.start_unix(sock))
         self.address = f"unix:{sock}"
         if mode == MODE_WORKER:
@@ -661,6 +684,9 @@ class Worker:
                 ep.close()
             except Exception:
                 pass
+        watches, self._borrower_watch = self._borrower_watch, {}
+        for conn in watches.values():
+            conn.close()
         if self._server is not None:
             self._server.close()
         if self.io is not None:
@@ -685,10 +711,10 @@ class Worker:
             "borrow_del": self._h_borrow_del,
             "exit_worker": self._h_exit_worker,
             "preemption_notice": self._h_preemption_notice,
-            "dag_channel_open": self._h_dag_unported,
-            "dag_channel_close": self._h_dag_unported,
-            "dag_stage_error": self._h_dag_unported,
-            "dag_peer_down": self._h_dag_unported,
+            "dag_channel_open": self._h_dag_channel_open,
+            "dag_channel_close": self._h_dag_channel_close,
+            "dag_stage_error": self._h_dag_stage_error,
+            "dag_peer_down": self._h_dag_peer_down,
             "ping": self._h_ping,
             "pubsub": self._h_pubsub,
             "dump_stacks": self._h_dump_stacks,
@@ -1943,7 +1969,55 @@ class Worker:
     async def _h_borrow_add(self, payload, conn):
         self.reference_counter.on_borrow_add(payload["object_id"],
                                              payload["borrower"])
+        if conn is not None:
+            # the borrower's own connection: its close is the first sign
+            # that the borrower died (_on_peer_disconnect)
+            conn.meta.setdefault("borrowers", set()).add(
+                payload["borrower"])
+            if conn._closed:        # it closed before this frame was read
+                await self._check_borrower(payload["borrower"])
         return {}
+
+    # ---- dead borrowers (ROADMAP C6) ----
+    #
+    # A borrower killed before it reports release would hold its refs
+    # forever. No poll: when a connection that carried a borrower's
+    # borrow_add closes, the owner dials the borrower's address. Refused
+    # means the process is gone and its borrows are released; answered
+    # means it lives, and the dialed connection is kept so that its close
+    # prompts the next check.
+
+    async def _on_peer_disconnect(self, conn):
+        for borrower in list(conn.meta.get("borrowers") or ()):
+            await self._check_borrower(borrower)
+
+    async def _check_borrower(self, borrower: str):
+        if not self.connected:
+            return
+        watch = self._borrower_watch.get(borrower)
+        if watch is not None and not watch._closed:
+            return
+
+        def closed(c, borrower=borrower):
+            if self._borrower_watch.get(borrower) is c:
+                del self._borrower_watch[borrower]
+            protocol.spawn(self._check_borrower(borrower))
+        try:
+            conn = await asyncio.wait_for(protocol.connect(
+                borrower, handler=self._handle_request, on_close=closed),
+                timeout=5.0)
+        except asyncio.TimeoutError:
+            # a connect the kernel neither took nor refused: look again
+            asyncio.get_running_loop().call_later(
+                5.0, lambda: protocol.spawn(self._check_borrower(borrower)))
+            return
+        except OSError:
+            n = self.reference_counter.on_borrower_dead(borrower)
+            if n:
+                logger.info("borrower %s is gone: freed %d object(s) "
+                            "only it held", borrower, n)
+            return
+        self._borrower_watch[borrower] = conn
 
     async def _h_borrow_del(self, payload, conn):
         self.reference_counter.on_borrow_del(payload["object_id"],
@@ -1956,12 +2030,56 @@ class Worker:
     async def _h_exit_worker(self, payload, conn):
         os._exit(0)
 
-    # ---- compiled-DAG channels: not ported (ROADMAP A13) ----
+    # ---- compiled-DAG channels (ray_tpu_torch/dag/channel.py; schema 1.5) ----
 
-    async def _h_dag_unported(self, payload, conn):
-        raise NotImplementedError(
-            "compiled DAGs are not ported to ray_tpu_torch yet "
-            "(ROADMAP A13)")
+    async def _h_dag_channel_open(self, payload, conn):
+        """Pre-wire one compiled-DAG stage in this (actor) worker: build
+        the stage runtime, dial its downstream peers, and hand back this
+        process's channel address. The raylet learns about the stage so
+        a worker death reaches the compiling owner (dag_peer_down)
+        without waiting out an execute timeout."""
+        from ray_tpu_torch.dag import channel as dagch
+        loop = asyncio.get_running_loop()
+        ep = dagch.get_endpoint(self)
+        # dialing downstream peers is blocking socket work — keep it off
+        # the io loop
+        r = await loop.run_in_executor(None, ep.open_stage, payload)
+        if self.raylet is not None:
+            try:
+                await self.raylet.notify("dag_register", {
+                    "dag_id": payload["dag_id"],
+                    "owner_address": payload["owner_address"]})
+            except Exception:
+                pass
+        return r
+
+    async def _h_dag_channel_close(self, payload, conn):
+        ep = getattr(self, "_dag_endpoint", None)
+        if ep is not None:
+            await asyncio.get_running_loop().run_in_executor(
+                None, ep.close_stage, payload["dag_id"],
+                payload.get("stage_id"))
+        if self.raylet is not None:
+            try:
+                await self.raylet.notify(
+                    "dag_unregister", {"dag_id": payload["dag_id"]})
+            except Exception:
+                pass
+        return {}
+
+    async def _h_dag_stage_error(self, payload, conn):
+        """A stage's forward send broke (downstream peer died): the
+        compiling owner tears the graph down and falls back."""
+        from ray_tpu_torch.dag import compiled_dag
+        compiled_dag.on_stage_error(payload)
+        return {}
+
+    async def _h_dag_peer_down(self, payload, conn):
+        """Raylet-side death detection for a worker hosting compiled-DAG
+        stages (raylet.py _handle_worker_death)."""
+        from ray_tpu_torch.dag import compiled_dag
+        compiled_dag.on_peer_down(payload)
+        return {}
 
     async def _h_preemption_notice(self, payload, conn):
         """The raylet is draining (preemption): surface the deadline

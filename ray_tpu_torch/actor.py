@@ -7,8 +7,7 @@ calls go *directly* to the actor's worker process over a peer connection with
 no raylet involvement; the GCS only mediates creation, restarts, and naming
 (gcs_actor_manager.cc semantics).
 
-Copied from the JAX package's ``ray_tpu/actor.py``, without the ``ray://``
-client branch (ROADMAP A14) and DAG authoring (A13).
+Copied from the JAX package's ``ray_tpu/actor.py``.
 """
 
 from __future__ import annotations
@@ -291,11 +290,14 @@ class ActorClass:
 
     def bind(self, *args, **kwargs):
         """DAG authoring (reference: python/ray/dag ClassNode)."""
-        raise NotImplementedError(
-            "compiled DAGs are not ported to ray_tpu_torch yet "
-            "(ROADMAP A13)")
+        from ray_tpu_torch.dag import ClassNode
+        return ClassNode(self, args, kwargs, self._default_opts)
 
     def _create(self, opts: Dict[str, Any], args, kwargs) -> ActorHandle:
+        from ray_tpu_torch.util.client.worker import client_mode
+        c = client_mode()
+        if c is not None and c.connected:
+            return c.create_actor(self._cls, args, kwargs, opts)
         w = global_worker()
         if self._class_key is None or \
                 self._class_key_mgr is not w.function_manager:
@@ -387,12 +389,15 @@ class _BoundActorClass:
         return self._actor_class._create(self._opts, args, kwargs)
 
     def bind(self, *args, **kwargs):
-        raise NotImplementedError(
-            "compiled DAGs are not ported to ray_tpu_torch yet "
-            "(ROADMAP A13)")
+        from ray_tpu_torch.dag import ClassNode
+        return ClassNode(self._actor_class, args, kwargs, self._opts)
 
 
 def get_actor(name: str, namespace: Optional[str] = None) -> ActorHandle:
+    from ray_tpu_torch.util.client.worker import client_mode
+    c = client_mode()
+    if c is not None and c.connected:
+        return c.get_named_actor(name, namespace)
     w = global_worker()
     info = w.call_sync(w.gcs, "get_named_actor", {
         "name": name, "namespace": namespace if namespace is not None

@@ -4,8 +4,7 @@ Reference analogue: python/ray/remote_function.py (RemoteFunction._remote:239
 → core_worker.submit_task:385). The function is exported to GCS KV once and
 referenced by key in every task spec.
 
-Copied from the JAX package's ``ray_tpu/remote_function.py``, without the
-``ray://`` client branch (ROADMAP A14) and DAG authoring (A13).
+Copied from the JAX package's ``ray_tpu/remote_function.py``.
 """
 
 from __future__ import annotations
@@ -15,6 +14,11 @@ from typing import Any, Dict, Optional
 
 from ray_tpu_torch._private.worker import ObjectRef, global_worker
 from ray_tpu_torch.common.options import validate_options
+
+# bound lazily (ray_tpu_torch.util imports back into the package); cached —
+# a per-call ``from ... import client_mode`` showed up in submit profiles
+_client_mode = None
+
 
 class RemoteFunction:
     def __init__(self, fn, default_opts: Dict[str, Any]):
@@ -48,11 +52,17 @@ class RemoteFunction:
 
     def bind(self, *args, **kwargs):
         """DAG authoring (reference: python/ray/dag FunctionNode)."""
-        raise NotImplementedError(
-            "compiled DAGs are not ported to ray_tpu_torch yet "
-            "(ROADMAP A13)")
+        from ray_tpu_torch.dag import FunctionNode
+        return FunctionNode(self, args, kwargs, self._default_opts)
 
     def _remote(self, args, kwargs, opts: Dict[str, Any]):
+        global _client_mode
+        if _client_mode is None:
+            from ray_tpu_torch.util.client.worker import client_mode
+            _client_mode = client_mode
+        c = _client_mode()
+        if c is not None and c.connected:
+            return c.submit_fn(self._fn, args, kwargs, opts)
         w = global_worker()
         if self._fn_key is None or self._fn_key_mgr is not w.function_manager:
             # re-export after a cluster restart: the key cache is only
@@ -91,6 +101,5 @@ class _BoundRemoteFunction:
         return self._remote_fn._remote_batch(arg_tuples, self._opts)
 
     def bind(self, *args, **kwargs):
-        raise NotImplementedError(
-            "compiled DAGs are not ported to ray_tpu_torch yet "
-            "(ROADMAP A13)")
+        from ray_tpu_torch.dag import FunctionNode
+        return FunctionNode(self._remote_fn, args, kwargs, self._opts)

@@ -20,6 +20,7 @@ workers never import JAX. Every dataset run has a time limit.
 """
 
 import concurrent.futures
+import functools
 import importlib
 import os
 from unittest import mock
@@ -65,6 +66,18 @@ def _within(fn, *args, timeout=TIMEOUT_S):
     pool = concurrent.futures.ThreadPoolExecutor(1)
     try:
         return pool.submit(fn, *args).result(timeout=timeout)
+    finally:
+        pool.shutdown(wait=False)
+
+
+def _each(fns, timeout=TIMEOUT_S):
+    """{pkg: fns[pkg]()}, the packages at once (each has its own driver;
+    most of the time is their pool actors' starts), each within
+    ``timeout`` seconds."""
+    pool = concurrent.futures.ThreadPoolExecutor(len(fns))
+    try:
+        futs = {pkg: pool.submit(fn) for pkg, fn in fns.items()}
+        return {pkg: f.result(timeout=timeout) for pkg, f in futs.items()}
     finally:
         pool.shutdown(wait=False)
 
@@ -221,7 +234,10 @@ def _linear_predict(pkg):
 
 
 def test_batch_predictor_linear_matches_jax(clusters):
-    got = {pkg: _within(_linear_predict, pkg) for pkg in PACKAGES}
+    for pkg in PACKAGES:    # imported here: not by two threads at once
+        _mod(pkg, ".air"), _mod(pkg, ".data")
+    got = _each({pkg: functools.partial(_linear_predict, pkg)
+                 for pkg in PACKAGES})
     assert got["ray_tpu_torch"].shape == (64, 1)
     np.testing.assert_allclose(got["ray_tpu_torch"], got["ray_tpu"],
                                rtol=0, atol=LINEAR_TOL)
@@ -244,9 +260,15 @@ def test_batch_predictor_gpt2_matches_jax(clusters):
                                    TorchPredictor)
     from ray_tpu_torch.models import gpt2 as TG
 
+    # params drawn with numpy on eval_shape's shapes: flax's eager init
+    # compiles op by op (seconds)
     mj = JG.GPT2(JG.GPT2Config.tiny())
-    flax_params = mj.init(jax.random.PRNGKey(0), jnp.zeros((1, 8),
-                                                           jnp.int32))
+    shapes = jax.eval_shape(mj.init, jax.random.PRNGKey(0),
+                            jnp.zeros((1, 8), jnp.int32))
+    rng = np.random.default_rng(0)
+    flax_params = jax.tree_util.tree_map(
+        lambda a: (rng.standard_normal(a.shape) * 0.05).astype(a.dtype),
+        shapes)
     sd = {k: v.numpy() for k, v in TG.params_from_flax(flax_params).items()}
     tokens = _gpt2_tokens()
 
@@ -285,8 +307,9 @@ def test_batch_predictor_gpt2_matches_jax(clusters):
                                            parallelism=2)
         return bp.predict(ds, batch_size=4, num_workers=1).take_all()
 
-    want = np.asarray([r["predictions"] for r in _within(run_jax)])
-    rows = _within(run_port)
+    done = _each({"ray_tpu": run_jax, "ray_tpu_torch": run_port})
+    want = np.asarray([r["predictions"] for r in done["ray_tpu"]])
+    rows = done["ray_tpu_torch"]
     got = np.asarray([r["predictions"] for r in rows])
     assert got.shape == (8,) and np.isfinite(got).all()
     assert all(np.array_equal(r["tokens"], t) for r, t in zip(rows, tokens))

@@ -9,6 +9,7 @@ full forward).
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -24,13 +25,23 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 B, BS, NB = 2, 4, 8          # paged cache: 2 sequences of up to 32 tokens
 
 
-def _models(dtype=None):
-    cfg_j, cfg_t = JG.GPT2Config.tiny(), TG.GPT2Config.tiny()
+@functools.lru_cache(maxsize=None)
+def _flax(dtype=None):
+    """The flax model and its params from PRNGKey(0), made once a dtype
+    (flax's init runs op by op, seconds on a loaded box)."""
+    cfg_j = JG.GPT2Config.tiny()
     if dtype is not None:
         cfg_j = dataclasses.replace(cfg_j, dtype=getattr(jnp, dtype))
-        cfg_t = dataclasses.replace(cfg_t, dtype=getattr(torch, dtype))
     mj = JG.GPT2(cfg_j)
-    params = mj.init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))
+    return mj, mj.init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))
+
+
+def _models(dtype=None):
+    """A fresh port model on ``_flax``'s params."""
+    cfg_t = TG.GPT2Config.tiny()
+    if dtype is not None:
+        cfg_t = dataclasses.replace(cfg_t, dtype=getattr(torch, dtype))
+    mj, params = _flax(dtype)
     mt = TG.GPT2(cfg_t)
     TG.params_from_flax(params, mt)
     return mj, params, mt.eval()

@@ -156,6 +156,12 @@ def test_port_files_found():
                 "train/lightning_trainer", "util/gpu_profiler",
                 "util/actor_pool", "util/queue"):
         assert f"ray_tpu_torch/{mod}.py" in rel
+    for mod in ("_private/cluster_utils", "_private/testing/__init__",
+                "_private/testing/mocks", "dag/__init__", "dag/dag_node",
+                "dag/channel", "dag/compiled_dag", "util/client/__init__",
+                "util/client/common", "util/client/server",
+                "util/client/worker", "util/cross_language"):
+        assert f"ray_tpu_torch/{mod}.py" in rel
     assert len(files) > 10
 
 
@@ -194,6 +200,27 @@ def test_train_air_util_import_without_optional_deps():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "False"
+
+
+def test_dag_and_client_import_without_torch():
+    """A ``ray://`` driver and a DAG's author load neither torch nor the
+    kernels."""
+    code = (
+        "import sys\n"
+        "import ray_tpu_torch.dag, ray_tpu_torch.util.client\n"
+        "from ray_tpu_torch.dag import InputNode, MultiOutputNode,"
+        " CompiledDAG\n"
+        "from ray_tpu_torch.util.client import ClientObjectRef\n"
+        "from ray_tpu_torch.util.client.server import ClientServer\n"
+        "from ray_tpu_torch._private.cluster_utils import Cluster\n"
+        "print(sorted(m for m in ('torch', 'ray_tpu_torch.kernels')"
+        " if m in sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=REPO_ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 def test_checker_catches_forbidden_imports(tmp_path):

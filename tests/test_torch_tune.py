@@ -442,14 +442,30 @@ def _sweep(rt, tmp_path):
 
 
 def test_same_sweep_as_jax(tmp_path):
-    port = _sweep(ray_tpu_torch, tmp_path)
+    import concurrent.futures
+    import importlib
     if ray_tpu.is_initialized():
         ray_tpu.shutdown()
-    ray_tpu.init(num_cpus=4, object_store_memory=STORE_BYTES)
+    for rt in (ray_tpu, ray_tpu_torch):     # not by two threads at once
+        for name in (".tune", ".air.session", ".air.checkpoint"):
+            importlib.import_module(rt.__name__ + name)
+
+    def jax_sweep():
+        ray_tpu.init(num_cpus=4, object_store_memory=STORE_BYTES)
+        try:
+            return _sweep(ray_tpu, tmp_path)
+        finally:
+            ray_tpu.shutdown()
+
+    # the JAX sweep on its own cluster beside the port's: each package's
+    # driver and Tune are its own
+    pool = concurrent.futures.ThreadPoolExecutor(1)
     try:
-        ref = _sweep(ray_tpu, tmp_path)
+        ref = pool.submit(jax_sweep)
+        port = _sweep(ray_tpu_torch, tmp_path)
+        ref = ref.result(timeout=120)
     finally:
-        ray_tpu.shutdown()
+        pool.shutdown(wait=False)
     assert port == ref
     assert len(port["configs"]) == 4
     assert min(len(r) for r in port["results"]) < 4   # ASHA stopped some
