@@ -440,15 +440,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
               init(0), gpt2_steps' batch) at config["learning_rate"],
               one step an iteration (the 3e-4 trial also saves a
               ShardedCheckpoint of the state on the host at iteration
-              2: CUT_SAVES), over a grid of four rates
-              (TUNE_LRS, the trainer's default 3e-4 first) under
+              2: CUT_SAVES), over a grid of three rates
+              (TUNE_LRS, the trainer's default 3e-4 first; CUT_TRIALS)
+              under
               ASHAScheduler(metric="loss", mode="min", max_t=4,
               grace_period=1, reduction_factor=2), each trial
-              {"CPU": 1, "GPU": 1}, max_concurrent_trials=4: three
+              {"CPU": 1, "GPU": 1}, max_concurrent_trials=4: two
               trials wait for the card; (b) the same at 3e-4 with
               max_failures=1, raising once after its checkpoint at
               iteration 2, restarted from it on the card; (c)
-              Tuner(PPO) over two rates, one iteration each, in phase
+              Tuner(PPO) at one rate (CUT_TRIALS), one iteration, in phase
               15's one-local-worker PPO-Atari configuration, the policy
               on cuda (a PPO subclass adds the launch counts and the
               grant to its results). Checks: the 3e-4 trial's losses
@@ -527,9 +528,40 @@ Phases, each of which fails the run (non-zero exit, no result line):
               there, 12 more launches in the scorer. (c)
               cluster.shutdown(), then stop_leftovers finds no process;
               no kernel library rebuilt.
+29. ops     — cluster operations: a head (init(num_cpus=4,
+              num_gpus=0)), the dashboard on port 0, and an
+              AutoscalerMonitor (tick OPS_TICK_S, idle timeout
+              OPS_IDLE_S) over a FakeMultiNodeProvider whose one node
+              type, gpu_worker, is {"CPU": 2, "GPU": 1} (0 to 1 of
+              them). (a) JobSubmissionClient("http://...") submits a
+              driver script (OPS_DRIVER; it never imports torch) that
+              calls request_resources([{"CPU": 1, "GPU": 1}]), creates
+              OpsScorer (phase 28's scorer, counting its rows through
+              util.metrics) as a num_gpus=1 actor and scores phase 27's
+              64 rows in four batches. Checks: exactly one gpu_worker
+              launched, and every tick while the actor holds the card
+              found the standing request met (ROADMAP C7); the actor on
+              that node with grant [0]; the 64 NLLs bit-equal to phase
+              27's driver forward; #1 launched n_layer = 12 times a
+              batch there and nothing else. (b) While the actor lives:
+              the state API (two alive nodes, the actor ALIVE on the
+              launched node, its four calls in list_tasks and
+              summarize_tasks, the job's driver in list_jobs); the
+              dashboard's /api/nodes, /api/actors, /api/jobs/ and
+              /metrics (ray_tpu_torch_node_gpu_num_gpus 1 and
+              ray_tpu_torch_node_gpu_gpus_available 0 for the launched
+              node, the actor's counter at 64); `status`, `list actors`
+              and `job list` of the CLI, a fresh process each, exit 0
+              and load no torch. (c) The job SUCCEEDED (its logs over
+              REST hold the NLLs); the idle node terminated within
+              OPS_IDLE_S plus two ticks of its idle spell, its raylet
+              and the GPU worker gone, the node dead in list_nodes; no
+              failed autoscaler update. (d) ray_perf.breakdown(n=400)
+              on the head. Then the shutdown, after which
+              stop_leftovers finds nothing; no kernel library rebuilt.
 13. summary — nvidia-smi's card line, the kernels line (each kernel's
               launches by the path that counted them: phases 4, 5b, 6,
-              8, 12, 14, 21, 22, 23, 25, 26, 27 and 28; paged decode's entry also
+              8, 12, 14, 21, 22, 23, 25, 26, 27, 28 and 29; paged decode's entry also
               carries its Llama serve case, the streaming kernels' the
               ring's), then the device line, last.
 
@@ -546,6 +578,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import signal
 import subprocess
 import sys
@@ -682,18 +715,26 @@ CUT_WINDOWS = {"mesh_gpt2": 2, "mesh_resnet": 3, "ring_gpt2": 2}
 # default rate (TUNE_LRS[0]) at iteration TUNE_CKPT_EVERY (before: every
 # trial, every TUNE_CKPT_EVERY iterations)
 CUT_SAVES = {"ckpt_loop": 1, "tune_gpt2": 1}
+# trials of phase 26's runs, each a process of its own on the one card,
+# cut to make room for phase 29: the GPT-2 sweep's grid from four rates
+# to three (TUNE_LRS_GRID's last dropped: one trial fewer that ASHA
+# stops at its first rung) and Tuner(PPO)'s from two rates to one
+CUT_TRIALS = {"tune_gpt2": 3, "tune_ppo": 1}
 # phase 26: Tune on the runtime. The sweep's learning rates, the
 # trainer's default (3e-4) first: after the first update the loss falls
 # with the rate over this range, so ASHA's rung at iteration 2 stops the
 # trials that follow it on the one card; ASHA's max_t (grace 1 and
 # reduction 2 at the call); a checkpoint of the trainer's state
 # every TUNE_CKPT_EVERY iterations; run (b)'s planned failure; run (c)'s
-# PPO rates (PPO's default 3e-4 and one below)
-TUNE_LRS = (3e-4, 1e-4, 3e-5, 1e-5)
+# PPO rates (PPO's default 3e-4 and one below); each grid cut to its
+# first CUT_TRIALS rates
+TUNE_LRS_GRID = (3e-4, 1e-4, 3e-5, 1e-5)
+TUNE_LRS = TUNE_LRS_GRID[:CUT_TRIALS["tune_gpt2"]]
 TUNE_MAX_T = 4
 TUNE_CKPT_EVERY = 2
 TUNE_FAIL_AT = 2
-TUNE_PPO_LRS = (3e-4, 1e-4)
+TUNE_PPO_LRS_GRID = (3e-4, 1e-4)
+TUNE_PPO_LRS = TUNE_PPO_LRS_GRID[:CUT_TRIALS["tune_ppo"]]
 # phase 27: BatchPredictor over GPT-2 small. Rows, each a row's tokens
 # less one (the mapper's input_ids; labels are the row shifted by one),
 # the predictor's batch; the cap of events a gpu_profiler trace merges
@@ -715,6 +756,17 @@ AIR_PPO_CONFIG = {"env": "CartPole-v1", "num_workers": 0,
 DAG_TIMED = 20
 DAG_SCORER = "phase28_scorer"
 CLIENT_PUT_BYTES = 1 << 20
+# phase 29: cluster operations. The autoscaler's tick and idle timeout
+# (short, so that the launched node is reaped inside the phase); the one
+# node type it may launch, as a GPU host of the fake provider; the job's
+# scorer actor's name; the round trips of ray_perf's breakdown
+OPS_TICK_S = 0.5
+OPS_IDLE_S = 2.0
+OPS_NODE_TYPE = {"resources": {"CPU": 2, "GPU": 1}, "min_workers": 0,
+                 "max_workers": 1}
+OPS_SCORER = "phase29_scorer"
+OPS_JOB_ID = "phase29_job"
+OPS_BREAKDOWN_N = 400
 # the PPO learn phase's groups: cuDNN's convs, the products (the
 # 7,744 x 512 Dense and the heads), Adam's foreach kernels, the
 # host-to-device copies of each minibatch, then the rest
@@ -4226,6 +4278,7 @@ def trial_timeline(analysis, clock, t_run) -> list:
         r["build_s"] = r["ready"] - r["fn_start"] if r["ready"] else None
         r["card_idle_since_previous_s"] = (
             None if prev_end is None else r["first_step_start"] - prev_end)
+        r["card_held_s"] = r["done"] - free_since
         prev_done, prev_end = r["done"], r["last_step_end"]
     return rows
 
@@ -4285,7 +4338,7 @@ def tune_phase(name, card, driver_steps=None) -> dict:
         res = rt.cluster_resources()
         require(res.get("GPU") == 1.0, f"cluster_resources: {res}")
 
-        # (a) the sweep: four rates under ASHA, three trials queued
+        # (a) the sweep: three rates under ASHA, two trials queued
         scratch = os.path.join(root, "scratch")
         os.makedirs(scratch)
         exp_a = os.path.join(root, "results", "gpt2_asha")
@@ -4390,7 +4443,7 @@ def tune_phase(name, card, driver_steps=None) -> dict:
         shutil.rmtree(scratch, ignore_errors=True)
 
         # (c) Tuner(PPO): phase 15's one-local-worker PPO-Atari, the
-        # policy on the card, two rates, one iteration each
+        # policy on the card, one rate (CUT_TRIALS), one iteration
         class TunePPO(PPO):
             """PPO whose results also carry the port's kernel launches in
             its process, its grant and where its policy lives."""
@@ -4481,7 +4534,8 @@ def tune_phase(name, card, driver_steps=None) -> dict:
     def timeline(rows):
         keep = ("trial", "lr", "status", "pid", "wait_for_card_s",
                 "actor_start_s", "build_s", "build_parts_s",
-                "first_step_s", "card_idle_since_previous_s")
+                "first_step_s", "card_idle_since_previous_s",
+                "card_held_s")
         return [{k: r.get(k) for k in keep} for r in rows]
 
     sweep_out = {
@@ -4526,10 +4580,23 @@ def tune_phase(name, card, driver_steps=None) -> dict:
                            and not r["ckpt_write_s"])
         return dropped * kept[0] if kept else 0.0
 
+    def trials_cut_s():
+        """What the trials CUT_TRIALS dropped would have taken (the
+        depth cut): each dropped GPT-2 trial as the sweep's last trial,
+        which ASHA stopped as it would the dropped one, each dropped
+        PPO trial as the kept one: the card from its hand-over to its
+        completion (actor start, build, its iterations)."""
+        gpt2 = (len(TUNE_LRS_GRID) - len(TUNE_LRS)) * rows_a[-1][
+            "card_held_s"]
+        ppo = (len(TUNE_PPO_LRS_GRID) - len(TUNE_PPO_LRS)) * rows_c[-1][
+            "card_held_s"]
+        return {"tune_gpt2": gpt2, "tune_ppo": ppo, "total": gpt2 + ppo}
+
     out.update({"sweep": sweep_out, "restore": restore_out,
                 "ppo": ppo_out, "phase_s": time.perf_counter() - t_phase,
                 "ckpt_cut_s_reckoned": cut_s(sweep.trials, clock)
-                + cut_s(restore.trials, clock_b)})
+                + cut_s(restore.trials, clock_b),
+                "trials_cut_s_reckoned": trials_cut_s()})
     print("tune", json.dumps(out), flush=True)
     torch.cuda.empty_cache()
     total = dict(launches_a)
@@ -5194,6 +5261,434 @@ def cluster_phase(name, card, driver_nll=None) -> dict:
         "dag": dag_launches, "client": client_launches}}
 
 
+class OpsScorer(DagScorer):
+    """Phase 29's scorer, created by the submitted job's driver: phase
+    28's GPU stage (GPT-2 small built on its card) that also counts the
+    rows it scored through util.metrics, flushed to the cluster's hub at
+    each batch."""
+
+    def score(self, xy):
+        from ray_tpu_torch.util import metrics
+        out = super().score(xy)
+        metrics.Counter("phase29_scored_rows",
+                        "rows the autoscaled job's actor scored").inc(
+            len(out["nll"]))
+        metrics.flush_metrics()
+        return out
+
+
+# phase 29's job: the entrypoint's driver (never imports torch) asks the
+# autoscaler for a GPU, scores phase 27's rows in a num_gpus=1 actor,
+# waits for the phase's signal, then ends its actor and drops its request
+OPS_DRIVER = """
+import json, os, sys, time
+t_start = time.time()
+sys.path.insert(0, {repo!r})
+import cloudpickle
+import numpy as np
+import chip_smoke as cs
+cloudpickle.register_pickle_by_value(cs)
+import ray_tpu_torch as rt
+from ray_tpu_torch.autoscaler import request_resources
+rt.init()
+request_resources([{{"CPU": 1, "GPU": 1}}])
+t_request = time.time()
+scorer = rt.remote(num_gpus=1)(cs.OpsScorer).options(
+    name={name!r}).remote()
+probe = rt.get(scorer.probe.remote(), timeout=600)
+t_first = time.time()
+tokens = np.load({tokens!r})
+nll, launches, ms = [], [], []
+for s in range(0, len(tokens), {batch}):
+    b = cs.air_split_tokens({{"tokens": tokens[s:s + {batch}]}})
+    t0 = time.perf_counter()
+    r = rt.get(scorer.score.remote((b["input_ids"], b["labels"])),
+               timeout=300)
+    ms.append((time.perf_counter() - t0) * 1e3)
+    nll += [float(v) for v in r["nll"]]
+    launches.append(r["launches"])
+print("OPS_SCORED " + json.dumps({{
+    "nll": nll, "launches": launches, "batch_ms": ms, "probe": probe,
+    "pid": os.getpid(), "t_start": t_start, "t_request": t_request,
+    "t_first_call": t_first, "env_job_id": os.environ.get("RTT_JOB_ID"),
+    "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+    "torch_loaded": "torch" in sys.modules}}), flush=True)
+deadline = time.time() + 300
+while not os.path.exists({release!r}) and time.time() < deadline:
+    time.sleep(0.05)
+rt.kill(scorer)
+request_resources([])
+print("OPS_DONE " + json.dumps({{
+    "t_drop": time.time(), "released": os.path.exists({release!r}),
+    "torch_loaded": "torch" in sys.modules}}), flush=True)
+rt.shutdown()
+"""
+
+# phase 29's CLI runs: one fresh process each, saying at its exit whether
+# it loaded torch
+CLI_PROBE = ("import atexit, sys\n"
+             "atexit.register(lambda: print('TORCH', 'torch' in sys.modules))"
+             "\nfrom ray_tpu_torch.scripts import cli\n"
+             "cli.main(sys.argv[1:])\n")
+
+
+def _log_line(logs: str, tag: str):
+    """The JSON after ``tag`` on the last line of ``logs`` that starts
+    with it, or None."""
+    lines = [ln for ln in logs.splitlines() if ln.startswith(tag + " ")]
+    return json.loads(lines[-1][len(tag) + 1:]) if lines else None
+
+
+def ops_phase(name, card, driver_nll=None) -> dict:
+    """Phase 29 (module docstring): a job submitted over the dashboard's
+    REST API scores phase 27's rows in a num_gpus=1 actor on a node the
+    autoscaler launched for the job's request and reaps after it; the
+    state API, the dashboard, util.metrics and the CLI read the cluster
+    meanwhile; ray_perf's breakdown on the head. ``driver_nll``: phase
+    27's driver NLLs (else computed here the same way). Returns the
+    printed measurements and the actor's launches."""
+    import gc
+    import shutil
+    import tempfile
+    import urllib.request
+
+    import torch
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import kernels
+    from ray_tpu_torch._private import ray_perf
+    from ray_tpu_torch.autoscaler import (AutoscalerMonitor,
+                                          FakeMultiNodeProvider,
+                                          StandardAutoscaler)
+    from ray_tpu_torch.autoscaler.commands import _running
+    from ray_tpu_torch.dashboard import start_dashboard
+    from ray_tpu_torch.experimental.state import api as state
+    from ray_tpu_torch.job_submission import JobSubmissionClient
+    from ray_tpu_torch.models import gpt2
+
+    class Provider(FakeMultiNodeProvider):
+        """The fake provider, each launch and termination timed: (what,
+        node id, when asked, when done)."""
+
+        def __init__(self, config):
+            super().__init__(config)
+            self.events = []
+
+        def create_node(self, node_config, count):
+            t0 = time.time()
+            ids = super().create_node(node_config, count)
+            self.events += [("create", nid, t0, time.time()) for nid in ids]
+            return ids
+
+        def terminate_node(self, node_id):
+            t0 = time.time()
+            pid = self.node_pid(node_id)
+            super().terminate_node(node_id)
+            self.events.append(("terminate", node_id, t0, time.time()))
+            self.reaped_raylet = pid
+
+    class Autoscaler(StandardAutoscaler):
+        """Keeps each tick's view: the nodes, their free GPUs, the
+        request, what was unmet."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.ticks = []
+
+        def _unmet_demand(self, snapshot):
+            unmet = super()._unmet_demand(snapshot)
+            self.ticks.append({
+                "t": time.time(), "requests": snapshot["resource_requests"],
+                "free_gpu": {n["node_id"]: (n.get("available") or {}).get(
+                    "GPU") for n in snapshot["nodes"]},
+                "unmet": unmet, "idle_since": dict(self._idle_since)})
+            return unmet
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    built = {n: kernels._lib_path(n) for n in kernels.sources()}
+    mtimes = {n: os.path.getmtime(p) for n, p in built.items()}
+    tokens = air_tokens()
+    if driver_nll is None:
+        model = air_card_model()
+        driver_nll = np.concatenate(
+            [air_batch_nll(model, tokens[s:s + AIR_BATCH])
+             for s in range(0, AIR_ROWS, AIR_BATCH)])
+        del model
+        torch.cuda.empty_cache()
+    driver_nll = np.asarray(driver_nll, np.float32)
+    n_layer = gpt2.GPT2Config.small().n_layer
+    out = {"device": name, "nvidia_smi": card, "rows": AIR_ROWS,
+           "batch": AIR_BATCH, "seq_len": AIR_SEQ, "tick_s": OPS_TICK_S,
+           "idle_timeout_s": OPS_IDLE_S, "node_type": OPS_NODE_TYPE}
+    tmp = tempfile.mkdtemp(prefix="phase29_")
+    release = os.path.join(tmp, "release")
+    monitor = provider = None
+    # actor calls into the task table (the state API counts the scorer's
+    # calls): every raylet of the phase, the launched one too, and so
+    # every worker inherit it
+    actor_events = os.environ.get("RTT_ACTOR_TASK_EVENTS")
+    os.environ["RTT_ACTOR_TASK_EVENTS"] = "1"
+
+    t0 = time.perf_counter()
+    rt.init(num_cpus=4, num_gpus=0)
+    out["head_up_s"] = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        port = start_dashboard(port=0)
+        out["dashboard_up_s"] = time.perf_counter() - t0
+        w = rt._worker_mod.global_worker()
+
+        def gcs_call(method, payload):
+            return w.call_sync(w.gcs, method, payload, timeout=30)
+
+        provider = Provider({"session_dir": w.session_dir,
+                             "gcs_address": w.gcs_address})
+        scaler = Autoscaler(provider, {"gpu_worker": dict(OPS_NODE_TYPE)},
+                            gcs_call, idle_timeout_s=OPS_IDLE_S)
+        alive0 = [n for n in state.list_nodes() if n["alive"]]
+        res0 = rt.cluster_resources()
+        require(len(alive0) == 1 and "GPU" not in res0
+                and provider.non_terminated_nodes() == [],
+                f"before the job: nodes {alive0}, resources {res0}, "
+                f"provider {provider.non_terminated_nodes()}")
+        monitor = AutoscalerMonitor(scaler, interval_s=OPS_TICK_S).start()
+
+        # (a) the job, submitted over REST
+        np.save(os.path.join(tmp, "tokens.npy"), tokens)
+        script = os.path.join(tmp, "phase29_job.py")
+        with open(script, "w") as f:
+            f.write(OPS_DRIVER.format(
+                repo=os.path.dirname(os.path.abspath(__file__)),
+                name=OPS_SCORER, tokens=os.path.join(tmp, "tokens.npy"),
+                batch=AIR_BATCH, release=release))
+        base = f"http://127.0.0.1:{port}"
+        client = JobSubmissionClient(base)
+        t_submit = time.time()
+        job_id = client.submit_job(entrypoint=f"{sys.executable} {script}",
+                                   job_id=OPS_JOB_ID)
+        status = client.get_job_status(job_id)
+        out["submit_to_running_s"] = time.time() - t_submit
+        require(job_id == OPS_JOB_ID and status == "RUNNING",
+                f"job {job_id}: {status}")
+        scored, deadline = None, time.time() + 600
+        while scored is None and time.time() < deadline:
+            logs = client.get_job_logs(job_id)
+            scored = _log_line(logs, "OPS_SCORED")
+            if scored is None:
+                status = client.get_job_status(job_id)
+                require(status == "RUNNING",
+                        f"job {job_id} {status} before scoring:\n"
+                        f"{logs[-4000:]}")
+                time.sleep(0.2)
+        require(scored is not None, f"job {job_id} scored nothing in 600 s")
+        creates = [e for e in provider.events if e[0] == "create"]
+        require(len(creates) == 1, f"launches for one GPU request: "
+                f"{provider.events}")
+        nid = creates[0][1]
+        probe = scored["probe"]
+        require(probe["node_id"] == nid and probe["gpu_ids"] == [0]
+                and probe["cuda_visible_devices"] == "0"
+                and scored["env_job_id"] == OPS_JOB_ID
+                and scored["cuda_visible_devices"] == ""
+                and not scored["torch_loaded"],
+                f"the job's actor on {probe['node_id']} (launched {nid}), "
+                f"{ {k: v for k, v in scored.items() if k != 'nll'} }")
+        got = np.asarray(scored["nll"], np.float32)
+        require(got.shape == (AIR_ROWS,) and np.isfinite(got).all()
+                and np.array_equal(got, driver_nll),
+                f"the job's NLLs differ from phase 27's driver forward: "
+                f"max {float(np.abs(got - driver_nll).max())}")
+        counts = [{}] + scored["launches"]
+        steps = [{k: b[k] - a.get(k, 0) for k in b}
+                 for a, b in zip(counts, counts[1:])]
+        require(all(d == {"whole_attention_forward": n_layer}
+                    for d in steps),
+                f"the job's actor launched {steps} per batch, want "
+                f"{n_layer} whole-kv forwards only")
+        # C7: while the actor holds the card the request stands and is
+        # met (JAX's rule, against the free GPU, leaves it unmet)
+        held = [t for t in scaler.ticks if t["requests"]
+                and t["free_gpu"].get(nid) == 0.0]
+        require(held and all(t["unmet"] == [] for t in held),
+                f"ticks with the card in use: {held}")
+
+        # (b) observability while the actor lives
+        t_obs = time.perf_counter()
+        alive = {n["node_id"]: n for n in state.list_nodes() if n["alive"]}
+        actors = state.list_actors(filters={"name": OPS_SCORER})
+        n_batches = AIR_ROWS // AIR_BATCH
+        deadline = time.time() + 30     # the task events' flush ticks
+        while True:
+            calls = [t for t in state.summarize_tasks()["summary"]
+                     if t["name"] == "OpsScorer.score"]
+            listed = [t for t in state.list_tasks(
+                filters={"name": "OpsScorer.score"}, limit=10000)
+                if t["state"] == "FINISHED"]
+            if len(listed) >= n_batches or time.time() > deadline:
+                break
+            time.sleep(0.2)
+        jobs = [j for j in state.list_jobs()
+                if j.get("driver_pid") == scored["pid"]]
+        require(len(alive) == 2 and nid in alive
+                and [(a["state"], a.get("node_id")) for a in actors]
+                == [("ALIVE", nid)]
+                and sum(t["by_state"].get("FINISHED", 0)
+                        for t in calls) == n_batches
+                and len(listed) == n_batches and jobs,
+                f"state API: nodes {list(alive)}, actors {actors}, "
+                f"score calls {calls}, listed {len(listed)}, jobs {jobs}")
+
+        def get(path):
+            with urllib.request.urlopen(base + path, timeout=60) as r:
+                return r.read().decode()
+
+        d_nodes = json.loads(get("/api/nodes"))["nodes"]
+        d_actors = json.loads(get("/api/actors"))["actors"]
+        d_jobs = json.loads(get("/api/jobs/"))["jobs"]
+        metrics_text = get("/metrics")
+        gauge = {k: re.search(
+            rf'^ray_tpu_torch_node_gpu_{k}{{node="{nid[:16]}"}} (\S+)$',
+            metrics_text, re.M) for k in ("num_gpus", "gpus_available")}
+        rows_metric = re.search(r"^phase29_scored_rows (\S+)$",
+                                metrics_text, re.M)
+        require(len([n for n in d_nodes if n["alive"]]) == 2
+                and any(a.get("name") == OPS_SCORER
+                        and a["state"] == "ALIVE" for a in d_actors)
+                and any(j["job_id"] == OPS_JOB_ID
+                        and j["status"] == "RUNNING" for j in d_jobs)
+                and all(gauge.values())
+                and float(gauge["num_gpus"].group(1)) == 1.0
+                and float(gauge["gpus_available"].group(1)) == 0.0
+                and rows_metric and float(rows_metric.group(1)) == AIR_ROWS,
+                f"dashboard: nodes {d_nodes}, jobs {d_jobs}, gauges "
+                f"{ {k: v and v.group(0) for k, v in gauge.items()} }, "
+                f"rows {rows_metric and rows_metric.group(0)}")
+        t0 = time.perf_counter()
+        cli = {tag: subprocess.Popen(
+            [sys.executable, "-c", CLI_PROBE, *argv, "--address",
+             w.gcs_address], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, cwd=os.path.dirname(os.path.abspath(__file__)))
+            for tag, argv in (("status", ["status"]),
+                              ("actors", ["list", "actors"]),
+                              ("jobs", ["job", "list"]))}
+        cli_out = {tag: p.communicate(timeout=120)
+                   for tag, p in cli.items()}
+        out["cli_s"] = time.perf_counter() - t0
+        for tag, p in cli.items():
+            o, e = cli_out[tag]
+            require(p.returncode == 0
+                    and o.rstrip().endswith("TORCH False")
+                    and {"status": '"nodes_alive": 2', "actors": OPS_SCORER,
+                         "jobs": OPS_JOB_ID}[tag] in o,
+                    f"cli {tag}: rc {p.returncode}\n{o[-2000:]}\n"
+                    f"{e[-2000:]}")
+        out["observe_s"] = time.perf_counter() - t_obs
+
+        # the job ends: its actor killed, its request dropped
+        with open(release, "w") as f:
+            f.write("1")
+        deadline = time.time() + 120
+        while status == "RUNNING" and time.time() < deadline:
+            status = client.get_job_status(job_id)
+            time.sleep(0.1)
+        info = client.get_job_info(job_id)
+        logs = client.get_job_logs(job_id)
+        done = _log_line(logs, "OPS_DONE")
+        require(status == "SUCCEEDED" and done and done["released"]
+                and not done["torch_loaded"]
+                and _log_line(logs, "OPS_SCORED") == scored,
+                f"job {job_id}: {status}\n{logs[-4000:]}")
+
+        # (c) the idle node reaped
+        deadline = time.time() + OPS_IDLE_S + 60
+        while not [e for e in provider.events if e[0] == "terminate"] \
+                and time.time() < deadline:
+            time.sleep(0.05)
+        terms = [e for e in provider.events if e[0] == "terminate"]
+        require(len(terms) == 1 and terms[0][1] == nid,
+                f"after the job: {provider.events}")
+        # the start of the idle spell that ended in the reap (a tick
+        # keeps the spells the ticks before it saw)
+        spells = [t["idle_since"][nid] for t in scaler.ticks
+                  if nid in t["idle_since"]]
+        idle_from = spells[-1] if spells else None
+        require(idle_from is not None and idle_from >= done["t_drop"] - 0.5
+                and terms[0][2] - idle_from <= OPS_IDLE_S + 2 * OPS_TICK_S,
+                f"the node idle from {idle_from}, terminated at "
+                f"{terms[0][2]} (request dropped at {done['t_drop']})")
+        deadline = time.time() + 30
+        while time.time() < deadline and any(
+                n["node_id"] == nid and n["alive"]
+                for n in state.list_nodes()):
+            time.sleep(0.1)
+        require(not _running(provider.reaped_raylet)
+                and not _running(probe["pid"])
+                and not [n for n in state.list_nodes()
+                         if n["node_id"] == nid and n["alive"]]
+                and provider.non_terminated_nodes() == [],
+                f"the reaped node: raylet {provider.reaped_raylet} "
+                f"running {_running(provider.reaped_raylet)}, its GPU "
+                f"worker {probe['pid']} "
+                f"running {_running(probe['pid'])}")
+        monitor.stop(timeout=10)
+        stats = monitor.stats()
+        require(stats["failed_updates"] == 0,
+                f"autoscaler updates failed: {stats}")
+
+        # (d) the control plane's round trip, split (host only)
+        breakdown = ray_perf.breakdown(n=OPS_BREAKDOWN_N)
+        require(set(breakdown) == {"wire", "dispatch", "execute", "reply",
+                                   "total"} and rt.is_initialized(),
+                f"ray_perf.breakdown: {breakdown}")
+        launched, reaped = creates[0], terms[0]
+        out.update({
+            "job_id": job_id, "launched_node": nid,
+            "actor": {k: probe[k] for k in ("node_id", "gpu_ids", "pid",
+                                            "build_s")},
+            "request_to_launched_s": launched[2] - scored["t_request"],
+            "launch_s": launched[3] - launched[2],
+            "launched_to_registered_s": min(
+                (t["t"] for t in scaler.ticks if nid in t["free_gpu"]),
+                default=float("nan")) - launched[3],
+            "actor_first_call_s": scored["t_first_call"]
+            - scored["t_request"],
+            "batch_ms": scored["batch_ms"],
+            "batch_ms_p50": pct(scored["batch_ms"], 50),
+            "job_wall_s": info["end_time"] - info["start_time"],
+            "drop_to_terminated_s": reaped[2] - done["t_drop"],
+            "idle_to_terminated_s": reaped[2] - idle_from,
+            "reap_s": reaped[3] - reaped[2],
+            "c7_ticks_in_use": len(held), "monitor": stats,
+            "ticks": len(scaler.ticks), "nll_bit_equal": True,
+            "nll_mean": float(got.mean()), "breakdown": breakdown})
+    finally:
+        if not os.path.exists(release):
+            with open(release, "w") as f:
+                f.write("1")
+        if monitor is not None:
+            monitor.stop(timeout=10)
+        for nid_left in (provider.non_terminated_nodes()
+                         if provider is not None else []):
+            provider.terminate_node(nid_left)
+        t0 = time.perf_counter()
+        rt.shutdown()
+        out["shutdown_s"] = time.perf_counter() - t0
+        shutil.rmtree(tmp, ignore_errors=True)
+        if actor_events is None:
+            os.environ.pop("RTT_ACTOR_TASK_EVENTS", None)
+        else:
+            os.environ["RTT_ACTOR_TASK_EVENTS"] = actor_events
+    left = stop_leftovers()
+    require(not left, f"processes left after phase 29's shutdown: {left}")
+    rebuilt = [n for n, p in built.items() if os.path.getmtime(p) != mtimes[n]]
+    require(not rebuilt, f"kernel libraries rebuilt during phase 29: "
+            f"{rebuilt}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print("ops", json.dumps(out), flush=True)
+    return {**out, "scorer_launches": dict(scored["launches"][-1])}
+
+
 def main() -> int:
     t0 = time.perf_counter()
     import torch
@@ -5704,6 +6199,14 @@ def main() -> int:
 
     mark("28")
 
+    # 29. cluster operations: a job submitted over the dashboard's REST
+    # API scores phase 27's rows in a GPU actor on a node the autoscaler
+    # launched for it and reaps after it; the state API, the dashboard,
+    # util.metrics and the CLI read the cluster meanwhile; ray_perf
+    ops = ops_phase(name, card, air["driver_nll"])
+
+    mark("29")
+
     # 13. summary
     def kernel_entry(case, kname, source, line, by_path):
         """``by_path``: {path: launches of ``kname`` in its counted
@@ -5732,7 +6235,8 @@ def main() -> int:
                   ("tune_gpt2_trials", tuned["gpt2_launches"]),
                   ("air_batch_predict", air["predict_launches"]),
                   ("compiled_dag_stage", clustered["scorer_launches"]["dag"]),
-                  ("ray_client", clustered["scorer_launches"]["client"]))
+                  ("ray_client", clustered["scorer_launches"]["client"]),
+                  ("autoscaled_job", ops["scorer_launches"]))
     streaming_paths = (("llama_train", llama_counts),
                        ("mesh_gpt2_exact", mesh_counts["gpt2_exact"]),
                        ("ring_schedule", ring["launches"]),

@@ -331,8 +331,23 @@ class Server:
         return self._server.sockets[0].getsockname()[1]
 
     def close(self):
-        if self._server is not None:
-            self._server.close()
+        srv = self._server
+        if srv is not None:
+            loop = srv.get_loop()
+            try:
+                on_loop = asyncio.get_running_loop() is loop
+            except RuntimeError:
+                on_loop = False
+            if loop.is_running() and not on_loop:
+                # asyncio.Server is not thread-safe: closed from another
+                # thread it races the loop's own _detach -> _wakeup of a
+                # connection that ends at the same moment, and the second
+                # _wakeup raises TypeError (waiters already None) before
+                # any connection below is closed, abandoning their read
+                # loops ("Task was destroyed but it is pending!")
+                loop.call_soon_threadsafe(srv.close)
+            else:
+                srv.close()
         for c in list(self.connections):
             c.close()
 

@@ -162,7 +162,35 @@ def test_port_files_found():
                 "util/client/common", "util/client/server",
                 "util/client/worker", "util/cross_language"):
         assert f"ray_tpu_torch/{mod}.py" in rel
+    for jax_file, port_file in OPS_FILES:
+        assert port_file in rel, jax_file
     assert len(files) > 10
+
+
+# cluster operations: each JAX file and its port namesake
+OPS_FILES = [(f"ray_tpu/{m}.py", f"ray_tpu_torch/{m}.py") for m in (
+    "autoscaler/__init__", "autoscaler/node_provider",
+    "autoscaler/autoscaler", "autoscaler/config", "autoscaler/commands",
+    "autoscaler/aws", "autoscaler/azure", "autoscaler/kubernetes",
+    "autoscaler/command_runner", "autoscaler/updater",
+    "experimental/__init__", "experimental/state/__init__",
+    "experimental/state/api", "job_submission", "dashboard/__init__",
+    "dashboard/dashboard", "dashboard/frontend", "dashboard/grafana",
+    "scripts/__init__", "scripts/cli", "_private/ray_perf",
+    "util/metrics")] + [("ray_tpu/autoscaler/gcp_tpu.py",
+                         "ray_tpu_torch/autoscaler/gcp_gpu.py")]
+
+
+@pytest.mark.parametrize("jax_file,port_file", OPS_FILES,
+                         ids=[p for _, p in OPS_FILES])
+def test_ops_files_have_port_namesakes(jax_file, port_file):
+    """Each port file names its JAX source in its docstring."""
+    assert os.path.exists(os.path.join(REPO_ROOT, jax_file))
+    path = os.path.join(REPO_ROOT, port_file)
+    with open(path, encoding="utf-8") as f:
+        doc = ast.get_docstring(ast.parse(f.read())) or ""
+    assert jax_file in doc.replace("``", " ").split(), doc
+    assert _violations(path) == []
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -213,6 +241,29 @@ def test_dag_and_client_import_without_torch():
         "from ray_tpu_torch.util.client import ClientObjectRef\n"
         "from ray_tpu_torch.util.client.server import ClientServer\n"
         "from ray_tpu_torch._private.cluster_utils import Cluster\n"
+        "print(sorted(m for m in ('torch', 'ray_tpu_torch.kernels')"
+        " if m in sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=REPO_ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_ops_modules_import_without_torch():
+    """A job's driver, the dashboard, the CLI and the autoscaler load
+    neither torch nor the kernels."""
+    code = (
+        "import sys\n"
+        "import ray_tpu_torch.autoscaler, ray_tpu_torch.job_submission\n"
+        "import ray_tpu_torch.dashboard, ray_tpu_torch.experimental.state\n"
+        "import ray_tpu_torch.util.metrics, ray_tpu_torch._private.ray_perf\n"
+        "import ray_tpu_torch.scripts.cli\n"
+        "from ray_tpu_torch.autoscaler import (AutoscalerMonitor,"
+        " FakeMultiNodeProvider, GCPGPUNodeProvider, request_resources)\n"
+        "from ray_tpu_torch.dashboard.grafana import generate_dashboards\n"
+        "generate_dashboards()\n"
         "print(sorted(m for m in ('torch', 'ray_tpu_torch.kernels')"
         " if m in sys.modules))\n")
     env = dict(os.environ, PYTHONPATH=REPO_ROOT)

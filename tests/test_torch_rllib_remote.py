@@ -265,10 +265,20 @@ def _ppo_batch(n, seed):
 
 def test_remote_learners_match_jax():
     """Two CPU learner actors: three updates (the last batch has 1 row,
-    so the first learner's shard is empty and skipped). Both learners
-    end equal (LEARNERS_ATOL), and equal to JAX's learner run locally:
-    compute_gradients on the same non-empty shards, averaged, applied
-    with apply_gradients (RTOL)."""
+    so the first learner's shard is empty and skipped). At each update
+    the learners' averaged grads (``compute_gradients`` on the non-empty
+    shards, which leaves the params as they are) equal JAX's learner's
+    on the same shards (RTOL); JAX's learner then applies those averaged
+    grads with its ``apply_gradients``. Both learners end equal
+    (LEARNERS_ATOL), and equal to JAX's learner (RTOL).
+
+    JAX applies the port's grads, not its own: Adam's first step moves a
+    param by lr * g / (|g| + eps), and some grads here are of the order
+    of eps (1e-8), where a grad's last-bit rounding, which differs from
+    one CPU's kernels to another's, moves the param by a sizeable share
+    of lr (a 4.6e-5 gap was seen). The grads themselves are held to JAX's
+    at every step, where that amplification is absent."""
+    from ray_tpu_torch.rllib.core.learner_group import _avg_host_grads
     conf = {"lr": 5e-3, "grad_clip": 0.5}
     mid = JCORE.DEFAULT_MODULE_ID
     jl = JCORE.PPOLearner(module_spec=JCORE.RLModuleSpec(
@@ -286,13 +296,28 @@ def test_remote_learners_match_jax():
         group.set_state({"module": {mid: sd}})
         for i, n in enumerate((48, 48, 1)):
             batch = _ppo_batch(n, seed=i)
+            pairs = [(w, s) for w, s in zip(group._workers,
+                                            group._shard(batch, 2))
+                     if group._shard_rows(s) > 0]
+            port_avg = _avg_host_grads([g[mid] for g in rt.get(
+                [w.compute_gradients.remote(s) for w, s in pairs])])
             out = group.update_from_batch(batch)
             shards = [s for s in JLG.LearnerGroup._shard(batch, 2)
                       if JLG.LearnerGroup._shard_rows(s) > 0]
             assert out == {mid: {"workers": float(len(shards))}}
+            assert len(pairs) == len(shards)
             grads = [jl.compute_gradients(s) for s in shards]
-            jl.apply_gradients({mid: JLG._avg_pytrees(
-                [g[mid] for g in grads])})
+            jax_avg = JLG._avg_pytrees([g[mid] for g in grads])
+            for k, w in TM.params_from_flax(
+                    jax.device_get(jax_avg)).items():
+                _close(port_avg[k], w.numpy(), RTOL,
+                       f"update {i} averaged grad {k}")
+            # the port's averaged grads as a flax tree (Dense kernels
+            # [in, out] are the port's weights transposed)
+            tree = {name: {"kernel": port_avg[f"{name}.weight"].T,
+                           "bias": port_avg[f"{name}.bias"]}
+                    for name in jax_avg}
+            jl.apply_gradients({mid: tree})
         states = rt.get([w.get_state.remote() for w in group._workers])
         for k in sd:
             np.testing.assert_allclose(states[1]["module"][mid][k],
