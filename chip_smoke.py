@@ -121,7 +121,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
               relative and its params within 1e-6 where the step's
               |grad| passes PARAM_MASK; the ResNet by phase 11a's
               rule (RESNET_LOSS_REL, RESNET_TOL) on logits, params and
-              batch stats. (a) bench.gpt2_loop on the mesh route (GPT-2
+              batch stats. The same GPT-2 step at MESH_DROPOUT (GPT-2's
+              published 0.1) without a group and on the mesh route, at
+              one seed: held by the same rule (the mesh route's rank
+              applies its rows of the one-device mask), its loss apart
+              from the dropout-0 step's, #1 and #2 launched n_layer
+              times each (path mesh_dropout). (a) bench.gpt2_loop on the mesh route (GPT-2
               small, 16 x 1024 bf16; 2 timed windows of the bench's 6,
               CUT_WINDOWS): each whole-kv kernel and the delta
               pass exactly n_layer times a step, collectives counted;
@@ -645,6 +650,12 @@ PARAM_MASK = 1e-6
 # phase 12c: GPT-2's f32 step on the mesh route (world size 1) against
 # the route without a group: loss and grad_norm within MESH_REL relative
 MESH_REL = 1e-6
+# phase 12c's dropout step: GPT-2's published dropout; its loss must be
+# at least MESH_DROPOUT_GAP relative away from the dropout-0 step's, 100
+# times the rounding the mesh route is held to (MESH_REL): a CPU
+# rehearsal (tiny GPT-2, 2 x 64 tokens, random init) gave 6.6e-4
+MESH_DROPOUT = 0.1
+MESH_DROPOUT_GAP = 100 * MESH_REL
 # phase 14a: the ring's bf16 outputs against the whole-sequence streaming
 # kernels', each measured against the f64 function: the ring's max and
 # rms error at most RING_RATIO times the whole sequence's. The ring
@@ -1446,10 +1457,12 @@ def hold_mesh_step(tag, mesh, plain):
 
 def mesh_phase(cfg, tokens, phase6, phase11, name, card):
     """Phase 12 (module docstring): (c) the narrow steps without a
-    group, the group, (c) again on the mesh route, (a) GPT-2 small and
-    the exact=True line, (b) ResNet-50; the group is destroyed however
-    the phase ends. Returns the kernels' launch counts of (a)'s timed
-    steps ("gpt2_train") and of the exact step ("gpt2_exact")."""
+    group (at dropout 0 and MESH_DROPOUT), the group, (c) again on the
+    mesh route, (a) GPT-2 small and the exact=True line, (b) ResNet-50;
+    the group is destroyed however the phase ends. Returns the kernels'
+    launch counts of (a)'s timed steps ("gpt2_train"), of the exact
+    step ("gpt2_exact") and of the mesh route's dropout step
+    ("gpt2_mesh_dropout")."""
     import torch
     import torch.distributed as dist
     from ray_tpu_torch import bench, kernels
@@ -1458,8 +1471,11 @@ def mesh_phase(cfg, tokens, phase6, phase11, name, card):
     from ray_tpu_torch.train import spmd
 
     narrow = dataclasses.replace(cfg, n_layer=2, dtype=torch.float32)
+    dropped = dataclasses.replace(narrow, dropout=MESH_DROPOUT)
     plain = {"gpt2": one_step(narrow, A.TRAINING_KERNELS, tokens),
+             "gpt2_dropout": one_step(dropped, A.TRAINING_KERNELS, tokens),
              "resnet": resnet_narrow_step("cuda")}
+    loss_no_dropout = plain["gpt2"]["loss"]
     with one_rank_group():
         # (c) the mesh route against the route without a group
         collectives.reset_call_counts()
@@ -1468,6 +1484,30 @@ def mesh_phase(cfg, tokens, phase6, phase11, name, card):
                 "the mesh route's GPT-2 step ran no collective")
         hold_mesh_step("mesh_gpt2_numerics", mesh_gpt2, plain["gpt2"])
         del mesh_gpt2, plain["gpt2"]
+        # the same step at GPT-2's dropout: each rank's rows of the
+        # one-device mask (world size 1: the whole mask)
+        mesh_drop = one_step(dropped, A.TRAINING_KERNELS, tokens)
+        res = hold_mesh_step("mesh_gpt2_dropout_numerics", mesh_drop,
+                             plain["gpt2_dropout"])
+        gap = abs(mesh_drop["loss"] - loss_no_dropout) / loss_no_dropout
+        print("mesh_dropout", json.dumps({
+            "dropout": MESH_DROPOUT, "n_layer": dropped.n_layer,
+            "tokens": list(tokens.shape), "loss": mesh_drop["loss"],
+            "loss_no_dropout": loss_no_dropout, "loss_gap_rel": gap,
+            "gap_min": MESH_DROPOUT_GAP, "launches": mesh_drop["launches"],
+            "held": res}), flush=True)
+        require(gap >= MESH_DROPOUT_GAP,
+                f"mesh dropout step: loss {mesh_drop['loss']} within "
+                f"{MESH_DROPOUT_GAP} of the dropout-0 step's "
+                f"{loss_no_dropout}: the masks did not run")
+        want = {k: dropped.n_layer for k in (
+            "whole_attention_forward", "whole_attention_backward",
+            "attention_delta")}
+        require(mesh_drop["launches"] == want,
+                f"mesh dropout step launched {mesh_drop['launches']}, "
+                f"want {want}")
+        drop_counts = mesh_drop["launches"]
+        del mesh_drop, plain["gpt2_dropout"]
         collectives.reset_call_counts()
         mesh_resnet = resnet_narrow_step("cuda")
         n_bn = 1 + 4 * 3 + 4        # the narrow net's batch norms
@@ -1490,7 +1530,7 @@ def mesh_phase(cfg, tokens, phase6, phase11, name, card):
                 ("whole_attention_forward", "whole_attention_backward",
                  "attention_delta")}
         require(counts == want, f"mesh gpt2: launched {counts}, want {want}")
-        out = {"gpt2_train": counts}
+        out = {"gpt2_train": counts, "gpt2_mesh_dropout": drop_counts}
         calls = g["gpt2_collective_calls"]
         require(calls.get("all_reduce", 0) > 0,
                 f"mesh gpt2: collectives {calls}")
@@ -6228,6 +6268,7 @@ def main() -> int:
 
     gpt2_paths = (("gpt2_train", train_counts),
                   ("mesh_gpt2_train", mesh_counts["gpt2_train"]),
+                  ("mesh_dropout", mesh_counts["gpt2_mesh_dropout"]),
                   ("pipelined_train", pipe_counts),
                   ("checkpoint_train", ckpt["checkpoint"]["launches"]),
                   ("runtime_actor_train", runtime["train_launches"]),

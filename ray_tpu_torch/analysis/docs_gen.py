@@ -1,0 +1,204 @@
+"""Doc generators kept honest by the analyzers.
+
+* ``render_configuration()`` → docs/torch/CONFIGURATION.md: the
+  ``RTT_*`` registry (``config_registry.CONFIG_VARS``) merged with where
+  each variable is actually read in ``ray_tpu_torch/``, the port's tests
+  and ``chip_smoke.py`` (the same AST extraction RTPU005 uses, so docs
+  and checker can't disagree).
+* ``render_chaos_sites()`` → the site table in
+  docs/torch/FAULT_TOLERANCE.md, rendered from ``chaos.SITES`` between
+  ``<!-- chaos-sites:begin/end -->`` markers (RTPU004 enforces the
+  registry; this keeps the docs a projection of it).
+
+Both run via ``python -m ray_tpu_torch.analysis --gen-docs``; the
+round-trip test regenerates and asserts the committed files are
+byte-identical.
+
+The port's copy of ``ray_tpu/analysis/docs_gen.py``: it writes under
+``docs/torch/`` and never touches the JAX package's ``docs/*.md``.
+"""
+
+from __future__ import annotations
+
+import ast
+import glob
+import os
+from typing import Dict, Iterable, List, Optional, Tuple
+
+from ray_tpu_torch.analysis.core import iter_py_files
+
+DOCS_DIR = ("docs", "torch")
+
+_GENERATED_NOTE = (
+    "<!-- GENERATED by `python -m ray_tpu_torch.analysis --gen-docs` "
+    "from ray_tpu_torch/analysis/config_registry.py — edit the registry, "
+    "not this file. tests/test_torch_analysis.py fails if this file is "
+    "stale. -->")
+
+CHAOS_BEGIN = "<!-- chaos-sites:begin -->"
+CHAOS_END = "<!-- chaos-sites:end -->"
+
+
+def scan_env_reads(paths: Iterable[str], root: str
+                   ) -> Dict[str, List[str]]:
+    """var name -> sorted unique relpaths that read it (RTT_* only)."""
+    from ray_tpu_torch.analysis.checkers.env_registry import env_reads
+    out: Dict[str, set] = {}
+    for fp in iter_py_files(paths):
+        try:
+            with open(fp, encoding="utf-8", errors="replace") as fh:
+                tree = ast.parse(fh.read(), filename=fp)
+        except SyntaxError:
+            continue
+        rel = os.path.relpath(fp, root).replace(os.sep, "/")
+        for name, _node in env_reads(tree):
+            if name.startswith("RTT_"):
+                out.setdefault(name, set()).add(rel)
+    return {k: sorted(v) for k, v in sorted(out.items())}
+
+
+def scan_paths(repo_root: str) -> List[str]:
+    """What reads the port's knobs: the package, its tests
+    (``tests/test_torch_*.py``; the JAX package's tests read ``RTPU_*``)
+    and ``chip_smoke.py``."""
+    tests = sorted(glob.glob(os.path.join(repo_root, "tests",
+                                          "test_torch_*.py")))
+    return ([os.path.join(repo_root, "ray_tpu_torch")] + tests
+            + [os.path.join(repo_root, "chip_smoke.py")])
+
+
+def render_configuration(repo_root: str) -> str:
+    from ray_tpu_torch.analysis.config_registry import (CONFIG_VARS,
+                                                        system_config_vars)
+    reads = scan_env_reads(scan_paths(repo_root), repo_root)
+    dynamic = set(system_config_vars()) - set(
+        k for k in CONFIG_VARS if CONFIG_VARS[k]["subsystem"]
+        != "system-config")
+
+    lines = [
+        "# Configuration of the port: the `RTT_*` environment variables",
+        "",
+        _GENERATED_NOTE,
+        "",
+        "Every knob `ray_tpu_torch` reads, registered in "
+        "`ray_tpu_torch/analysis/config_registry.py`. rtpulint "
+        "**RTPU005** fails on any `RTT_*` read missing from the registry "
+        "(with near-miss typo detection), and the registry round-trip "
+        "test fails on entries nothing mentions — name drift is "
+        "impossible in either direction. See "
+        "[STATIC_ANALYSIS.md](../STATIC_ANALYSIS.md) for the enforcement "
+        "workflow (`ray-tpu-torch lint`, `python -m "
+        "ray_tpu_torch.analysis`). The JAX package's `RTPU_*` knobs "
+        "are in [../CONFIGURATION.md](../CONFIGURATION.md); the port "
+        "reads none of them.",
+        "",
+        "Values are read at process start (unless noted); they reach "
+        "spawned processes by env inheritance, so export at the "
+        "driver to cover the cluster.",
+    ]
+    by_sub: Dict[str, List[str]] = {}
+    for name, meta in CONFIG_VARS.items():
+        if name in dynamic:
+            continue  # rendered in the SystemConfig section below
+        by_sub.setdefault(meta["subsystem"], []).append(name)
+    for sub in sorted(by_sub):
+        lines += ["", f"## {sub}", "",
+                  "| variable | default | description | read at |",
+                  "|---|---|---|---|"]
+        for name in sorted(by_sub[sub]):
+            meta = CONFIG_VARS[name]
+            where = ", ".join(f"`{p}`" for p in reads.get(name, [])) \
+                or "—"
+            desc = meta["description"].replace("|", "\\|")
+            lines.append(f"| `{name}` | {meta['default']} | {desc} | "
+                         f"{where} |")
+
+    lines += [
+        "", "## SystemConfig overrides", "",
+        "Every field of the `SystemConfig` dataclass "
+        "(`ray_tpu_torch/common/config.py`) is overridable as "
+        "`RTT_<FIELD_UPPER>`; the head process resolves the config "
+        "once and distributes it cluster-wide via the control-plane "
+        "handshake (`RTT_SYSTEM_CONFIG` carries JSON overrides "
+        "wholesale). Derived programmatically — a new field is "
+        "registered the moment it's declared.", "",
+        "| variable | default | SystemConfig field |",
+        "|---|---|---|"]
+    for name, meta in sorted(system_config_vars().items()):
+        if name in CONFIG_VARS and \
+                CONFIG_VARS[name]["subsystem"] != "system-config":
+            continue  # a hand-written entry documents it above
+        field = name[len("RTT_"):].lower()
+        lines.append(f"| `{name}` | `{meta['default']}` | `{field}` |")
+    lines += [
+        "", "Cross-references (the JAX package's docs of the same "
+        "subsystems, whose `RTPU_*` knobs read `RTT_*` here): "
+        "[OBSERVABILITY.md](../OBSERVABILITY.md) "
+        "(tracing/metrics/task-event knobs), "
+        "[FAULT_TOLERANCE.md](FAULT_TOLERANCE.md) (`RTT_CHAOS`), "
+        "[SERVE_DATAPLANE.md](../SERVE_DATAPLANE.md) (`RTT_SERVE_*`), "
+        "[DATA_STREAMING.md](../DATA_STREAMING.md) "
+        "(`RTT_DATA_STREAMING`), "
+        "[WIRE_PROTOCOL.md](../WIRE_PROTOCOL.md) "
+        "(`RTT_VALIDATE_WIRE`).", ""]
+    return "\n".join(lines)
+
+
+def render_chaos_sites() -> str:
+    """The markdown table between the FAULT_TOLERANCE.md markers."""
+    from ray_tpu_torch._private.chaos import SITES
+    lines = ["| site | where | ops |", "|---|---|---|"]
+    for site, meta in SITES.items():  # declaration order is the doc order
+        ops = ", ".join(f"`{op}`" for op in meta["ops"])
+        lines.append(f"| `{site}` | {meta['where']} | {ops} |")
+    lines.append("")
+    lines.append(f"({len(SITES)} declared sites — the table renders "
+                 f"`chaos.SITES` in `ray_tpu_torch/_private/chaos.py`; "
+                 f"rtpulint RTPU004 rejects a `chaos.hit()` on an "
+                 f"undeclared site, and the registry round-trip test "
+                 f"requires every declared site to be hit in "
+                 f"`ray_tpu_torch/` and pins the list of those no "
+                 f"`tests/test_torch_*.py` exercises yet, which may "
+                 f"only shrink.)")
+    return "\n".join(lines)
+
+
+def splice_chaos_sites(doc_text: str) -> str:
+    """Replace the marker-delimited block in FAULT_TOLERANCE.md."""
+    try:
+        head, rest = doc_text.split(CHAOS_BEGIN, 1)
+        _, tail = rest.split(CHAOS_END, 1)
+    except ValueError:
+        raise ValueError(
+            f"docs/torch/FAULT_TOLERANCE.md is missing the {CHAOS_BEGIN} / "
+            f"{CHAOS_END} markers")
+    return (head + CHAOS_BEGIN + "\n" + render_chaos_sites() + "\n"
+            + CHAOS_END + tail)
+
+
+def generate_all(repo_root: str, write: bool = True
+                 ) -> Dict[str, Tuple[str, bool]]:
+    """Regenerate both docs. Returns path -> (content, changed)."""
+    out: Dict[str, Tuple[str, bool]] = {}
+    cfg_path = os.path.join(repo_root, *DOCS_DIR, "CONFIGURATION.md")
+    cfg = render_configuration(repo_root)
+    out[cfg_path] = (cfg, _maybe_write(cfg_path, cfg, write))
+
+    ft_path = os.path.join(repo_root, *DOCS_DIR, "FAULT_TOLERANCE.md")
+    with open(ft_path, encoding="utf-8") as fh:
+        spliced = splice_chaos_sites(fh.read())
+    out[ft_path] = (spliced, _maybe_write(ft_path, spliced, write))
+    return out
+
+
+def _maybe_write(path: str, content: str, write: bool) -> bool:
+    old: Optional[str] = None
+    if os.path.exists(path):
+        with open(path, encoding="utf-8") as fh:
+            old = fh.read()
+    changed = old != content
+    if write and changed:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w", encoding="utf-8") as fh:
+            fh.write(content)
+    return changed

@@ -16,7 +16,8 @@ Counterpart of ``ray_tpu/models/gpt2.py`` with the same numerics:
     multiplies in ``cfg.dtype``, so bf16 models give bf16 logits;
   - dropout draws from an explicit ``torch.Generator`` and runs only
     when one is passed (flax's ``deterministic=False`` with a dropout
-    rng).
+    rng); on a mesh a ``MeshDropout`` over that generator gives each
+    rank its rows of the one-device mask.
 
 ``attention_backend="flash"`` runs ``ops.attention.flash_attention``
 (the whole-kv CUDA kernels at GPT-2's shapes; the streaming ones with
@@ -61,6 +62,7 @@ from ray_tpu_torch.ops.attention import (TRAINING_KERNELS, TRAINING_PLAIN,
                                          paged_attention_decode)
 from ray_tpu_torch.ops.ring_attention import ring_attention
 from ray_tpu_torch.parallel import collectives as C
+from ray_tpu_torch.parallel.mesh import BATCH_AXES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,14 +140,41 @@ class LayerNorm(nn.LayerNorm):
         return super().forward(x.float())
 
 
-def dropout(x, p: float, generator: Optional[torch.Generator]):
+class MeshDropout:
+    """The one-device dropout stream on one rank of a mesh. Each draw is
+    the mask of the whole global [B, S, ...] (B split over the batch's
+    (dp, fsdp) ranks, S over sp; tp ranks hold the same rows), drawn from
+    ``generator`` in the one-device order, of which the rank keeps its
+    rows and positions. So a mesh step drops the units that the same
+    step on one device drops."""
+
+    def __init__(self, generator: torch.Generator, mesh):
+        self.generator = generator
+        self.mesh = mesh
+
+    def keep(self, shape, p: float, device) -> torch.Tensor:
+        mesh = self.mesh
+        B, S = shape[0], shape[1]
+        nb, ib = mesh.size(BATCH_AXES), mesh.index(BATCH_AXES)
+        ns, isp = mesh.size("sp"), mesh.index("sp")
+        u = torch.rand((B * nb, S * ns, *shape[2:]),
+                       generator=self.generator, device=device)
+        return u[ib * B:(ib + 1) * B, isp * S:(isp + 1) * S] >= p
+
+
+def dropout(x, p: float,
+            generator: Union[torch.Generator, MeshDropout, None]):
     """flax ``nn.Dropout``: identity without a generator (deterministic);
     otherwise keep each element with probability 1 - p, scaled by
-    1 / (1 - p), from ``generator``'s stream."""
+    1 / (1 - p), from ``generator``'s stream (a ``MeshDropout``: this
+    rank's part of the global mask)."""
     if generator is None or p == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator,
-                      device=x.device) >= p
+    if isinstance(generator, MeshDropout):
+        keep = generator.keep(x.shape, p, x.device)
+    else:
+        keep = torch.rand(x.shape, generator=generator,
+                          device=x.device) >= p
     return torch.where(keep, x / (1.0 - p), 0.0)
 
 

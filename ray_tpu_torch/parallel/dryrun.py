@@ -406,12 +406,13 @@ def moe_sgd(spec: Optional[Dict[str, int]], x, *, num_experts: int = 4,
     """Phase 4's step on ``MeshSpec(**spec)`` (one device with None): a
     ``MoE`` layer from flax ``params`` or from ``init_weights(seed)``,
     its expert params stored in ep blocks (``expert_sharding_rule``),
-    on the rows of the global tokens ``x`` [S, d] that split over (dp,
-    fsdp); the loss mean(y^2) + 0.01 aux over the global batch, its
-    gradients, one SGD step (``lr``), the loss again. Returns the
-    losses, the global y and aux of the first forward, the whole
-    gradients and each param's block shape. ``device``: where it runs
-    without a process group."""
+    on this rank's part of the global tokens ``x`` ([S, d], or [B, T,
+    d] whose T sp splits): the rows that split over (dp, fsdp) and the
+    positions that split over sp; the loss mean(y^2) + 0.01 aux over the
+    global batch, its gradients, one SGD step (``lr``), the loss again.
+    Returns the losses, the global y and aux of the first forward, the
+    whole gradients and each param's block shape. ``device``: where it
+    runs without a process group."""
     from ray_tpu_torch.parallel import collectives as C
     from ray_tpu_torch.parallel import moe
     from ray_tpu_torch.parallel.mesh import MeshSpec
@@ -426,17 +427,20 @@ def moe_sgd(spec: Optional[Dict[str, int]], x, *, num_experts: int = 4,
     else:
         moe.moe_params_from_flax(params, layer)
     layer.to(mesh.device).set_mesh(mesh)
-    ms = spmd._MeshState(layer, mesh, mspec,
+    ms = spmd._MeshState(layer, mesh, mspec, sum_axes=spmd.TOKEN_AXES,
                          override=moe.expert_sharding_rule)
-    nb, bi = mesh.size(spmd.BATCH_AXES), mesh.index(spmd.BATCH_AXES)
-    rows = torch.as_tensor(x).chunk(nb)[bi].to(mesh.device)
+    rows = torch.as_tensor(x)
+    for dim, axis in ((0, spmd.BATCH_AXES), (1, "sp")):
+        if mesh.size(axis) > 1:
+            rows = rows.chunk(mesh.size(axis), dim)[mesh.index(axis)]
+    rows = rows.to(mesh.device)
 
     def loss_part():
         y, aux = layer(rows)
         return y, aux, y.square().sum() / x.size + 0.01 * aux
 
     def total(t):
-        return float(spmd._batch_sum(t.detach(), mesh))
+        return float(spmd._batch_sum(t.detach(), mesh, spmd.TOKEN_AXES))
 
     ms.gather()
     y, aux, l0 = loss_part()
@@ -449,8 +453,11 @@ def moe_sgd(spec: Optional[Dict[str, int]], x, *, num_experts: int = 4,
     ms.gather()
     with torch.no_grad():
         l1 = loss_part()[2]
+    y = y.detach()
+    if y.ndim > 2:
+        y = C.all_gather(y, "sp", mesh, gather_axis=1)
     return _numpy({"losses": (total(l0), total(l1)),
-                   "y": C.all_gather(y.detach(), spmd.BATCH_AXES, mesh),
+                   "y": C.all_gather(y, spmd.BATCH_AXES, mesh),
                    "aux": total(aux),
                    "grads": grads,
                    "blocks": {n: tuple(b.shape)

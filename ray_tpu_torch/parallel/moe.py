@@ -23,21 +23,26 @@ carried over.
 
 On a mesh (``set_mesh``) the layer keeps the semantics of one device
 over the global batch, as GSPMD gives the JAX package:
-  - a rank's tokens are its rows of the batch (split over (dp, fsdp));
-    the ep ranks that share those rows each route a 1/ep slice of them;
-  - the slot offsets come from every earlier slice's per-expert counts
-    (an exclusive prefix sum across ranks, in global token order), the
-    capacity and the aux loss's means from global counts;
+  - a rank's tokens are its rows of the batch (dim 0, split over (dp,
+    fsdp)) and, at sp > 1, its positions of them (dim 1, split over
+    sp); tp ranks hold the same tokens and route them alike; the ep
+    ranks that share the tokens each route a 1/ep slice of them;
+  - each token's slot is its rank among the global tokens routed to
+    its expert, in global token order (row-major over the global
+    batch): every rank gathers the (global position, expert) pairs of
+    the token-holding ranks (ep, sp, then (dp, fsdp)) and counts; the
+    capacity and the aux loss's means come from the global counts;
   - the experts are split over ep (rank i computes experts i E/ep to
     (i + 1) E/ep - 1): each slice's slots go to the rank of their
     expert by an ``all_to_all`` and come back by the inverse one, which
     is also the gradient's path (``collectives.all_to_all_grad``);
   - the outputs are gathered over ep, so y is the whole of the rank's
     rows on every ep rank. After the backward every ep rank holds the
-    whole gradient of every param for its rows, as under tp (the
-    trainers' ``_MeshState`` then sums over (dp, fsdp)); ``aux`` is
-    the rank's rows' part of the global aux loss (the parts sum to it
-    over (dp, fsdp)), as a batch shard's loss terms are.
+    whole gradient of every param for its tokens, as under tp (the
+    trainers' ``_MeshState`` then sums over (dp, fsdp), and sp);
+    ``aux`` is the rank's tokens' part of the global aux loss (the parts
+    sum to it over (dp, fsdp) and sp), as a batch shard's loss terms
+    are.
 """
 
 from __future__ import annotations
@@ -53,6 +58,10 @@ from torch import nn
 from ray_tpu_torch.models.gpt2 import Dense, _truncated_normal, dense
 from ray_tpu_torch.parallel import collectives as C
 from ray_tpu_torch.parallel.mesh import BATCH_AXES, _placements
+
+# the axes whose ranks hold distinct tokens, in the order their pairs
+# are gathered
+_TOKEN_SPLIT = ("ep", "sp", BATCH_AXES)
 
 
 class MoE(nn.Module):
@@ -78,9 +87,6 @@ class MoE(nn.Module):
         """Route over ``mesh``'s global batch and split the experts over
         its ep axis (module docstring); E must divide by ep."""
         ep = mesh.size("ep")
-        if mesh.size("sp") > 1 or mesh.size("tp") > 1:
-            raise ValueError("MoE splits tokens over (dp, fsdp) and experts "
-                             "over ep; sp and tp must be 1")
         if self.num_experts % ep:
             raise ValueError(f"ep={ep} must divide num_experts="
                              f"{self.num_experts}")
@@ -101,21 +107,46 @@ class MoE(nn.Module):
         self.router.bias.zero_()
         return self
 
+    @staticmethod
+    def _global_positions(lead, mesh) -> torch.Tensor:
+        """Each local token's index in the global token order: the
+        row-major flattening of the global ``lead`` dims, whose dim 0
+        (dp, fsdp) and, at sp > 1, dim 1 (sp) split over the ranks."""
+        glead, block = list(lead), [slice(None)] * len(lead)
+        for dim, axis in enumerate((BATCH_AXES, "sp")):
+            n = mesh.size(axis)
+            if n == 1:
+                continue
+            if dim >= len(lead):
+                raise ValueError(f"x of lead dims {list(lead)}: {axis} "
+                                 f"splits dim {dim}; pass [batch, seq, "
+                                 "d_model]")
+            glead[dim] = lead[dim] * n
+            i = mesh.index(axis)
+            block[dim] = slice(i * lead[dim], (i + 1) * lead[dim])
+        index = torch.arange(math.prod(glead)).view(glead)
+        return index[tuple(block)].reshape(-1)
+
     def forward(self, x):
         mesh = self.mesh
         *lead, d = x.shape
         E = self.num_experts
         xf = x.reshape(-1, d)
         n_rows = xf.shape[0]
-        n_b = 1 if mesh is None else mesh.size(BATCH_AXES)
+        n_tok = 1 if mesh is None else math.prod(
+            mesh.size(a) for a in (BATCH_AXES, "sp"))
         ep = 1 if mesh is None else mesh.size("ep")
         r = 0 if mesh is None else mesh.index("ep")
-        s_global = n_rows * n_b
+        s_global = n_rows * n_tok
         cap = max(1, int(self.capacity_factor * s_global / E))
         if n_rows % ep:
             raise ValueError(f"{n_rows} tokens do not split over ep={ep}")
+        gpos = None
+        if mesh is not None:
+            gpos = self._global_positions(lead, mesh).to(xf.device)
         if ep > 1:
             xf = C.psum_backward(xf, "ep", mesh).chunk(ep)[r]
+            gpos = gpos.chunk(ep)[r]
         w_r, b_r = self.router.weight, self.router.bias
         w1, w2 = self.experts_w1, self.experts_w2
         if ep > 1:
@@ -127,22 +158,22 @@ class MoE(nn.Module):
         gates = torch.softmax(logits, dim=-1)               # [s, E]
         expert = gates.argmax(-1)                           # [s]
         onehot = F.one_hot(expert, E).float()
-        counts = onehot.sum(0)
 
-        # ---- global token order: the slice's offset per expert and the
-        # global counts (prefix over the earlier ep slices of these rows,
-        # then over the earlier batch shards)
-        offset = torch.zeros_like(counts)
-        total = counts
+        # ---- global token order: every token's expert at its global
+        # position (gathered from the ranks that hold distinct tokens),
+        # each token's slot among its expert's tokens, the global counts
+        g_expert = expert
         if mesh is not None:
-            per_ep = C.all_gather(counts, "ep", mesh, tiled=False)
-            rows_total = per_ep.sum(0)
-            per_b = C.all_gather(rows_total, BATCH_AXES, mesh, tiled=False)
-            bi = mesh.index(BATCH_AXES)
-            offset = per_b[:bi].sum(0) + per_ep[:r].sum(0)
-            total = per_b.sum(0)
-        slot = ((torch.cumsum(onehot, 0) - 1.0) * onehot).sum(-1) + offset[
-            expert]
+            pairs = torch.stack([gpos, expert], 1)
+            for axis in _TOKEN_SPLIT:
+                pairs = C.all_gather(pairs, axis, mesh)
+            g_expert = torch.empty(s_global, dtype=torch.long,
+                                   device=xf.device)
+            g_expert[pairs[:, 0]] = pairs[:, 1]
+        g_onehot = F.one_hot(g_expert, E)
+        g_slot = ((torch.cumsum(g_onehot, 0) - 1) * g_onehot).sum(-1)
+        slot = g_slot if mesh is None else g_slot[gpos]
+        total = g_onehot.sum(0).float()
         keep = (slot < cap).float()
         gate = (gates * onehot).sum(-1) * keep
 

@@ -9,9 +9,10 @@ renamed to ``ray_tpu_torch``, ``RTPU_ADDRESS`` to ``RTT_ADDRESS``).
 Differences: ``start`` takes ``--num-gpus`` where JAX takes
 ``--num-tpus``, and a ``--block``ed head shuts its cluster down on
 SIGTERM as on Ctrl-C (``down`` relies on it); ``stop`` signals the
-port's processes (``STOP_PATTERNS``). Not ported yet: ``gameday list``
-and ``gameday run`` (they need the game-day runner) and ``lint`` (the
-static analyser).
+port's processes (``STOP_PATTERNS``); ``lint`` runs the port's rtpulint
+(``ray_tpu_torch/analysis/cli.py``) over ``ray_tpu_torch/``. Not ported
+yet: ``gameday list`` and ``gameday run`` (they need the game-day
+runner).
 """
 
 from __future__ import annotations
@@ -614,7 +615,19 @@ def main(argv=None):
     sp.add_argument("--address", default=None)
     sp.set_defaults(func=cmd_serve_shutdown)
 
+    # `ray-tpu-torch lint ...` delegates argv wholesale to the rtpulint
+    # CLI (ray_tpu_torch/analysis/cli.py) so `ray-tpu-torch lint` and
+    # `python -m ray_tpu_torch.analysis` stay one surface
+    sp = sub.add_parser(
+        "lint", add_help=False,
+        help="project-aware static analysis of ray_tpu_torch/ (rtpulint)")
+    sp.set_defaults(func=None)
+
     argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] == "lint":
+        from ray_tpu_torch.analysis.cli import main as lint_main
+        sys.exit(lint_main(argv[1:]))
+
     args = p.parse_args(argv)
     args.func(args)
 

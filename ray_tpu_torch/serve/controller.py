@@ -1006,11 +1006,13 @@ class ServeController:
                     name)
                 self._forget_replica(info, h)
                 self._journal_deployment(name)
-        for _name, _info, h in removals:
+        for name, info, h in removals:
             try:
                 ray_tpu_torch.kill(h)
-            except Exception:
-                pass  # already dead
+            except Exception as e:  # already dead: nothing to free
+                logger.debug("serve: kill of removed replica %s of %r: %r",
+                             info.replica_names.get(h._id_hex, h._id_hex[:8]),
+                             name, e)
         if newly_ready:
             # a replica passing its FIRST probe enters the route table
             # (and may unlock the next rolling-update wave)
@@ -1045,7 +1047,7 @@ class ServeController:
                     total_queue += load.get("queue_len", 0)
                 # dead/slow replica: the health check owns removal;
                 # routers just won't get a fresh report for it
-                except Exception:
+                except Exception:  # rtpulint: ignore[RTPU007]
                     pass
             if per_replica:
                 load_table[name] = per_replica

@@ -341,9 +341,12 @@ def make_causal_lm_trainer(model_config=None, *,
     Batches are [B, T]: B split over (dp, fsdp), T over sp, as JAX's
     ``P(("dp", "fsdp"), "sp")``; at sp > 1 the one-device step's
     semantics hold (global positions, the loss's shift across slices,
-    the token count and the grads summed over sp too). Dropout runs on
-    the route without a process group only."""
-    from ray_tpu_torch.models.gpt2 import (GPT2, GPT2Config,
+    the token count and the grads summed over sp too). Dropout draws its
+    masks from a generator seeded by the step (JAX's ``fold_in(17,
+    step)``'s role); on a mesh each rank applies its rows of the
+    one-device mask (``gpt2.MeshDropout``), so the mesh step is the
+    one-device step at the same seed."""
+    from ray_tpu_torch.models.gpt2 import (GPT2, GPT2Config, MeshDropout,
                                            causal_lm_loss_terms,
                                            params_from_flax)
 
@@ -354,10 +357,6 @@ def make_causal_lm_trainer(model_config=None, *,
     else:
         cfg = model.cfg
     p_drop = float(cfg.dropout or 0.0)
-    if p_drop > 0.0 and mesh.device_mesh is not None:
-        raise NotImplementedError(
-            "dropout on a mesh with a process group: each rank would need "
-            "its rows of the one-device mask")
 
     def init(seed: int = 0, params: Optional[Dict[str, Any]] = None):
         m = GPT2(cfg) if model is None else copy.deepcopy(model)
@@ -378,6 +377,8 @@ def make_causal_lm_trainer(model_config=None, *,
             # step of a restarted run drops the same units
             gen = torch.Generator(device=dev).manual_seed(
                 (_DROPOUT_SEED << 32) + state["step"])
+            if mesh.device_mesh is not None:
+                gen = MeshDropout(gen, mesh)
         ms.gather()
         _zero_grads(state)
         labels = batch["labels"]

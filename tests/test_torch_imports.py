@@ -162,7 +162,7 @@ def test_port_files_found():
                 "util/client/common", "util/client/server",
                 "util/client/worker", "util/cross_language"):
         assert f"ray_tpu_torch/{mod}.py" in rel
-    for jax_file, port_file in OPS_FILES:
+    for jax_file, port_file in OPS_FILES + UTIL_ANALYSIS_FILES:
         assert port_file in rel, jax_file
     assert len(files) > 10
 
@@ -181,8 +181,21 @@ OPS_FILES = [(f"ray_tpu/{m}.py", f"ray_tpu_torch/{m}.py") for m in (
                          "ray_tpu_torch/autoscaler/gcp_gpu.py")]
 
 
-@pytest.mark.parametrize("jax_file,port_file", OPS_FILES,
-                         ids=[p for _, p in OPS_FILES])
+# util's last five modules and rtpulint: each JAX file and its namesake
+UTIL_ANALYSIS_FILES = [(f"ray_tpu/{m}.py", f"ray_tpu_torch/{m}.py") for m in (
+    "util/check_serialize", "util/multiprocessing", "util/iter", "util/dask",
+    "util/joblib", "analysis/__init__", "analysis/__main__",
+    "analysis/baseline", "analysis/cli", "analysis/config_registry",
+    "analysis/core", "analysis/docs_gen", "analysis/reporter",
+    "analysis/checkers/__init__", "analysis/checkers/blocking",
+    "analysis/checkers/chaos_sites", "analysis/checkers/env_registry",
+    "analysis/checkers/excepts", "analysis/checkers/locks",
+    "analysis/checkers/resources", "analysis/checkers/wire_versions")]
+
+
+@pytest.mark.parametrize("jax_file,port_file",
+                         OPS_FILES + UTIL_ANALYSIS_FILES,
+                         ids=[p for _, p in OPS_FILES + UTIL_ANALYSIS_FILES])
 def test_ops_files_have_port_namesakes(jax_file, port_file):
     """Each port file names its JAX source in its docstring."""
     assert os.path.exists(os.path.join(REPO_ROOT, jax_file))
@@ -272,6 +285,45 @@ def test_ops_modules_import_without_torch():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_util_and_analysis_import_without_torch():
+    """The five util modules and the whole of rtpulint (its CLI through
+    ``ray-tpu-torch lint``'s module included) load neither torch nor the
+    kernels."""
+    code = (
+        "import sys\n"
+        "import ray_tpu_torch.util.check_serialize,"
+        " ray_tpu_torch.util.multiprocessing\n"
+        "import ray_tpu_torch.util.iter, ray_tpu_torch.util.dask,"
+        " ray_tpu_torch.util.joblib\n"
+        "import ray_tpu_torch.analysis.cli, ray_tpu_torch.analysis.docs_gen\n"
+        "from ray_tpu_torch.analysis.core import registry\n"
+        "assert len(registry()) == 7\n"
+        "print(sorted(m for m in ('torch', 'ray_tpu_torch.kernels')"
+        " if m in sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=REPO_ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_models_export_what_jax_exports():
+    """``ray_tpu_torch.models`` names every name ``ray_tpu.models``
+    exports; ``causal_lm_loss`` is Llama's (the JAX name's module), not
+    GPT-2's, and ``import_hf_llama`` is Llama's HF import."""
+    import ray_tpu.models as J
+    import ray_tpu_torch.models as T
+    from ray_tpu_torch.models import gpt2, llama
+    jax_names = {n for n, v in vars(J).items() if not n.startswith("_")
+                 and not isinstance(v, type(J))}
+    assert jax_names <= set(T.__all__), jax_names - set(T.__all__)
+    assert all(hasattr(T, n) for n in T.__all__)
+    assert T.causal_lm_loss is llama.causal_lm_loss
+    assert T.causal_lm_loss is not gpt2.causal_lm_loss
+    assert T.import_hf_llama is llama.import_hf_llama
 
 
 def test_checker_catches_forbidden_imports(tmp_path):

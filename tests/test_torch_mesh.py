@@ -193,9 +193,10 @@ def _jax_image():
     return variables, metrics, final
 
 
-def _lm_case(spec, uneven=False):
+def _lm_case(spec, uneven=False, dropout=0.0):
     _, ct = _gpt2_cfgs()
     params, _, _ = _jax_lm()
+    ct = dataclasses.replace(ct, dropout=dropout)
     return dict(kind="causal_lm", model=TG.GPT2(ct), steps=STEPS,
                 batch=_lm_batches()[uneven], spec=spec,
                 params={"params": params})
@@ -211,6 +212,8 @@ def _image_case(spec):
 LM_MESHES = {"dp2": dict(dp=2), "fsdp2": dict(fsdp=2), "tp2": dict(tp=2),
              "dp2_uneven_labels": dict(dp=2), "dp2_tp2": dict(dp=2, tp=2),
              "dp2_fsdp2_tp2": dict(dp=2, fsdp=2, tp=2)}
+DROPOUT = 0.1       # GPT-2's published dropout
+DROPOUT_MESHES = {"dp2": dict(dp=2), "sp2": dict(sp=2)}
 IMAGE_MESHES = {"dp2": dict(dp=2), "dp2_fsdp2": dict(dp=2, fsdp=2),
                 "tp2": dict(tp=2), "dp2_fsdp2_tp2": dict(dp=2, fsdp=2, tp=2)}
 
@@ -218,6 +221,8 @@ IMAGE_MESHES = {"dp2": dict(dp=2), "dp2_fsdp2": dict(dp=2, fsdp=2),
 def _cases():
     cases = {("lm", k): _lm_case(v, uneven=k.endswith("uneven_labels"))
              for k, v in LM_MESHES.items()}
+    cases.update({("lm_dropout", k): _lm_case(v, dropout=DROPOUT)
+                  for k, v in DROPOUT_MESHES.items()})
     cases.update({("image", k): _image_case(v)
                   for k, v in IMAGE_MESHES.items()})
     return cases
@@ -315,6 +320,24 @@ def test_causal_lm_mesh_matches_one_device(mesh):
         labels = _lm_batches()[1]["labels"][:, 1:]
         assert (labels[:2] != -100).sum() == 2
         assert (labels[2:] != -100).sum() == 254
+
+
+@pytest.mark.parametrize("mesh", list(DROPOUT_MESHES))
+def test_dropout_mesh_matches_one_device(mesh):
+    """Three f32 steps of the tiny GPT-2 at dropout 0.1 on a 2-rank mesh
+    against the one-device route from the same params and seed, held by
+    the rule above (loss and grad_norm within 1e-6 relative, params
+    within 1e-6 where the first step's |grad| passes PARAM_MASK): each
+    rank applies its rows (dp2) or positions (sp2) of the one-device
+    mask. The loss is more than 100 times that tolerance away from the
+    same step's at dropout 0, so the masks ran. Mask bits differ from flax's by design (the generator is
+    torch's), so the port is held to its own one-device route."""
+    key = ("lm_dropout", mesh)
+    run, oracle = _mesh_run(key), _oracle(key)
+    left_out = _hold(run, oracle, REL, PARAM_TOL, _grad_mask(oracle))
+    assert left_out < 0.01
+    no_drop = _oracle(("lm", "dp2"))[0]["metrics"]["loss"]
+    assert abs(run[0]["metrics"]["loss"] - no_drop) > 100 * REL * no_drop
 
 
 def test_causal_lm_dp2_tp2_matches_jax():

@@ -1,9 +1,11 @@
 """The port's MoE layer against the JAX package's, on the CPU.
 
-``MoE`` on one device and on dp2 x ep4 (8 gloo ranks: the experts in
-ep blocks, the all_to_all dispatch, the routing over the global batch)
-against JAX's ``MoE`` unsharded and on the same mesh of 8 virtual CPU
-devices: y, aux and the gradients of mean(y^2) + 0.01 aux, at
+``MoE`` on one device, on dp2 x ep4 (8 gloo ranks: the experts in ep
+blocks, the all_to_all dispatch, the routing over the global batch) and
+on ep2 x tp2 and ep2 x sp2 (4 gloo ranks: tp ranks holding the same
+tokens, sp ranks holding positions of them) against JAX's ``MoE``
+unsharded (and on dp2 x ep4 on the same mesh of 8 virtual CPU
+devices): y, aux and the gradients of mean(y^2) + 0.01 aux, at
 tests/test_moe.py's tolerances (rtol 1e-4, atol 1e-5), with a capacity
 that drops tokens and one that does not; ``expert_sharding_rule``
 against JAX's. Inputs and params are made from seeds and handed to
@@ -133,6 +135,47 @@ def test_moe_dp2_ep4_matches_jax(capacity):
                for r in ranks)
     assert run["blocks"]["experts_w1"] == (1, DM, FF)
     assert run["blocks"]["router.weight"] == (E, DM)
+
+
+# (mesh, the global x's shape: [S, d] or [B, T, d] for sp to split T)
+EP_TP_SP = {"ep2_tp2": (dict(ep=2, tp=2), (S, DM)),
+            "ep2_sp2": (dict(ep=2, sp=2), (4, S // 4, DM))}
+
+
+@functools.lru_cache(maxsize=None)
+def _ep_tp_sp_runs():
+    """Every (mesh, capacity) case of EP_TP_SP on one 4-rank spawn:
+    {(mesh, capacity): rank 0's run}, and every rank's runs."""
+    keys = [(m, c) for m in EP_TP_SP for c in CAPACITY]
+    calls = [("ray_tpu_torch.parallel.dryrun", "moe_sgd", dict(
+        spec=EP_TP_SP[m][0], x=_x().reshape(EP_TP_SP[m][1]), d_ff=FF,
+        capacity_factor=CAPACITY[c], params=_jax(CAPACITY[c])[0]))
+        for m, c in keys]
+    runs = D.spawn(D.call_all, 4, (calls,), timeout_s=SPAWN_TIMEOUT_S)
+    return dict(zip(keys, runs[0])), runs
+
+
+@pytest.mark.parametrize("capacity", list(CAPACITY))
+@pytest.mark.parametrize("mesh", list(EP_TP_SP))
+def test_moe_tp_and_sp_match_jax(mesh, capacity):
+    """ep2 x tp2 and ep2 x sp2 on 4 gloo ranks: sp ranks hold distinct
+    positions of the rows (4 x 8 tokens, T split in two), so they count
+    in the global slot order as (dp, fsdp) ranks do; tp ranks hold the
+    same tokens. y (gathered back to the global shape), aux and the
+    whole gradients against JAX's unsharded layer at rtol 1e-4, atol
+    1e-5, with and without dropped tokens; the losses equal the
+    one-device layer's within 1e-6 relative on every rank."""
+    cf = CAPACITY[capacity]
+    by_key, ranks = _ep_tp_sp_runs()
+    run = dict(by_key[mesh, capacity])
+    run["y"] = run["y"].reshape(S, DM)
+    _hold(run, cf)
+    one = D.moe_sgd(None, _x(), d_ff=FF, capacity_factor=cf,
+                    params=_jax(cf)[0])
+    i = list(by_key).index((mesh, capacity))
+    for r in ranks:
+        np.testing.assert_allclose(r[i]["losses"], one["losses"], rtol=1e-6)
+    assert run["blocks"]["experts_w1"] == (E // 2, DM, FF)
 
 
 @pytest.mark.parametrize("path, shape", [

@@ -10,8 +10,8 @@ the same status sequences for jobs that succeed, fail and are stopped,
 the same top-level keys on every dashboard route, the same ``/metrics``
 gauge families (``ray_tpu_*`` reads ``ray_tpu_torch_*``, the TPU gauges
 read GPU ones), the same Prometheus text for the same recorded points,
-the same CLI options (``--num-gpus`` for ``--num-tpus``; no ``gameday``
-or ``lint``). The CLI's ``status``, ``list actors`` and ``job list`` run
+the same CLI options (``--num-gpus`` for ``--num-tpus``; no
+``gameday``). The CLI's ``status``, ``list actors`` and ``job list`` run
 as fresh processes against the port cluster and load no torch. Actor
 classes and task functions are defined inside the programs (cloudpickle
 ships them by value). Every wait has a time limit.
@@ -347,7 +347,7 @@ COMMANDS = (["start"], ["stop"], ["status"], ["memory"], ["timeline"],
 
 def test_cli_subcommands_match_jax():
     assert _subcommands("ray_tpu_torch") == \
-        _subcommands("ray_tpu") - {"gameday", "lint"}
+        _subcommands("ray_tpu") - {"gameday"}
     for argv in COMMANDS:
         assert argv[0] in _subcommands("ray_tpu_torch")
 
